@@ -22,8 +22,10 @@ setup(
         "and serving."
     ),
     license="MPL 2.0",
-    packages=find_packages(include=["chiron_tpu", "chiron_tpu.*"]),
-    package_data={"chiron_tpu": ["native/Makefile", "native/*.cc"]},
+    packages=find_packages(include=["chiron_tpu", "chiron_tpu.*",
+                                    "chiron_tpu_torch", "chiron_tpu_torch.*"]),
+    package_data={"chiron_tpu": ["native/Makefile", "native/*.cc"],
+                  "chiron_tpu_torch": ["csrc/*.cu"]},
     install_requires=install_requires,
     entry_points={
         "console_scripts": [
