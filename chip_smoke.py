@@ -14,9 +14,16 @@ Phases (any failure exits non-zero and prints no result line):
      30 and at beam 0, with every launch count set to 0 just before each run
      and read just after; check the fastq output, and check one full batch's
      step outputs on the card against the same step on the CPU;
-  4. time each kernel, its plain version and a PyTorch library yardstick
-     with CUDA events after a warm-up, and the whole call in bases/s;
-  5. print the per-kernel JSON line, then {"ok": true, "device": ...}.
+  4. drive the port's `train` entry point (DNA_default config, -s 400 -b 300,
+     30 steps, fresh seeded weights) on seeded .signal/.label reads, with the
+     training LSTM's launch counts set to 0 just before and read just after
+     (6 forward + 6 backward per step); check the files it writes and that
+     the loss falls; basecall one batch with its final checkpoint; check one
+     full-width train step (bundled weights) on the card against the CPU;
+  5. time each kernel, its plain version and a PyTorch library yardstick
+     with CUDA events after a warm-up, the whole call in bases/s, and a warm
+     train step split into forward / loss / backward / update;
+  6. print the per-kernel JSON line, then {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -38,6 +45,12 @@ PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 SEED = 0
 BATCH, SEG, JUMP, BEAM = 400, 400, 390, 30
+TRAIN_BATCH, TRAIN_STEPS, CPU_STEP_BATCH = 300, 30, 64
+# At the CLI's default -t 4e-3 a fresh DNA_default reaches the CTC all-blank
+# plateau within its first 10 steps and stays there, so the recorded steps
+# 10/20/30 show no fall; at 1e-3 the descent spans the recorded steps.
+TRAIN_RATE = 1e-3
+LEVELS = np.array([100.0, 200.0, 300.0, 400.0])  # a learnable level per base (A, C, G, T)
 
 
 def log(*a):
@@ -79,6 +92,22 @@ def write_reads(sig_dir, n_reads, samples, rng):
         np.savetxt(os.path.join(sig_dir, f"read{i:02d}.signal"), sig.astype(np.int64), fmt="%d")
 
 
+def write_train_reads(data_dir, n_reads, n_bases, rng):
+    """Seeded .signal/.label pairs: one signal level per base, dwell 5-14
+    samples, noise sd 5, 20 trailing samples (the tests' synthetic reads)."""
+    os.makedirs(data_dir)
+    for i in range(n_reads):
+        bases = rng.randint(0, 4, n_bases)
+        dwell = rng.randint(5, 15, n_bases)
+        starts = np.concatenate([[0], np.cumsum(dwell)[:-1]])
+        sig = np.repeat(LEVELS[bases], dwell)
+        sig = np.concatenate([sig, np.full(20, LEVELS[bases[-1]])])
+        sig = sig + rng.randn(sig.size) * 5.0
+        np.savetxt(os.path.join(data_dir, f"read{i:02d}.signal"), sig, fmt="%.3f")
+        with open(os.path.join(data_dir, f"read{i:02d}.label"), "w") as f:
+            f.writelines(f"{s} {s + d} {'ACGT'[b]}\n" for s, d, b in zip(starts, dwell, bases))
+
+
 def main():
     import torch
 
@@ -87,8 +116,8 @@ def main():
     from chiron_tpu_torch import cli
     from chiron_tpu_torch import config as C
     from chiron_tpu_torch.eval import pipeline
-    from chiron_tpu_torch.ops import beam, bilstm, conv_bn, cuda_build
-    from chiron_tpu_torch.params import from_jax_params
+    from chiron_tpu_torch.ops import beam, bilstm, conv_bn, cuda_build, lstm_grad
+    from chiron_tpu_torch.params import from_jax_params, to_numpy_tree
     from chiron_tpu_torch.train.checkpoint import restore_latest
 
     dev = torch.device("cuda")
@@ -194,6 +223,34 @@ def main():
             failures.append(f"beam_search {case} trace")
         tb_mism = int((chars != pchars).sum())
         tb_err = max(tb_err, hold(f"beam_traceback {case} chars", float(tb_mism), 0))
+    # the training LSTM at one DNA_default direction: T = 400, B = 300, H = 128,
+    # lengths with 0 and T, random output gradient
+    tb = TRAIN_BATCH
+    xw_t = rnd(t_len, tb, 4 * h)
+    wh_t = rnd(h, 4 * h, scale=(6 / (5 * h)) ** 0.5 / 2)
+    lens_t = torch.randint(0, t_len + 1, (tb,), generator=gen).to(torch.int32)
+    lens_t[0], lens_t[1] = 0, t_len
+    lens_t = lens_t.to(dev)
+    dhs_t = rnd(t_len, tb, h)
+    fwd = lstm_grad.lstm_fwd_residuals(xw_t, wh_t, lens_t)
+    fwd_p = lstm_grad.lstm_fwd_residuals_plain(xw_t, wh_t, lens_t)
+    torch.cuda.synchronize()
+    fwd_errs = {n: float((g - r).abs().max()) for n, g, r in zip(("out", "gates", "cc", "hc"),
+                                                                 fwd, fwd_p)}
+    fwd_err = hold("lstm_fwd_residuals T=400 B=300 H=128", max(fwd_errs.values()), 1e-5,
+                   f"{json.dumps(fwd_errs)} ")
+    dxw, dwh = lstm_grad.lstm_bwd(*fwd_p[1:], dhs_t, wh_t, lens_t)
+    _, dwh_again = lstm_grad.lstm_bwd(*fwd_p[1:], dhs_t, wh_t, lens_t)
+    dxw_p, dwh_p = lstm_grad.lstm_bwd_plain(*fwd_p[1:], dhs_t, wh_t, lens_t)
+    torch.cuda.synchronize()
+    dwh_scale = float(dwh_p.abs().max())
+    dwh_abs = float((dwh - dwh_p).abs().max())
+    bwd_err = max(hold("lstm_bwd dxw", float((dxw - dxw_p).abs().max()), 1e-4), dwh_abs)
+    hold("lstm_bwd dwh (relative to max |dwh|)", dwh_abs / dwh_scale, 1e-4,
+         f"(max |dwh| {dwh_scale:.2f}) ")
+    if not torch.equal(dwh, dwh_again):
+        failures.append("lstm_bwd dwh differs between two runs")
+    log(f"  lstm_bwd dwh bit-identical across two runs: {torch.equal(dwh, dwh_again)}")
     if failures:
         fail(f"kernels disagree with their plain versions: {failures}")
 
@@ -296,7 +353,95 @@ def main():
     if failures or frac < 0.99:
         fail(f"card step disagrees with the CPU step: {failures}, identical {frac:.4f}")
 
-    # ---- 4. timing ----------------------------------------------------------
+    # ---- 4. the training path: `train` at DNA_default width ----------------
+    from chiron_tpu_torch.ops.ctc_loss import ctc_focal_loss
+    from chiron_tpu_torch.train import loop
+
+    train_dir, valid_dir = os.path.join(work, "train"), os.path.join(work, "valid")
+    write_train_reads(train_dir, 16, 2000, rng)  # ~750 windows of 400 samples
+    write_train_reads(valid_dir, 2, 1000, rng)
+    log_dir = os.path.join(work, "log")
+    train_args = ["train", "-i", train_dir, "-o", log_dir, "-m", "dna", "-v", valid_dir,
+                  "--configure", os.path.join(MODEL_DIR, "model.json"), "-s", str(SEG),
+                  "-b", str(TRAIN_BATCH), "-x", str(TRAIN_STEPS), "-t", str(TRAIN_RATE),
+                  "--device", "cuda"]
+    for k in lstm_grad.launches:
+        lstm_grad.launches[k] = 0
+    t = time.time()
+    result = cli.main(train_args)
+    torch.cuda.synchronize()
+    train_wall = time.time() - t
+    train_counts = dict(lstm_grad.launches)
+    log(f"train -s {SEG} -b {TRAIN_BATCH} -x {TRAIN_STEPS} -t {TRAIN_RATE}: {train_wall:.3f} s, losses "
+        f"{result['losses']}; launches {train_counts}")
+    for k, n in train_counts.items():
+        if n != 6 * TRAIN_STEPS:
+            fail(f"train launched {k} {n} times, expected {6 * TRAIN_STEPS}")
+    mdir = result["model_dir"]
+    names = os.listdir(mdir)
+    for want in ("model.json", "checkpoint", "metrics.jsonl", f"final-{TRAIN_STEPS}.npz",
+                 f"ema-{TRAIN_STEPS}.npz"):
+        if want not in names:
+            fail(f"train did not write {want} (wrote {sorted(names)})")
+    with open(os.path.join(mdir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in rows]
+    log(f"  metrics.jsonl: " + json.dumps(rows))
+    if [r["step"] for r in rows] != [10, 20, 30] or not np.all(np.isfinite(losses)) \
+            or not losses[-1] < losses[0]:
+        fail(f"train losses {losses}: expected finite at steps 10, 20, 30 and falling")
+    # close the loop with the call path: basecall one batch with the final checkpoint
+    trained_tree, trained_step = restore_latest(mdir)
+    trained = from_jax_params(trained_tree, C.read_config(os.path.join(mdir, "model.json")),
+                              "cuda")
+    dec_lens = pipeline.unpack_step_outputs(
+        pipeline.decode_step(trained, xg, slg, BEAM, 0.0).cpu().numpy())[1]
+    if trained_step != TRAIN_STEPS or dec_lens.shape != (BATCH,) \
+            or not ((dec_lens >= 0) & (dec_lens <= SEG)).all():
+        fail(f"basecalling with the trained checkpoint (step {trained_step}) failed")
+    log(f"  basecalled one batch with final-{trained_step}: {int(dec_lens.sum())} bases")
+
+    # one full-width train step (bundled DNA_default weights) on the card vs the CPU
+    dataset = loop.load_dataset(train_dir, SEG)
+    if dataset.n < 2 * TRAIN_BATCH:
+        fail(f"only {dataset.n} training windows, expected well over {TRAIN_BATCH}")
+    step_ratio = gpu_model.ratio(SEG)
+    cpu_batch = dataset.next_batch(CPU_STEP_BATCH)
+
+    def value_and_grad(device):
+        m = from_jax_params(tree, config, device).requires_grad_(True)
+        b = loop.batch_to_device(cpu_batch, step_ratio, torch.device(device))
+        loss = ctc_focal_loss(m(b["signal"], b["seq_len"], training=True), b["seq_len"],
+                              b["label"], b["label_len"], float(config["fl_gamma"]))
+        loss.backward()
+        return float(loss.detach()), {k: p.grad.cpu() for k, p in m.flat.items()}
+
+    loss_g, grads_g = value_and_grad("cuda")
+    loss_c, grads_c = value_and_grad("cpu")
+    hold(f"train step loss card vs CPU ({CPU_STEP_BATCH} windows, relative)",
+         abs(loss_g - loss_c) / abs(loss_c), 1e-4, f"(loss {loss_c:.4f}) ")
+    # each leaf within 1e-2 of its own max |grad| plus 1e-4 of the largest
+    # |grad| of all leaves: 12 batch-stat convs, 3 BiLSTM layers and the CTC
+    # recursions sum in another order on the card. The absolute floor is for
+    # res1's branch1/conv2a, which read the 1-channel signal straight into a
+    # batch-stat BN: their output does not depend on w's scale, so their
+    # exact gradient is ~0 and both sides compute float32 cancellation noise.
+    top = max(float(g.abs().max()) for g in grads_c.values())
+    grad_spread = {k: float((grads_g[k] - g).abs().max()) for k, g in grads_c.items()}
+    grad_ratio = {k: e / (1e-2 * float(grads_c[k].abs().max()) + 1e-4 * top)
+                  for k, e in grad_spread.items()}
+    own = sorted(e / max(float(grads_c[k].abs().max()), 1e-30) for k, e in grad_spread.items())
+    worst = sorted(grad_ratio, key=grad_ratio.get)[-3:]
+    hold("train step gradients card vs CPU (worst leaf: err / (1e-2 own max + 1e-4 top))",
+         grad_ratio[worst[-1]], 1.0,
+         f"(largest |grad| {top:.3e}; worst leaves "
+         + json.dumps({k: [grad_spread[k], float(grads_c[k].abs().max())] for k in worst})
+         + f"; per-leaf err / own max: median {own[len(own) // 2]:.2e}, 90th percentile "
+         f"{own[int(0.9 * len(own))]:.2e}) ")
+    if failures:
+        fail(f"card train step disagrees with the CPU step: {failures}")
+
+    # ---- 5. timing ----------------------------------------------------------
     # where one warm full-batch step's device time goes (CUDA events)
     from chiron_tpu_torch.models import layers as L, model as M, rnn as R
 
@@ -342,6 +487,75 @@ def main():
     else:
         log("profiled warm call: device busy share not measured (no device events)")
 
+    # a warm train step at -s 400 -b 300 (fresh seeded weights), split with
+    # CUDA events, then steps/s over warm steps and the idle share of a
+    # profiled short `train` run
+    model_t = from_jax_params(M.init_model(torch.Generator().manual_seed(SEED), config),
+                              config, "cuda").requires_grad_(True)
+    ema_t = from_jax_params(to_numpy_tree(model_t), config, "cuda")
+    opt_t = loop.make_optimizer("Adam", TRAIN_RATE, 10000, model_t.parameters())
+    batch_t = loop.batch_to_device(dataset.next_batch(TRAIN_BATCH), step_ratio, dev)
+    step_fn = loop.make_train_step(config, float(config["fl_gamma"]))
+
+    def train_parts():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        logits = model_t(batch_t["signal"], batch_t["seq_len"], training=True)
+        ev[1].record()
+        loss = ctc_focal_loss(logits, batch_t["seq_len"], batch_t["label"],
+                              batch_t["label_len"], float(config["fl_gamma"]))
+        ev[2].record()
+        opt_t.zero_grad()
+        loss.backward()
+        ev[3].record()
+        opt_t.step()
+        loop.ema_update(ema_t, model_t, opt_t.count)
+        ev[4].record()
+        ev[4].synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+    train_parts()
+    tparts = np.mean([train_parts() for _ in range(3)], axis=0)
+    log("one warm train step (-s 400 -b 300), device ms: " + json.dumps(dict(zip(
+        ("forward", "loss", "backward", "update_and_ema"), [float(v) for v in tparts]))))
+    n_steps = 5
+    torch.cuda.synchronize()
+    t = time.time()
+    for i in range(n_steps):
+        step_fn(model_t, ema_t, opt_t, batch_t, i)
+    torch.cuda.synchronize()
+    step_s = (time.time() - t) / n_steps
+    train_rate = {"seconds_per_step": step_s, "steps_per_s": 1 / step_s,
+                  "windows_per_s": TRAIN_BATCH / step_s}
+    log(f"warm train steps: {json.dumps(train_rate)}")
+    lg = model_t(batch_t["signal"], batch_t["seq_len"], training=True).detach()
+    lg.requires_grad_(True)
+    ctc_args = (batch_t["seq_len"], batch_t["label"], batch_t["label_len"], 2.0)
+    ctc_fwd_ms = time_ms(torch, lambda: ctc_focal_loss(lg, *ctc_args), 3, 1)
+    ctc_both_ms = time_ms(torch, lambda: ctc_focal_loss(lg, *ctc_args).backward(), 3, 1)
+    log(f"ctc_focal_loss at B={TRAIN_BATCH} T={SEG} U={int(batch_t['label'].shape[1])}: "
+        f"forward {ctc_fwd_ms:.3f} ms, forward+backward {ctc_both_ms:.3f} ms")
+    prof_args = list(train_args)
+    prof_args[prof_args.index("-m") + 1] = "dna_prof"
+    prof_args[prof_args.index("-x") + 1] = "10"
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        cli.main(prof_args)
+        torch.cuda.synchronize()
+        wall_t = time.time() - t
+    kern = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kern[e.name] = kern.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_t = sum(kern.values()) / 1e6
+    if busy_t > 0:
+        top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
+        log(f"profiled train -x 10: wall {wall_t:.3f} s, device busy {busy_t:.3f} s, idle "
+            f"share {1 - busy_t / wall_t:.3f}; top device time (ms): "
+            + json.dumps({k[:60]: round(v / 1e3, 3) for k, v in top}))
+    else:
+        log("profiled train: device busy share not measured (no device events)")
+
     F = torch.nn.functional
     terms, w, relu, stride = conv_cases["k3_two_terms_relu"]
     z_ncw = torch.relu(sum(r * a + b for r, a, b in terms)).transpose(1, 2).contiguous()
@@ -368,6 +582,21 @@ def main():
                                 time_ms(torch, lambda: beam.beam_traceback_plain(trace, best), 3, 1),
                                 None)
 
+    res_t = lstm_grad.lstm_fwd_residuals(xw_t, wh_t, lens_t)
+    lib_lstm = torch.nn.LSTM(2 * h, h).to(dev)
+    x_lstm = rnd(t_len, tb, 2 * h).requires_grad_(True)
+    out_lib, _ = lib_lstm(x_lstm)
+    lib_inputs = [x_lstm] + list(lib_lstm.parameters())
+    timing["lstm_fwd_residuals"] = (
+        time_ms(torch, lambda: lstm_grad.lstm_fwd_residuals(xw_t, wh_t, lens_t), 5),
+        time_ms(torch, lambda: lstm_grad.lstm_fwd_residuals_plain(xw_t, wh_t, lens_t), 2, 1),
+        time_ms(torch, lambda: lib_lstm(x_lstm), 5))
+    timing["lstm_bwd"] = (
+        time_ms(torch, lambda: lstm_grad.lstm_bwd(*res_t[1:], dhs_t, wh_t, lens_t), 5),
+        time_ms(torch, lambda: lstm_grad.lstm_bwd_plain(*res_t[1:], dhs_t, wh_t, lens_t), 2, 1),
+        time_ms(torch, lambda: torch.autograd.grad(out_lib, lib_inputs, dhs_t,
+                                                   retain_graph=True), 5))
+
     # bounds from this run's inputs (bytes: each input read once, each output
     # written once; operations: what these inputs need)
     cin = cout = c
@@ -385,7 +614,18 @@ def main():
     beam_ops = steps * (8 * cand + 4 * BEAM * BEAM + cand * np.log2(cand))
     beam_bytes = 4.0 * (BATCH * t_len * 5 + BATCH + BATCH * t_len * BEAM + 2 * BATCH * BEAM)
     tb_bytes = 4.0 * (BATCH + BATCH * t_len + BATCH * t_len)  # best, path reads, chars
-    bounds = {"conv_bn": bound_ms(conv_flops, conv_bytes),
+    # training LSTM, per active (row, step): forward h @ wh plus ~12H gate ops;
+    # backward da @ wh^T and h^T da (dwh) plus ~20H gate-gradient ops
+    active_t = float(lens_t.sum())
+    rows_t = t_len * tb
+    fwd_flops = active_t * (2 * h * 4 * h + 12 * h)
+    fwd_bytes = 4.0 * (rows_t * 4 * h + h * 4 * h + tb + 3 * rows_t * h + rows_t * 4 * h)
+    bwd_flops = active_t * (2 * 2 * h * 4 * h + 20 * h)
+    bwd_bytes = 4.0 * (rows_t * 4 * h + 3 * rows_t * h + h * 4 * h + tb + rows_t * 4 * h
+                       + h * 4 * h)
+    bounds = {"lstm_fwd_residuals": bound_ms(fwd_flops, fwd_bytes),
+              "lstm_bwd": bound_ms(bwd_flops, bwd_bytes),
+              "conv_bn": bound_ms(conv_flops, conv_bytes),
               "bilstm": bound_ms(lstm_flops, lstm_bytes),
               "beam_search": bound_ms(beam_ops, beam_bytes),
               "beam_traceback": bound_ms(BATCH * t_len, tb_bytes)}
@@ -398,20 +638,25 @@ def main():
                         beam_err),
         "beam_traceback": ("chiron_tpu_torch/csrc/beam.cu", "chiron_tpu/ops/pallas/beam.py:462",
                            tb_err),
+        "lstm_fwd_residuals": ("chiron_tpu_torch/csrc/lstm_grad.cu",
+                               "chiron_tpu/ops/pallas/lstm_grad.py:120", fwd_err),
+        "lstm_bwd": ("chiron_tpu_torch/csrc/lstm_grad.cu",
+                     "chiron_tpu/ops/pallas/lstm_grad.py:174", bwd_err),
     }
+    path_launches = {**beam_counts, **train_counts}
     kernels = []
     for name, (source, replaces, err) in meta.items():
         ms, plain_ms, lib_ms = timing[name]
         b_ms, b_by = bounds[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": beam_counts[name], "max_abs_err": err, "ms": ms,
+                        "launches": path_launches[name], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": lib_ms})
     for k in kernels:
         log(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, bound "
             f"{k['bound_ms']:.4f} by {k['bound_by']}, library {k['library_ms']})")
     shutil.rmtree(work, ignore_errors=True)
-    log(json.dumps({"call_dna_pre_beam30": call_rate}))
+    log(json.dumps({"call_dna_pre_beam30": call_rate, "train_s400_b300": train_rate}))
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

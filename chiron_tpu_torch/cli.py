@@ -1,11 +1,14 @@
-"""`chiron`-compatible CLI for the PyTorch port: the `call` subcommand.
+"""`chiron`-compatible CLI for the PyTorch port: `call` and `train`.
 
 Flags mirror ``chiron_tpu/cli.py`` (chiron/entry.py:62-155) plus
 ``--device`` (default cuda; a missing GPU raises instead of falling back).
 A fast5 input folder is first extracted to <output>/raw/*.signal (needs
-h5py); a folder of .signal files is basecalled directly:
+h5py); a folder of .signal files is basecalled directly. Training reads a
+folder of .signal/.label pairs:
 
     python -m chiron_tpu_torch.cli call -i <in> -o <out> -p dna-pre
+    python -m chiron_tpu_torch.cli train -i <train dir> -o <log dir> -m <name> \
+        --configure chiron_tpu/model/DNA_default/model.json
 """
 
 from __future__ import annotations
@@ -72,6 +75,52 @@ def evaluation(args):
     return pipeline.run(args)
 
 
+def train(args):
+    from chiron_tpu_torch.train import loop
+    from chiron_tpu_torch.utils.device import resolve_device
+
+    resolve_device(args.device)  # fail before loading any data
+    return loop.train(args)
+
+
+def _add_train_parser(subparsers) -> None:
+    p = subparsers.add_parser("train", description="Model training", help="Train a model.")
+    p.add_argument("-i", "--data_dir", required=True,
+                   help="Directory that stores .signal/.label training pairs.")
+    p.add_argument("-o", "--log_dir", required=True,
+                   help="log directory that store the training model.")
+    p.add_argument("-m", "--model_name", required=True, help="model_name")
+    p.add_argument("-v", "--validation", default=None,
+                   help="validation data directory; default None (no validation)")
+    p.add_argument("--train_cache", default=None,
+                   help="Cache file for training dataset (not ported yet: raises).")
+    p.add_argument("--valid_cache", default=None,
+                   help="Cache file for validation dataset (not ported yet: raises).")
+    p.add_argument("-s", "--sequence_len", type=int, default=400, help="the length of sequence")
+    p.add_argument("-b", "--batch_size", type=int, default=300, help="Batch size")
+    p.add_argument("-t", "--step_rate", type=float, default=4e-3, help="Step rate")
+    p.add_argument("-x", "--max_steps", type=int, default=10000, help="Maximum step")
+    p.add_argument("-n", "--segments_num", type=int, default=None,
+                   help="Maximum number of training segments to read.")
+    p.add_argument("--configure", default=None, help="Model structure configure json file.")
+    p.add_argument("-k", "--k_mer", default=1, type=int, help="Output k-mer size")
+    p.add_argument("-f", "--tfrecord", default=None,
+                   help="Train from a TFRecord file (not ported yet: raises).")
+    p.add_argument("--retrain", dest="retrain", action="store_true", help="Set retrain to true")
+    p.add_argument("--resample_after_epoch", type=int, default=0,
+                   help="Resample the reads data every n epochs with an increasing initial "
+                        "offset.")
+    p.add_argument("--offset_increment", type=int, default=3,
+                   help="Increment of initial offset per resample.")
+    p.add_argument("--n_devices", type=int, default=0,
+                   help="Data-parallel GPUs (only 0/1 supported).")
+    p.add_argument("--sig_norm", type=int, default=None,
+                   help="Signal normalization: None raw (default), 0 median/mad, 1 mean/std.")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default) or cpu; cuda without a GPU is an error.")
+    p.set_defaults(func=train)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="chiron", description="A deep neural network basecaller (PyTorch/CUDA port).")
@@ -124,6 +173,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a GPU is an error.")
     p.set_defaults(func=evaluation)
+    _add_train_parser(subparsers)
     return parser
 
 

@@ -1,4 +1,4 @@
-"""Model/run configuration (a copy of ``chiron_tpu/config.py``'s read side).
+"""Model/run configuration (a copy of ``chiron_tpu/config.py``).
 
 A model folder holds ``model.json`` describing the architecture plus
 parameter checkpoints (reference: chiron/chiron_model.py:24-48). CLI presets
@@ -98,3 +98,12 @@ def read_config(config_file: str | None) -> Dict[str, Any]:
     config.setdefault("opt_method", "Adam")
     config.setdefault("fl_gamma", 0)
     return config
+
+
+def save_config(config_path: str, configure: Dict[str, Any]) -> None:
+    """Save configuration JSON next to checkpoints (chiron/chiron_model.py:24-35)."""
+    config_dir = os.path.dirname(config_path)
+    if config_dir:
+        os.makedirs(config_dir, exist_ok=True)
+    with open(config_path, "w") as f:
+        json.dump(configure, f)

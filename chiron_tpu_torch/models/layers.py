@@ -1,15 +1,20 @@
 """Convolutional layer library: functions on [B, T, C] tensors.
 
 Port of ``chiron_tpu/models/layers.py`` (reference: chiron/cnn.py:15-331),
-inference only, float32. Parameters are the JAX package's nested dicts,
-with torch tensors as leaves.
+float32. Parameters are the JAX package's nested dicts, with torch tensors
+as leaves.
 
-Every conv of the ported fronts goes through the fused conv+BN kernel
-(``ops/conv_bn.py``): a BN'd relu/linear conv returns a ``LazyBN``, the raw
-conv output plus a deferred affine that the NEXT conv applies as it reads;
-``materialize`` collapses one into a tensor. The reference's "global batch
-norm" uses current-batch statistics even at inference (chiron/cnn.py:166-188),
-so outputs depend on the batch composition.
+At inference every conv of the ported fronts goes through the fused conv+BN
+kernel (``ops/conv_bn.py``): a BN'd relu/linear conv returns a ``LazyBN``,
+the raw conv output plus a deferred affine that the NEXT conv applies as it
+reads; ``materialize`` collapses one into a tensor. With ``training=True``
+a conv is the differentiable chain of the JAX package's unfused path: a SAME
+conv as one ``torch.matmul`` per tap, ``global_bn``, then the activation,
+each materialised, in full float32 (the trainer turns TF32 off for matmuls
+and cuDNN: ``utils/device.py:float32_strict``, called by
+``train/loop.py:make_train_step``). The reference's "global batch norm" uses current-batch
+statistics even at inference (chiron/cnn.py:166-188), so outputs depend on
+the batch composition.
 """
 
 from __future__ import annotations
@@ -18,11 +23,34 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from chiron_tpu_torch.ops.conv_bn import bn_affine, conv_bn
+from chiron_tpu_torch.models.initializers import variance_scaling, xavier_normal
+from chiron_tpu_torch.ops.conv_bn import bn_affine, conv_bn, conv_same
 
 Params = Dict[str, Any]
 
 _BN_EPS = 1e-5
+
+
+def init_conv(gen: torch.Generator, ksize: int, c_in: int, c_out: int,
+              bn: bool = True) -> Params:
+    """A conv's params: w [k, C_in, C_out] (+ BN scale/offset [C_out])."""
+    p: Params = {"w": xavier_normal(gen, (ksize, c_in, c_out))}
+    if bn:
+        p["bn_scale"] = variance_scaling(gen, (c_out,))
+        p["bn_offset"] = variance_scaling(gen, (c_out,))
+    return p
+
+
+def init_residual(gen: torch.Generator, c_in: int, c_out: int, k: int = 3,
+                  i_bn: bool = False) -> Params:
+    """Residual block params: 1x1 identity branch (BN only when i_bn) and a
+    1x1 -> 1xk -> 1x1 bottleneck, all BN'd."""
+    return {
+        "branch1": init_conv(gen, 1, c_in, c_out, bn=i_bn),
+        "conv2a": init_conv(gen, 1, c_in, c_out),
+        "conv2b": init_conv(gen, k, c_out, c_out),
+        "conv2c": init_conv(gen, 1, c_out, c_out),
+    }
 
 
 def global_bn(x: torch.Tensor, scale, offset) -> torch.Tensor:
@@ -73,18 +101,33 @@ def _as_terms(x):
     return ((x, one, zero),), False
 
 
+def _conv_train(params: Params, x, stride: int, active: Optional[str]) -> torch.Tensor:
+    """The differentiable unfused conv: SAME conv -> BN -> activation."""
+    y = conv_same(materialize(x), params["w"], stride)
+    if "bn_mean" in params:
+        y = pop_bn(y, params["bn_scale"], params["bn_offset"], params["bn_mean"],
+                   params["bn_var"])
+    elif "bn_scale" in params:
+        y = global_bn(y, params["bn_scale"], params["bn_offset"])
+    return torch.relu(y) if active == "relu" else y
+
+
 def conv(params: Params, x, stride: int = 1, dilation: int = 1,
-         padding: str = "SAME", active: Optional[str] = "relu") -> LazyBN:
-    """1-D SAME conv [B, T, C_in] -> LazyBN of [B, ceil(T/stride), C_out].
+         padding: str = "SAME", active: Optional[str] = "relu", training: bool = False):
+    """1-D SAME conv [B, T, C_in] -> [B, ceil(T/stride), C_out].
 
     conv -> optional BN (batch-stat, or population stats when the params
-    carry bn_mean/bn_var) -> optional relu (chiron/cnn.py:15-83), through
-    the fused conv+BN kernel. The ported fronts only use dilation 1, SAME
-    padding, relu/linear activations and no bias.
+    carry bn_mean/bn_var) -> optional relu (chiron/cnn.py:15-83). At
+    inference through the fused conv+BN kernel, returning a LazyBN; with
+    ``training`` as differentiable torch ops, returning a tensor. The ported
+    fronts only use dilation 1, SAME padding, relu/linear activations and no
+    bias.
     """
     if dilation != 1 or padding != "SAME" or active not in ("relu", None) or "b" in params:
         raise NotImplementedError(
             "only dilation-1 SAME relu/linear convs without bias are ported")
+    if training:
+        return _conv_train(params, x, stride, active)
     if isinstance(x, LazyBN) and len(x.terms) > 2:
         x = materialize(x)  # the kernel prologue sums at most two terms
     terms, relu_in = _as_terms(x)
@@ -104,11 +147,14 @@ def conv(params: Params, x, stride: int = 1, dilation: int = 1,
     return LazyBN([(y_raw, a, b)], relu=(active == "relu"))
 
 
-def residual(params: Params, x, stride: int = 1) -> LazyBN:
-    """Residual block (chiron/cnn.py:234-262); its output is never
-    materialised: both branches flow to the next conv's prologue as terms."""
-    identity = conv(params["branch1"], x, stride=stride, active=None)
-    y = conv(params["conv2a"], x)
-    y = conv(params["conv2b"], y, stride=stride)
-    y = conv(params["conv2c"], y, active=None)
+def residual(params: Params, x, stride: int = 1, training: bool = False):
+    """Residual block (chiron/cnn.py:234-262). At inference its output is
+    never materialised: both branches flow to the next conv's prologue as
+    terms. With ``training`` both branches are tensors, summed and relu'd."""
+    identity = conv(params["branch1"], x, stride=stride, active=None, training=training)
+    y = conv(params["conv2a"], x, training=training)
+    y = conv(params["conv2b"], y, stride=stride, training=training)
+    y = conv(params["conv2c"], y, active=None, training=training)
+    if training:
+        return torch.relu(identity + y)
     return LazyBN(identity.terms + y.terms, relu=True)

@@ -42,19 +42,24 @@ def _prologue(terms, relu_in: bool) -> torch.Tensor:
     return torch.relu(x) if relu_in else x
 
 
-def conv_bn_plain(terms, w: torch.Tensor, relu_in: bool, stride: int = 1):
-    """Plain PyTorch version of the kernel: same inputs, same outputs."""
-    x = _prologue(terms, relu_in)
-    bsz, t, _ = x.shape
-    k, _, c_out = w.shape
+def conv_same(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """XLA-SAME 1-D conv of x [B, T, C_in] by w [k, C_in, C_out] (JAX WIO
+    layout) at ``stride``: one torch.matmul per tap, differentiable."""
+    t = x.shape[1]
+    k = w.shape[0]
     out_t, lpad = same_padding(t, k, stride)
     need = (out_t - 1) * stride + k
     xp = torch.nn.functional.pad(x, (0, 0, lpad, max(need - lpad - t, 0)))
     y = None
     for i in range(k):
-        xi = xp[:, i:i + (out_t - 1) * stride + 1:stride, :]
-        yi = torch.matmul(xi, w[i])
+        yi = torch.matmul(xp[:, i:i + (out_t - 1) * stride + 1:stride, :], w[i])
         y = yi if y is None else y + yi
+    return y
+
+
+def conv_bn_plain(terms, w: torch.Tensor, relu_in: bool, stride: int = 1):
+    """Plain PyTorch version of the kernel: same inputs, same outputs."""
+    y = conv_same(_prologue(terms, relu_in), w, stride)
     return y, y.sum(dim=(0, 1)), (y * y).sum(dim=(0, 1))
 
 

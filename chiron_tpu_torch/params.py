@@ -1,12 +1,18 @@
-"""Carry the JAX package's weights into the port.
+"""The port's model object, and the way between it and the JAX params tree.
 
 ``from_jax_params`` takes the params pytree that ``chiron_tpu`` builds
-(``init_model``) or stores (the bundled ``.npz`` checkpoints, loaded with
+(``init_model``) or stores (the ``.npz`` checkpoints, loaded with
 ``train/checkpoint.py``): nested dicts and lists with numpy leaves. It
-returns a ``Basecaller`` module whose ``params`` is the same tree with
-float32 torch tensors on ``device`` (``flat`` maps each leaf's "/"-joined
-checkpoint key to its tensor). The weights are fixed at inference; build a
-new model to move it to another device.
+returns a ``Basecaller`` whose every float leaf is an ``nn.Parameter``
+registered in ``flat``, a ``ParameterDict`` keyed by the leaf's "/"-joined
+checkpoint key, so ``parameters()``, ``state_dict()`` and an optimizer see
+them. ``params`` is the same nested tree, pointing at the same Parameter
+objects, which the model functions read. The weights come frozen
+(``requires_grad`` False, as inference wants); the trainer turns gradients
+on with ``requires_grad_(True)``.
+
+``to_numpy_tree`` is the way back: the JAX-layout tree with numpy leaves,
+for checkpoints and for the JAX side of the tests.
 """
 
 from __future__ import annotations
@@ -21,30 +27,43 @@ from chiron_tpu_torch.models.model import apply_model, model_ratio
 from chiron_tpu_torch.utils.device import resolve_device
 
 
-def _to_torch(tree, device, name, sink):
+def _to_params(tree, device, name, sink):
     if isinstance(tree, dict):
-        return {k: _to_torch(v, device, f"{name}/{k}", sink) for k, v in tree.items()}
+        return {k: _to_params(v, device, f"{name}/{k}", sink) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_to_torch(v, device, f"{name}/[{i}]", sink) for i, v in enumerate(tree)]
+        return [_to_params(v, device, f"{name}/[{i}]", sink) for i, v in enumerate(tree)]
     if isinstance(tree, (int, str)) or tree is None:
         return tree  # static metadata leaves
-    t = torch.tensor(np.asarray(tree, dtype=np.float32), device=device)
-    sink[name.lstrip("/")] = t
-    return t
+    data = torch.tensor(np.asarray(tree, dtype=np.float32), device=device)
+    p = nn.Parameter(data, requires_grad=False)
+    sink[name.lstrip("/")] = p
+    return p
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_to_numpy(v) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
 
 
 class Basecaller(nn.Module):
-    """The port's model: a params tree + its config; forward = apply_model."""
+    """The port's model: registered weights + the params tree + its config;
+    forward = apply_model."""
 
     def __init__(self, params: Dict[str, Any], config: Dict[str, Any],
-                 flat: Dict[str, torch.Tensor]):
+                 flat: Dict[str, nn.Parameter]):
         super().__init__()
         self.params = params
         self.config = config
-        self.flat = flat
+        self.flat = nn.ParameterDict(flat)
 
-    def forward(self, signal: torch.Tensor, seq_len: torch.Tensor) -> torch.Tensor:
-        return apply_model(self.params, self.config, signal, seq_len)
+    def forward(self, signal: torch.Tensor, seq_len: torch.Tensor,
+                training: bool = False) -> torch.Tensor:
+        return apply_model(self.params, self.config, signal, seq_len, training=training)
 
     def ratio(self, seg_len: int) -> float:
         return model_ratio(self.config, seg_len)
@@ -53,6 +72,11 @@ class Basecaller(nn.Module):
 def from_jax_params(tree: Any, config: Dict[str, Any], device="cuda") -> Basecaller:
     """Build the port's model from a JAX params pytree (numpy leaves)."""
     dev = resolve_device(device)
-    flat: Dict[str, torch.Tensor] = {}
-    params = _to_torch(tree, dev, "", flat)
+    flat: Dict[str, nn.Parameter] = {}
+    params = _to_params(tree, dev, "", flat)
     return Basecaller(params, config, flat)
+
+
+def to_numpy_tree(model: Basecaller) -> Any:
+    """The model's params as the JAX-layout tree with numpy float32 leaves."""
+    return _to_numpy(model.params)

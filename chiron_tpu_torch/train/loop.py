@@ -1,0 +1,413 @@
+"""Single-GPU trainer: port of ``chiron_tpu/train/loop.py``.
+
+Optimisation parity with the JAX package (chiron/chiron_model.py:20-99):
+
+- piecewise-constant LR at 66% / 83% of max_steps x {1, 0.1, 0.01},
+  evaluated, as optax does, at the count of updates already applied;
+- Adam / SGD / RMSProp / Momentum (Nesterov 0.9) with optax's constants:
+  Adam, SGD and Nesterov momentum are ``torch.optim`` set up as optax sets
+  them; RMSProp is written here, because optax's (decay 0.9, eps inside the
+  square root) is not ``torch.optim.RMSprop``'s (alpha 0.99, eps outside);
+- optional clipping by the global gradient norm;
+- an exponential moving average of the weights (decay 0.9999) with
+  tf.train.ExponentialMovingAverage's ``num_updates`` ramp;
+- the CTC loss with focal modulation (``fl_gamma``).
+
+A train step runs ``apply_model(..., training=True)``: the CNN as torch ops
+and each LSTM direction through the ``ops/lstm_grad.py`` kernels. The eval
+step runs inference ``apply_model`` (the fused kernels) and greedy decode.
+Checkpoints are the JAX package's ``.npz`` files, so either package resumes
+the other's runs.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from chiron_tpu_torch import config as C
+from chiron_tpu_torch.io.labels import read_raw_data_sets
+from chiron_tpu_torch.models.model import init_model, model_ratio
+from chiron_tpu_torch.ops.ctc_greedy import greedy_decode
+from chiron_tpu_torch.ops.ctc_loss import ctc_focal_loss
+from chiron_tpu_torch.params import Basecaller, from_jax_params, to_numpy_tree
+from chiron_tpu_torch.train.checkpoint import restore_latest, save_checkpoint
+from chiron_tpu_torch.utils.device import float32_strict, resolve_device
+
+MOVING_AVERAGE_DECAY = 0.9999
+LR_BOUNDARY = [0.66, 0.83]
+LR_DECAY = [1e-1, 1e-2]
+MOMENTUM = 0.9
+
+
+def make_lr_schedule(init_rate: float, max_steps: int):
+    """count -> learning rate (optax.piecewise_constant_schedule: the scale
+    of a boundary applies from ``count >= boundary`` on)."""
+    boundaries = {
+        int(max_steps * LR_BOUNDARY[0]): LR_DECAY[0],
+        int(max_steps * LR_BOUNDARY[1]): LR_DECAY[1] / LR_DECAY[0],
+    }
+
+    def schedule(count: int) -> float:
+        v = init_rate
+        for threshold, scale in sorted(boundaries.items()):
+            if count >= threshold:
+                v *= scale
+        return v
+
+    return schedule
+
+
+class _RMSProp(torch.optim.Optimizer):
+    """optax.rmsprop: nu = decay * nu + (1 - decay) * g^2 from nu = 0, and
+    p -= lr * g * rsqrt(nu + eps)."""
+
+    def __init__(self, params, lr: float, decay: float = 0.9, eps: float = 1e-8):
+        super().__init__(params, {"lr": lr, "decay": decay, "eps": eps})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                nu = self.state[p].setdefault("nu", torch.zeros_like(p))
+                nu.mul_(group["decay"]).addcmul_(p.grad, p.grad, value=1.0 - group["decay"])
+                p.addcmul_(p.grad, torch.rsqrt(nu + group["eps"]), value=-group["lr"])
+
+
+_OPTIMIZERS = {
+    "Adam": lambda ps: torch.optim.Adam(ps, lr=0.0, betas=(0.9, 0.999), eps=1e-8),
+    "SGD": lambda ps: torch.optim.SGD(ps, lr=0.0),
+    "RMSProp": lambda ps: _RMSProp(ps, lr=0.0),
+    "Momentum": lambda ps: torch.optim.SGD(ps, lr=0.0, momentum=MOMENTUM, nesterov=True),
+}
+
+
+class Optimizer:
+    """optax's chain (clip_by_global_norm?, optimizer, scheduled LR) over
+    ``params``; ``count`` is the number of updates applied."""
+
+    def __init__(self, opt_name: str, init_rate: float, max_steps: int, params,
+                 clip_norm: Optional[float] = None):
+        if opt_name not in _OPTIMIZERS:
+            raise ValueError(f"Unknown optimizer {opt_name}")
+        self.params = list(params)
+        self.opt = _OPTIMIZERS[opt_name](self.params)
+        self.schedule = make_lr_schedule(init_rate, max_steps)
+        self.clip_norm = clip_norm
+        self.count = 0
+
+    def zero_grad(self) -> None:
+        self.opt.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        grads = [p.grad for p in self.params if p.grad is not None]
+        if self.clip_norm and grads:
+            norm = torch.sqrt(sum((g * g).sum() for g in grads))
+            scale = torch.where(norm < self.clip_norm, torch.ones_like(norm),
+                                self.clip_norm / norm)
+            for g in grads:
+                g.mul_(scale)
+        lr = self.schedule(self.count)
+        for group in self.opt.param_groups:
+            group["lr"] = lr
+        self.opt.step()
+        self.count += 1
+
+
+def make_optimizer(opt_name: str, init_rate: float, max_steps: int, params,
+                   clip_norm: Optional[float] = None) -> Optimizer:
+    return Optimizer(opt_name, init_rate, max_steps, params, clip_norm)
+
+
+@torch.no_grad()
+def ema_update(ema: Basecaller, model: Basecaller, n_updates: float) -> None:
+    """ema = decay * ema + (1 - decay) * params, decay = min(0.9999,
+    (1 + n) / (10 + n)) in float32 (the num_updates ramp: without it a short
+    or warm-started run's EMA is dominated by its first steps)."""
+    n = np.float32(n_updates)
+    decay = float(np.minimum(np.float32(MOVING_AVERAGE_DECAY),
+                             (np.float32(1.0) + n) / (np.float32(10.0) + n)))
+    for key, p in model.flat.items():
+        ema.flat[key].mul_(decay).add_(p, alpha=1.0 - decay)
+
+
+def make_train_step(config: Dict[str, Any], fl_gamma: float):
+    """step(model, ema, opt, batch, n_updates) -> loss: value and grad of
+    the focal CTC loss, one optimizer update, one EMA update.
+
+    The step runs in full float32: TF32 is turned off for matmuls and cuDNN
+    here (``utils/device.py:float32_strict``)."""
+    float32_strict()
+
+    def step(model: Basecaller, ema: Basecaller, opt: Optimizer, batch, n_updates):
+        logits = model(batch["signal"], batch["seq_len"], training=True)
+        loss = ctc_focal_loss(logits, batch["seq_len"], batch["label"], batch["label_len"],
+                              fl_gamma=fl_gamma)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        ema_update(ema, model, n_updates)
+        return loss.detach()
+
+    return step
+
+
+def make_eval_step(model: Basecaller):
+    """batch -> greedy decode (decoded, lengths, neg_sum) of inference logits."""
+
+    def step(batch):
+        logits = model(batch["signal"], batch["seq_len"])
+        return greedy_decode(logits, batch["seq_len"])
+
+    return step
+
+
+def edit_distance(a, b) -> int:
+    """Levenshtein distance between two int sequences."""
+    if len(a) == 0:
+        return len(b)
+    if len(b) == 0:
+        return len(a)
+    prev = np.arange(len(b) + 1)
+    for i, ca in enumerate(a, 1):
+        cur = np.empty(len(b) + 1, dtype=np.int64)
+        cur[0] = i
+        sub = prev[:-1] + (np.asarray(b) != ca)
+        for j in range(1, len(b) + 1):
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, sub[j - 1])
+        prev = cur
+    return int(prev[-1])
+
+
+def batched_edit_distance(hyps, hyp_lens, refs, ref_lens) -> np.ndarray:
+    """Levenshtein distance for a batch of padded int sequences: one DP
+    wavefront over the whole batch, the in-row insertion recurrence resolved
+    as a min-plus prefix scan."""
+    hyps = np.asarray(hyps)
+    refs = np.asarray(refs)
+    hyp_lens = np.asarray(hyp_lens, np.int64)
+    ref_lens = np.asarray(ref_lens, np.int64)
+    b = len(hyp_lens)
+    max_h = int(hyp_lens.max(initial=0))
+    max_r = int(ref_lens.max(initial=0))
+    cols = np.arange(max_r + 1)
+    prev = np.broadcast_to(cols, (b, max_r + 1)).copy()
+    out = np.where(hyp_lens == 0, ref_lens, 0)
+    ref_mat = refs[:, :max_r] if refs.size else refs.reshape(b, 0)
+    for i in range(1, max_h + 1):
+        ca = hyps[:, i - 1:i]
+        sub = prev[:, :-1] + (ref_mat != ca)
+        cand = np.minimum(prev[:, 1:] + 1, sub)
+        e = np.concatenate([np.full((b, 1), i, np.int64), cand], axis=1) - cols
+        cur = np.minimum.accumulate(e, axis=1) + cols
+        done = hyp_lens == i
+        if done.any():
+            out[done] = cur[done, ref_lens[done]]
+        prev = cur
+    return out
+
+
+def mean_edit_distance(decoded, dec_lens, labels, label_lens) -> float:
+    """Mean normalized edit distance (chiron/chiron_model.py:124-130)."""
+    if len(decoded) == 0:
+        return 0.0
+    label_lens = np.asarray(label_lens, np.int64)
+    d = batched_edit_distance(np.asarray(decoded), np.asarray(dec_lens, np.int64),
+                              np.asarray(labels), label_lens)
+    return float(np.mean(d / np.maximum(label_lens, 1)))
+
+
+class Dataset:
+    """Shuffled epoch batcher over dense training arrays."""
+
+    def __init__(self, events, event_lens, labels, label_lens, seed=0):
+        self.events = events
+        self.event_lens = event_lens
+        self.labels = labels
+        self.label_lens = label_lens
+        self.n = len(events)
+        self.rng = np.random.RandomState(seed)
+        self._perm = self.rng.permutation(self.n)
+        self._pos = 0
+        self.epochs_completed = 0
+
+    def next_batch(self, batch_size: int, shuffle: bool = True):
+        idx = []
+        while len(idx) < batch_size:
+            take = min(batch_size - len(idx), self.n - self._pos)
+            idx.extend(self._perm[self._pos:self._pos + take])
+            self._pos += take
+            if self._pos >= self.n:
+                self.epochs_completed += 1
+                self._pos = 0
+                if shuffle:
+                    self._perm = self.rng.permutation(self.n)
+        idx = np.asarray(idx)
+        return {"signal": self.events[idx], "seq_len": self.event_lens[idx],
+                "label": self.labels[idx], "label_len": self.label_lens[idx]}
+
+
+def load_dataset(data_dir, seq_len, k_mer=1, max_segments=None, skip_start=10,
+                 sig_norm=None, tfrecord=None, cache_dir=None) -> Dataset:
+    """Training segments from a folder of .signal/.label pairs.
+
+    The JAX package's other sources are not ported yet and raise: the
+    out-of-core window cache (``--train_cache``/``--valid_cache``), TFRecord
+    files and ``.bin`` folders (``data.meta``), all ROADMAP A9.
+    """
+    if cache_dir:
+        raise NotImplementedError(
+            "the out-of-core window cache (--train_cache/--valid_cache) is not "
+            "ported yet (ROADMAP A9)")
+    if tfrecord or str(data_dir).endswith((".tfrecord", ".tfrecords")):
+        raise NotImplementedError("TFRecord training data is not ported yet (ROADMAP A9)")
+    if os.path.exists(os.path.join(data_dir, "data.meta")):
+        raise NotImplementedError(".bin training folders (data.meta) are not ported yet "
+                                  "(ROADMAP A9)")
+    return Dataset(*read_raw_data_sets(data_dir, seq_length=seq_len, k_mer=k_mer,
+                                       max_segments_num=max_segments, skip_start=skip_start,
+                                       sig_norm=sig_norm))
+
+
+def batch_to_device(batch, ratio: float, device: torch.device):
+    """A Dataset batch as tensors on ``device``; seq_len becomes logit frames
+    (round(len / ratio), chiron/chiron_eval.py:337)."""
+    seq_len = np.round(batch["seq_len"] / ratio).astype(np.int32)
+    return {"signal": torch.from_numpy(np.ascontiguousarray(batch["signal"], np.float32)).to(device),
+            "seq_len": torch.from_numpy(seq_len).to(device),
+            "label": torch.from_numpy(np.ascontiguousarray(batch["label"], np.int32)).to(device),
+            "label_len": torch.from_numpy(
+                np.ascontiguousarray(batch["label_len"], np.int32)).to(device)}
+
+
+def train(hparams) -> Dict[str, Any]:
+    """Main training loop (parity: chiron/chiron_rcnn_train.py:66-136)."""
+    device = resolve_device(getattr(hparams, "device", "cuda"))
+    if int(getattr(hparams, "n_devices", 0) or 0) > 1:
+        raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP A10)")
+    model_dir = os.path.join(hparams.log_dir, hparams.model_name)
+    os.makedirs(model_dir, exist_ok=True)
+    config_path = os.path.join(model_dir, "model.json")
+    if getattr(hparams, "retrain", False) and os.path.exists(config_path):
+        config = C.read_config(config_path)
+    else:
+        config = C.read_config(getattr(hparams, "configure", None))
+    C.save_config(config_path, config)
+    # the run flags beside the model (chiron_rcnn_train.py:77-81)
+    with open(os.path.join(model_dir, "train_config"), "w") as f:
+        json.dump({k: str(v) for k, v in vars(hparams).items()}, f, indent=2)
+
+    batch_size = hparams.batch_size
+    seq_len = hparams.sequence_len
+    ratio = model_ratio(config, seq_len)
+    sig_norm = getattr(hparams, "sig_norm", None)
+    k_mer = int(getattr(hparams, "k_mer", 1))
+    max_segments = getattr(hparams, "segments_num", None)
+    tfrecord = getattr(hparams, "tfrecord", None)
+    train_cache = getattr(hparams, "train_cache", None)
+    dataset = load_dataset(hparams.data_dir, seq_len, k_mer=k_mer, max_segments=max_segments,
+                           sig_norm=sig_norm, tfrecord=tfrecord, cache_dir=train_cache)
+    if dataset.n == 0:
+        raise ValueError(f"No training segments found under {hparams.data_dir}")
+    print(f"Loaded {dataset.n} training segments")
+    valid = None
+    if getattr(hparams, "validation", None):
+        valid = load_dataset(hparams.validation, seq_len, sig_norm=sig_norm,
+                             cache_dir=getattr(hparams, "valid_cache", None))
+
+    tree, start_step = (None, None)
+    if getattr(hparams, "retrain", False):
+        tree, start_step = restore_latest(model_dir)
+    if tree is None:
+        tree = init_model(torch.Generator().manual_seed(0), config)
+        start_step = 0
+    start_step = start_step or 0
+    model = from_jax_params(tree, config, device).requires_grad_(True)
+    ema = from_jax_params(to_numpy_tree(model), config, device)
+
+    opt = make_optimizer(config.get("opt_method", "Adam"), hparams.step_rate, hparams.max_steps,
+                         model.parameters())
+    step_fn = make_train_step(config, float(config.get("fl_gamma", 0)))
+    eval_fn = make_eval_step(model)
+
+    # Host-RSS guard: when the process's peak RSS crosses the limit the loop
+    # checkpoints (params and EMA) and returns restart=True, so a wrapper can
+    # relaunch with --retrain instead of the run dying mid-schedule.
+    max_rss_gb = float(getattr(hparams, "max_rss_gb", 0) or 64.0)
+
+    def _rss_gb() -> float:
+        import resource
+
+        return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+    metrics_path = os.path.join(model_dir, "metrics.jsonl")
+    lr_schedule = make_lr_schedule(hparams.step_rate, hparams.max_steps)
+    save_every = int(getattr(hparams, "save_every", 10))
+    # rolling EMA side snapshots (pointer untouched), so a run stopped
+    # mid-schedule still leaves an installable ema-<step>.npz
+    ema_save_every = int(getattr(hparams, "ema_save_every", 2000) or 0)
+    resample_every = int(getattr(hparams, "resample_after_epoch", 0) or 0)
+    offset_inc = int(getattr(hparams, "offset_increment", 3))
+    skip_start = 10
+    losses = []
+    t0 = time.time()
+    last_loss = None
+    for i in range(start_step, hparams.max_steps):
+        if (resample_every > 0 and dataset.epochs_completed > 0
+                and dataset.epochs_completed % resample_every == 0 and dataset._pos == 0):
+            skip_start += offset_inc
+            dataset = load_dataset(hparams.data_dir, seq_len, k_mer=k_mer,
+                                   max_segments=max_segments, skip_start=skip_start,
+                                   sig_norm=sig_norm, tfrecord=tfrecord, cache_dir=train_cache)
+        batch = batch_to_device(dataset.next_batch(batch_size), ratio, device)
+        loss = step_fn(model, ema, opt, batch, i - start_step)  # EMA updates since (re)init
+        if (i + 1) % save_every == 0 or (i + 1) == hparams.max_steps:
+            last_loss = float(loss)
+            losses.append(last_loss)
+            err = None
+            if valid is not None:
+                vbatch = valid.next_batch(batch_size)
+                dec, dlens, _ = eval_fn(batch_to_device(vbatch, ratio, device))
+                err = mean_edit_distance(dec.cpu().numpy(), dlens.cpu().numpy(),
+                                         vbatch["label"], vbatch["label_len"])
+            save_checkpoint(model_dir, to_numpy_tree(model), i + 1)
+            dt = time.time() - t0
+            msg = f"step {i + 1} loss {last_loss:.4f} {dt / save_every:.3f}s/step"
+            if err is not None:
+                msg += f" valid_edit_dist {err:.4f}"
+            print(msg)
+            with open(metrics_path, "a") as mf:
+                mf.write(json.dumps({
+                    "step": i + 1,
+                    "loss": last_loss,
+                    "learning_rate": float(lr_schedule(i + 1)),
+                    "valid_edit_distance": err,
+                    "seconds_per_step": dt / save_every,
+                }) + "\n")
+            t0 = time.time()
+            if ema_save_every and (i + 1) % ema_save_every == 0 and (i + 1) != hparams.max_steps:
+                save_checkpoint(model_dir, to_numpy_tree(ema), i + 1, prefix="ema",
+                                update_state=False, max_to_keep=2)
+            if max_rss_gb and _rss_gb() > max_rss_gb:
+                # update_state=False: a restart resumes from the raw
+                # model-<step> params saved above, not from this EMA snapshot
+                save_checkpoint(model_dir, to_numpy_tree(ema), i + 1, prefix="rss-ema",
+                                update_state=False)
+                print(f"RSS {_rss_gb():.1f} GB > {max_rss_gb} GB limit at step {i + 1}; "
+                      f"exiting for --retrain restart")
+                return {"final_loss": last_loss, "losses": losses, "model_dir": model_dir,
+                        "restart": True, "step": i + 1}
+    # the EMA first, as a side snapshot: the pointer must name the raw final
+    # params even if the process dies between the two saves
+    save_checkpoint(model_dir, to_numpy_tree(ema), hparams.max_steps, prefix="ema",
+                    update_state=False)
+    save_checkpoint(model_dir, to_numpy_tree(model), hparams.max_steps, prefix="final")
+    return {"final_loss": last_loss, "losses": losses, "model_dir": model_dir}

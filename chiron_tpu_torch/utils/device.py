@@ -20,3 +20,14 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}: use cuda or cpu")
     return dev
+
+
+def float32_strict() -> None:
+    """Run float32 matmuls and cuDNN convolutions in full float32.
+
+    On the card ``torch.backends.cudnn.allow_tf32`` is True by default, and
+    TF32 keeps about three decimal digits; the trainer turns both flags off
+    so that its steps match the float32 reference.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

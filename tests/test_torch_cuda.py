@@ -7,8 +7,11 @@ This file imports no JAX, so it also runs where JAX is not installed:
 
 (``--noconftest``: tests/conftest.py configures JAX for the other tests.)
 Tolerances: float32 sums in another order than the plain version's
-(1e-4 for conv outputs and moments, 1e-5 for the BiLSTM); the beam search
-is exact (trace, decodes) with log masses within 1e-4.
+(1e-4 for conv outputs and moments, 1e-5 for the BiLSTM and the training
+LSTM forward (plus 1e-4 relative: its carried c grows without bound and
+carries the sum-order residue of every step), 1e-4 for its dxw and 1e-4 of max |dwh| for dwh, a sum over
+T*B rows); the beam search is exact (trace, decodes) with log masses within
+1e-4. The training LSTM's dwh must be bit-identical from run to run.
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ import torch
 from chiron_tpu_torch.ops import beam as tbeam
 from chiron_tpu_torch.ops import bilstm as tbl
 from chiron_tpu_torch.ops import conv_bn as tconv
+from chiron_tpu_torch.ops import lstm_grad as tlg
 
 
 @pytest.fixture
@@ -78,6 +82,36 @@ def test_bilstm_kernel_matches_plain(cuda, h):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h", [16, 100, 128])
+def test_lstm_grad_kernels_match_plain(cuda, h):
+    rng = np.random.RandomState(100 + h)
+    t, b = 37, 19
+    to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    xw = to(rng.randn(t, b, 4 * h).astype(np.float32))
+    wh = to((rng.randn(h, 4 * h) * 0.3).astype(np.float32))
+    dhs = to(rng.randn(t, b, h).astype(np.float32))
+    lengths = rng.randint(1, t, size=b).astype(np.int32)
+    lengths[0], lengths[-1] = 0, t
+    lens = to(lengths)
+    before = dict(tlg.launches)
+    got = tlg.lstm_fwd_residuals(xw, wh, lens)
+    assert tlg.launches["lstm_fwd_residuals"] == before["lstm_fwd_residuals"] + 1
+    want = tlg.lstm_fwd_residuals_plain(xw, wh, lens)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):  # rtol: the carried c is unbounded and sums
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=1e-5, rtol=1e-4)
+    dxw, dwh = tlg.lstm_bwd(*want[1:], dhs, wh, lens)
+    assert tlg.launches["lstm_bwd"] == before["lstm_bwd"] + 1
+    dxw_p, dwh_p = tlg.lstm_bwd_plain(*want[1:], dhs, wh, lens)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(dxw.cpu().numpy(), dxw_p.cpu().numpy(), atol=1e-4, rtol=0)
+    scale = float(dwh_p.abs().max())
+    assert float((dwh - dwh_p).abs().max()) <= 1e-4 * scale
+    _, dwh2 = tlg.lstm_bwd(*want[1:], dhs, wh, lens)
+    assert torch.equal(dwh, dwh2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("seed,w,nclass,bonus", [(0, 8, 5, 0.0), (1, 30, 5, 0.6),
                                                  (2, 50, 5, 0.0), (3, 8, 6, 0.7),
                                                  (4, 64, 8, 1.5)])
@@ -111,6 +145,15 @@ def test_wrapper_raises_on_bad_cuda_input(cuda):
     one = torch.ones(4, device=cuda)
     with pytest.raises(ValueError):
         tconv.conv_bn([(x, one, one)], torch.zeros(3, 4, 4, device=cuda), False)
+    with pytest.raises(ValueError):  # float64 is CPU-only
+        tlg.lstm_fwd_residuals(torch.zeros(3, 2, 8, device=cuda, dtype=torch.float64),
+                               torch.zeros(2, 8, device=cuda, dtype=torch.float64),
+                               torch.ones(2, device=cuda, dtype=torch.int32))
+    with pytest.raises(ValueError):  # hidden above MAX_HIDDEN
+        h = tlg.MAX_HIDDEN + 1
+        tlg.lstm_fwd_residuals(torch.zeros(3, 2, 4 * h, device=cuda),
+                               torch.zeros(h, 4 * h, device=cuda),
+                               torch.ones(2, device=cuda, dtype=torch.int32))
     with pytest.raises(ValueError):
         tbeam.beam_search(torch.zeros(2, 5, 5, device=cuda), torch.zeros(2, device=cuda,
                                                                           dtype=torch.int32),

@@ -15,9 +15,11 @@ import numpy as np
 import pytest
 import torch
 
+from chiron_tpu.models import initializers as jinit
 from chiron_tpu.models import model as jmodel
 from chiron_tpu.train import checkpoint as jckpt
 from chiron_tpu_torch import config as tconfig
+from chiron_tpu_torch.models import initializers as tinit
 from chiron_tpu_torch.models import model as tmodel
 from chiron_tpu_torch.params import from_jax_params
 from chiron_tpu_torch.train import checkpoint as tckpt
@@ -88,6 +90,51 @@ def test_config_matches_jax():
         assert tconfig.class_n(c) == jconfig.class_n(c)
         assert tconfig.alphabet(c) == jconfig.alphabet(c)
     assert tconfig.read_config(None) == jconfig.read_config(None)
+
+
+@pytest.mark.parametrize("front", ["dna_model1", "slow_model1", "rna_model2"])
+def test_init_model_matches_jax_shapes(front):
+    config = _config(front)
+    want = {jax.tree_util.keystr(k): v.shape for k, v in
+            jax.tree_util.tree_flatten_with_path(jmodel.init_model(jax.random.PRNGKey(0),
+                                                                   config))[0]}
+    tree = tmodel.init_model(torch.Generator().manual_seed(0), config)
+    got = {jax.tree_util.keystr(k): tuple(v.shape) for k, v in
+           jax.tree_util.tree_flatten_with_path(jax.tree_util.tree_map(np.asarray, tree))[0]}
+    assert got == want
+    model = from_jax_params(tree, config, "cpu")
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    # the biases start at zero, as in JAX
+    assert not model.params["rnn"]["stack"]["layers"][0]["fw"]["b"].any()
+
+
+# (name, shape, extra args): each drawn large enough that the sample moments
+# sit within 3% (std) / 0.02 std (mean) of the distribution's
+INITS = [("xavier_normal", (3, 256, 256), ()), ("xavier_uniform", (256, 512), ()),
+         ("variance_scaling", (200, 400), ()), ("truncated_normal", (300, 300), (0.25,))]
+
+
+@pytest.mark.parametrize("name,shape,extra", INITS)
+def test_initializer_moments_match_jax(name, shape, extra):
+    want = np.asarray(getattr(jinit, name)(jax.random.PRNGKey(4), shape, *extra))
+    got = getattr(tinit, name)(torch.Generator().manual_seed(4), shape, *extra).numpy()
+    assert got.shape == want.shape and got.dtype == np.float32
+    assert abs(got.std() / want.std() - 1) < 0.03
+    assert abs(got.mean() - want.mean()) < 0.02 * want.std()
+    # the same support: uniform limits, normals cut at 2 sigma
+    assert abs(np.abs(got).max() / np.abs(want).max() - 1) < 0.03 or name == "xavier_normal"
+    np.testing.assert_allclose(np.mean(np.abs(got) > want.std()),
+                               np.mean(np.abs(want) > want.std()), atol=0.01)
+
+
+@pytest.mark.parametrize("shape", [(64, 256), (256, 64)])
+def test_orthogonal_matches_jax(shape):
+    got = tinit.orthogonal(torch.Generator().manual_seed(1), shape).numpy()
+    want = np.asarray(jinit.orthogonal(jax.random.PRNGKey(1), shape))
+    assert got.shape == want.shape == shape
+    # both are semi-orthogonal: every singular value is 1
+    for m in (got, want):
+        np.testing.assert_allclose(np.linalg.svd(m, compute_uv=False), 1.0, atol=1e-5)
 
 
 def test_device_cuda_without_gpu_raises():
