@@ -1,13 +1,17 @@
-// Both directions of one LSTM layer, the whole T-step recurrence in one launch.
+// One LSTM layer, the whole T-step recurrence in one launch: both directions
+// (bilstm_launch) or one (lstm_launch), through the same kernel.
 //
-// Replaces the TPU kernel chiron_tpu/ops/pallas/lstm.py:bilstm_layer_pallas
-// (_bilstm_kernel). Same function, over precomputed xw = x @ wx + b
-// ([T, B, 4H] per direction, gate order i, g, f, o; forget bias +1):
+// Replaces the TPU kernels chiron_tpu/ops/pallas/lstm.py:bilstm_layer_pallas
+// (_bilstm_kernel) and lstm_layer_pallas (_lstm_kernel). Same function, over
+// precomputed xw = x @ wx + b ([T, B, 4H] per direction, gate order i, g, f,
+// o; forget bias +1):
 //   gates = xw[t] + h @ wh;  c' = sig(f + 1) * c + sig(i) * tanh(g)
 //   h' = sig(o) * tanh(c')
-// Each row is active on a window: forward rows t < len; backward rows, which
-// read the time-FLIPPED sequence, start <= t < start + len (start = T - len).
-// Outside its window a row's state is frozen and its output is zero.
+// Each row is active on a window start <= t < start + len. The fused layer's
+// forward rows start at 0; its backward rows, which read the time-FLIPPED
+// sequence, at start = T - len. A single direction takes an optional starts
+// array (none: every row starts at 0). Outside its window a row's state is
+// frozen and its output is zero.
 //
 // What bounds it on an H100: per step a direction does a [B, H] x [H, 4H]
 // product (~42 GFLOP per layer at B = T = 400, H = 128), but the T steps
@@ -33,8 +37,8 @@ __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); 
 
 __global__ void bilstm_kernel(const float* __restrict__ xw_f, const float* __restrict__ xw_b,
                               const float* __restrict__ wh_f, const float* __restrict__ wh_b,
-                              const int* __restrict__ lens, const int* __restrict__ starts,
-                              float* __restrict__ out_f, float* __restrict__ out_b, int T, int B,
+                              const int* __restrict__ lens, const int* __restrict__ starts_f,
+                              const int* __restrict__ starts_b, float* __restrict__ out_f, float* __restrict__ out_b, int T, int B,
                               int H) {
   extern __shared__ float smem[];
   float* h_s = smem;              // [R][H]
@@ -44,6 +48,7 @@ __global__ void bilstm_kernel(const float* __restrict__ xw_f, const float* __res
   const int dir = blockIdx.y;  // 0 forward, 1 backward (flipped input)
   const float* xw = dir == 0 ? xw_f : xw_b;
   const float* wh = dir == 0 ? wh_f : wh_b;
+  const int* starts = dir == 0 ? starts_f : starts_b;  // null: every row starts at 0
   float* out = dir == 0 ? out_f : out_b;
   const int b0 = blockIdx.x * R;
   const int G = 4 * H;
@@ -58,7 +63,7 @@ __global__ void bilstm_kernel(const float* __restrict__ xw_f, const float* __res
   for (int r = 0; r < R; ++r) {
     const int b = b0 + r;
     const int len = b < B ? lens[b] : 0;
-    const int st = (b < B && dir == 1) ? starts[b] : 0;
+    const int st = (b < B && starts != nullptr) ? starts[b] : 0;
     lo[r] = st;
     hi[r] = st + len;
   }
@@ -103,6 +108,20 @@ __global__ void bilstm_kernel(const float* __restrict__ xw_f, const float* __res
   }
 }
 
+int launch(int dirs, const float* xw_f, const float* xw_b, const float* wh_f, const float* wh_b,
+           const int* lens, const int* starts_f, const int* starts_b, float* out_f, float* out_b,
+           int T, int B, int H, void* stream) {
+  const int threads = ((4 * H + 31) / 32) * 32;
+  const size_t smem = (size_t)R * 6 * H * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(bilstm_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((B + R - 1) / R, dirs);
+  bilstm_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      xw_f, xw_b, wh_f, wh_b, lens, starts_f, starts_b, out_f, out_b, T, B, H);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -112,15 +131,13 @@ extern "C" {
 int bilstm_launch(const float* xw_f, const float* xw_b, const float* wh_f, const float* wh_b,
                   const int* lens, const int* starts, float* out_f, float* out_b, int T, int B,
                   int H, void* stream) {
-  const int threads = ((4 * H + 31) / 32) * 32;
-  const size_t smem = (size_t)R * 6 * H * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(bilstm_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((B + R - 1) / R, 2);
-  bilstm_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(xw_f, xw_b, wh_f, wh_b, lens,
-                                                                starts, out_f, out_b, T, B, H);
-  return (int)cudaGetLastError();
+  return launch(2, xw_f, xw_b, wh_f, wh_b, lens, nullptr, starts, out_f, out_b, T, B, H, stream);
+}
+
+// One direction; starts may be null (every row's window is [0, len)).
+int lstm_launch(const float* xw, const float* wh, const int* lens, const int* starts, float* out,
+                int T, int B, int H, void* stream) {
+  return launch(1, xw, nullptr, wh, nullptr, lens, starts, nullptr, out, nullptr, T, B, H, stream);
 }
 
 }  // extern "C"

@@ -1,13 +1,14 @@
-"""Model assembly: CNN front + BiLSTM stack -> per-timestep CTC logits.
+"""Model assembly: CNN front + bidirectional RNN stack -> per-timestep CTC logits.
 
 Port of ``chiron_tpu/models/model.py`` for the three bundled fronts
 (reference: chiron/cnn.py:380-389, :454-476): ``dna_model1`` (3 residual
 blocks of 256 channels), ``rna_model2`` (a k=9 stride-5 front conv + 3
-residual blocks) and ``slow_model1`` (k=8 stride 4), with the ``normal``
-LSTM stack. ``init_model(gen, config)`` draws fresh weights;
-``apply_model(params, config, signal, seq_len, training)`` returns logits
-[B, T_out, class_n]: at inference under ``no_grad`` through the fused
-kernels, in training differentiably (see layers.py and rnn.py).
+residual blocks) and ``slow_model1`` (k=8 stride 4), with an LSTM, GRU or
+BNLSTM stack of layer type ``normal`` or ``rna``. ``init_model(gen, config)``
+draws fresh weights; ``apply_model(params, config, signal, seq_len,
+training)`` returns logits [B, T_out, class_n]: at inference under
+``no_grad`` through the fused kernels, in training differentiably (see
+layers.py and rnn.py).
 """
 
 from __future__ import annotations
@@ -87,12 +88,12 @@ def init_model(gen: torch.Generator, config: Dict[str, Any]) -> Params:
     (float32 CPU tensors drawn from ``gen``)."""
     _, _, init_fn = _front(config)
     rnn_cfg = config["rnn"]
-    if rnn_cfg["layer_num"] == 0 or rnn_cfg["cell_type"] != "LSTM" \
-            or rnn_cfg["layer_type"] != "normal":
-        raise NotImplementedError("only LSTM 'normal' stacks (layer_num > 0) are ported")
+    if rnn_cfg["layer_num"] == 0:
+        raise NotImplementedError("the CNN-only logit head is not ported")
     return {"cnn": init_fn(gen, 1),
             "rnn": R.init_rnn_layers(gen, 256, rnn_cfg["hidden_num"], rnn_cfg["layer_num"],
-                                     class_n(config))}
+                                     class_n(config), rnn_cfg["cell_type"],
+                                     rnn_cfg["layer_type"])}
 
 
 def apply_model(params: Params, config: Dict[str, Any], signal: torch.Tensor,

@@ -1,28 +1,38 @@
-"""Stacked bidirectional LSTM + direction-weighted head.
+"""Recurrent layers: stacked bidirectional LSTM / GRU / BNLSTM + head, and
+the forward-only stack.
 
-Port of ``chiron_tpu/models/rnn.py`` for layer type ``normal`` and cell type
-``LSTM`` (reference: chiron/rnn.py:20-97): per-layer bidirectional concat
-feeding the next layer. Each layer's input projections for all timesteps
-are one large matmul outside the recurrence.
+Port of ``chiron_tpu/models/rnn.py`` (reference: chiron/rnn.py:20-216). Two
+stacking orders: ``normal``, a per-layer bidirectional concat feeding the
+next layer, and ``rna``, independent forward and backward deep stacks
+concatenated once at the top. Each layer's input projections for all
+timesteps are large matmuls outside the recurrence.
 
-- Inference: the recurrence is the fused BiLSTM kernel (``ops/bilstm.py``),
-  whose backward direction reads the time-flipped sequence with per-row
-  start ``T - len`` (flip mode).
-- Training (``training=True``): each direction is the differentiable
-  ``ops/lstm_grad.py:lstm_layer_ad``, and the backward direction reads
-  ``reverse_sequence`` of its input, with no start offset, as the JAX
-  package's non-flip path does.
+- Inference: every layer is one fused two-direction kernel
+  (``ops/bilstm.py``, ``ops/gru.py``, ``ops/bnlstm.py``). The LSTM and GRU
+  backward directions read the time-flipped sequence with per-row start
+  ``T - len`` (flip mode). The BNLSTM cannot: its per-step batch moments
+  must cover exactly the rows with ``t < len`` in both directions, so its
+  backward input goes through ``reverse_sequence``. ``unirnn_layers`` runs
+  the single-direction kernels (``ops/lstm.py`` and the same two modules).
+- Training (``training=True``): the backward direction reads
+  ``reverse_sequence`` of its input with no start offset. An LSTM direction
+  is the differentiable ``ops/lstm_grad.py:lstm_layer_ad``; GRU and BNLSTM
+  directions are differentiable step loops under autograd, as the JAX
+  package trains them through ``lax.scan``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
-from chiron_tpu_torch.models.initializers import truncated_normal, xavier_uniform
+from chiron_tpu_torch.models.initializers import orthogonal, truncated_normal, xavier_uniform
 from chiron_tpu_torch.ops.bilstm import bilstm_layer
+from chiron_tpu_torch.ops.bnlstm import bibnlstm_layer, bnlstm_layer, bnlstm_scan
+from chiron_tpu_torch.ops.gru import bigru_layer, gru_layer, gru_scan
+from chiron_tpu_torch.ops.lstm import lstm_layer
 from chiron_tpu_torch.ops.lstm_grad import lstm_layer_ad
 
 Params = Dict[str, Any]
@@ -69,51 +79,158 @@ def init_lstm_cell(gen: torch.Generator, c_in: int, hidden: int) -> Params:
     }
 
 
-def init_rnn_layers(gen: torch.Generator, c_in: int, hidden: int, layer_num: int,
-                    class_n: int) -> Params:
-    """A ``normal`` LSTM stack (layer i > 0 reads the 2H concat) + head."""
-    layers = [{d: init_lstm_cell(gen, c_in if i == 0 else 2 * hidden, hidden)
-               for d in ("fw", "bw")} for i in range(layer_num)]
-    head = {
+def init_gru_cell(gen: torch.Generator, c_in: int, hidden: int) -> Params:
+    return {
+        "wx_g": xavier_uniform(gen, (c_in, 2 * hidden)),
+        "wh_g": xavier_uniform(gen, (hidden, 2 * hidden)),
+        "b_g": torch.ones(2 * hidden),  # TF GRUCell gate bias init = 1.0
+        "wx_c": xavier_uniform(gen, (c_in, hidden)),
+        "wh_c": xavier_uniform(gen, (hidden, hidden)),
+        "b_c": torch.zeros(hidden),
+    }
+
+
+def init_bnlstm_cell(gen: torch.Generator, c_in: int, hidden: int) -> Params:
+    """Batch-normalized LSTM cell (chiron/utils/lstm.py:61-151): orthogonal
+    recurrent kernel, BN scales 0.1, one bias added after normalisation."""
+    return {
+        "wx": xavier_uniform(gen, (c_in, 4 * hidden)),
+        "wh": orthogonal(gen, (hidden, 4 * hidden)),
+        "b": torch.zeros(4 * hidden),
+        "scale_x": torch.full((4 * hidden,), 0.1),
+        "scale_h": torch.full((4 * hidden,), 0.1),
+        "scale_c": torch.full((hidden,), 0.1),
+        "offset_c": torch.zeros(hidden),
+    }
+
+
+_INIT_CELL = {"LSTM": init_lstm_cell, "GRU": init_gru_cell, "BNLSTM": init_bnlstm_cell}
+
+
+def _init_cell(cell_type: str, gen: torch.Generator, c_in: int, hidden: int) -> Params:
+    if cell_type not in _INIT_CELL:
+        raise ValueError(f"Cell type unrecognized: {cell_type}")
+    return _INIT_CELL[cell_type](gen, c_in, hidden)
+
+
+def init_birnn_stack(gen: torch.Generator, c_in: int, hidden: int, layer_num: int,
+                     cell_type: str = "LSTM", layer_type: str = "normal") -> Params:
+    """Layer i > 0 reads the 2H concat (``normal``) or its own direction's H
+    (``rna``: independent deep stacks)."""
+    layer_in = hidden if layer_type == "rna" else 2 * hidden
+    return {"layers": [{d: _init_cell(cell_type, gen, c_in if i == 0 else layer_in, hidden)
+                        for d in ("fw", "bw")} for i in range(layer_num)]}
+
+
+def init_rnn_head(gen: torch.Generator, hidden: int, class_n: int) -> Params:
+    return {
         "w_dir": truncated_normal(gen, (2, hidden), math.sqrt(2.0 / (2 * hidden))),
         "b_dir": torch.zeros(hidden),
         "w_class": truncated_normal(gen, (hidden, class_n), math.sqrt(2.0 / hidden)),
         "b_class": torch.zeros(class_n),
     }
-    return {"stack": {"layers": layers}, "head": head}
+
+
+def init_rnn_layers(gen: torch.Generator, c_in: int, hidden: int, layer_num: int,
+                    class_n: int, cell_type: str = "LSTM",
+                    layer_type: str = "normal") -> Params:
+    return {"stack": init_birnn_stack(gen, c_in, hidden, layer_num, cell_type, layer_type),
+            "head": init_rnn_head(gen, hidden, class_n)}
 
 
 def _proj(x, cell):
     return torch.matmul(x, cell["wx"]) + cell["b"]
 
 
-def _run_cell(cell: Params, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-    """One training direction: xw = x @ wx + b, then the differentiable kernel."""
-    return lstm_layer_ad(_proj(x, cell), cell["wh"], lengths)
+def _gru_proj(x, cell):
+    return (torch.matmul(x, cell["wx_g"]) + cell["b_g"],
+            torch.matmul(x, cell["wx_c"]) + cell["b_c"])
+
+
+def _bn_weights(cell):
+    return tuple(cell[k] for k in ("wh", "b", "scale_x", "scale_h", "scale_c", "offset_c"))
+
+
+def _run_cell(cell_type: str, cell: Params, x: torch.Tensor, lengths: torch.Tensor,
+              training: bool = False, starts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One direction of one layer over time-major x [T, B, C] -> [T, B, H]:
+    the single-direction kernel at inference, the differentiable version in
+    training. ``starts`` (flip mode) is for LSTM/GRU inference only."""
+    if starts is not None and (training or cell_type == "BNLSTM"):
+        raise ValueError("starts requires the LSTM/GRU inference path")
+    if cell_type == "BNLSTM":
+        xw = torch.matmul(x, cell["wx"])  # the bias is added after normalisation
+        return (bnlstm_scan if training else bnlstm_layer)(xw, *_bn_weights(cell), lengths)
+    if cell_type == "LSTM":
+        if training:
+            return lstm_layer_ad(_proj(x, cell), cell["wh"], lengths)
+        return lstm_layer(_proj(x, cell), cell["wh"], lengths, starts)
+    if cell_type == "GRU":
+        gx, cx = _gru_proj(x, cell)
+        if training:
+            return gru_scan(gx, cx, cell["wh_g"], cell["wh_c"], torch.zeros_like(lengths),
+                            lengths)
+        return gru_layer(gx, cx, cell["wh_g"], cell["wh_c"], lengths, starts)
+    raise ValueError(f"Cell type unrecognized: {cell_type}")
+
+
+def _fused_bilstm(layer, x_fw, x_bw, lengths, starts):
+    """x_bw already time-flipped; the returned h_bw is still flipped."""
+    return bilstm_layer(_proj(x_fw, layer["fw"]), _proj(x_bw, layer["bw"]),
+                        layer["fw"]["wh"], layer["bw"]["wh"], lengths, starts)
+
+
+def _fused_bigru(layer, x_fw, x_bw, lengths, starts):
+    """x_bw already time-flipped; the returned h_bw is still flipped."""
+    fw, bw = layer["fw"], layer["bw"]
+    return bigru_layer(*_gru_proj(x_fw, fw), *_gru_proj(x_bw, bw), (fw["wh_g"], fw["wh_c"]),
+                       (bw["wh_g"], bw["wh_c"]), lengths, starts)
+
+
+def _fused_bibnlstm(layer, x_fw, x_bw, lengths, starts):
+    """x_bw reversed within each length (no flip mode: see the module note)."""
+    del starts
+    return bibnlstm_layer(torch.matmul(x_fw, layer["fw"]["wx"]),
+                          torch.matmul(x_bw, layer["bw"]["wx"]),
+                          _bn_weights(layer["fw"]), _bn_weights(layer["bw"]), lengths)
+
+
+_FUSED = {"LSTM": _fused_bilstm, "GRU": _fused_bigru, "BNLSTM": _fused_bibnlstm}
 
 
 def birnn_stack(params: Params, x: torch.Tensor, lengths: torch.Tensor,
                 cell_type: str = "LSTM", layer_type: str = "normal",
                 training: bool = False) -> torch.Tensor:
     """Bidirectional stack. x: [B, T, C] -> [B, T, 2H]."""
-    if cell_type != "LSTM" or layer_type != "normal":
-        raise NotImplementedError(
-            f"only LSTM 'normal' stacks are ported (got {cell_type}/{layer_type})")
+    if cell_type not in _FUSED:
+        raise ValueError(f"Cell type unrecognized: {cell_type}")
+    if layer_type not in ("normal", "rna"):
+        raise ValueError(f"Layer type unrecognized: {layer_type}")
     xt = x.transpose(0, 1)  # time-major [T, B, C]
     t = xt.shape[0]
     lengths = lengths.to(torch.int32)
-    starts = (t - lengths).to(torch.int32)
-    out = xt
-    for layer in params["layers"]:
-        if training:
-            fw = _run_cell(layer["fw"], out, lengths)
-            bw = _run_cell(layer["bw"], reverse_sequence(out, lengths), lengths)
-            out = torch.cat([fw, reverse_sequence(bw, lengths)], dim=-1)
-        else:
-            fw, bw = bilstm_layer(_proj(out, layer["fw"]),
-                                  _proj(torch.flip(out, dims=(0,)), layer["bw"]),
-                                  layer["fw"]["wh"], layer["bw"]["wh"], lengths, starts)
-            out = torch.cat([fw, torch.flip(bw, dims=(0,))], dim=-1)
+    flip = not training and cell_type in ("LSTM", "GRU")
+    starts = (t - lengths).to(torch.int32) if flip else None
+
+    def rev(arr):  # into and out of the backward direction's time order
+        return torch.flip(arr, dims=(0,)) if flip else reverse_sequence(arr, lengths)
+
+    def layer_fn(layer, x_fw, x_bw):
+        if not training:
+            return _FUSED[cell_type](layer, x_fw, x_bw, lengths, starts)
+        return (_run_cell(cell_type, layer["fw"], x_fw, lengths, training),
+                _run_cell(cell_type, layer["bw"], x_bw, lengths, training))
+
+    if layer_type == "rna":
+        fw, bw = xt, rev(xt)
+        for layer in params["layers"]:
+            fw, bw = layer_fn(layer, fw, bw)
+        out = torch.cat([fw, rev(bw)], dim=-1)
+    else:
+        out = xt
+        for layer in params["layers"]:
+            fw, bw = layer_fn(layer, out, rev(out))
+            out = torch.cat([fw, rev(bw)], dim=-1)
     return out.transpose(0, 1)  # back to [B, T, 2H]
 
 
@@ -131,3 +248,24 @@ def rnn_layers(params: Params, x: torch.Tensor, lengths: torch.Tensor,
                training: bool = False) -> torch.Tensor:
     lasth = birnn_stack(params["stack"], x, lengths, cell_type, layer_type, training)
     return rnn_head(params["head"], lasth)
+
+
+def init_unirnn_layers(gen: torch.Generator, c_in: int, hidden: int, layer_num: int,
+                       class_n: int, cell_type: str = "BNLSTM") -> Params:
+    """Single-direction stacked RNN + FC head (chiron/rnn.py:176-216)."""
+    return {
+        "layers": [_init_cell(cell_type, gen, c_in if i == 0 else hidden, hidden)
+                   for i in range(layer_num)],
+        "w_class": truncated_normal(gen, (hidden, class_n), math.sqrt(2.0 / hidden)),
+        "b_class": torch.zeros(class_n),
+    }
+
+
+def unirnn_layers(params: Params, x: torch.Tensor, lengths: torch.Tensor,
+                  cell_type: str = "BNLSTM", training: bool = False) -> torch.Tensor:
+    """[B, T, C] -> [B, T, class_n] through a forward-only stack."""
+    h = x.transpose(0, 1)
+    lengths = lengths.to(torch.int32)
+    for layer in params["layers"]:
+        h = _run_cell(cell_type, layer, h, lengths, training)
+    return h.transpose(0, 1) @ params["w_class"] + params["b_class"]

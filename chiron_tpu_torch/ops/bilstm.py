@@ -101,6 +101,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.bilstm_launch.argtypes = [vp] * 8 + [ci] * 3 + [vp]
     lib.bilstm_launch.restype = ci
+    lib.lstm_launch.argtypes = [vp] * 5 + [ci] * 3 + [vp]  # ops/lstm.py's entry point
+    lib.lstm_launch.restype = ci
 
 
 cuda_build.register("bilstm", _declare)

@@ -20,7 +20,7 @@ from typing import Callable, Dict, Iterable
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
-SOURCES = ("conv_bn", "bilstm", "beam", "lstm_grad")
+SOURCES = ("conv_bn", "bilstm", "beam", "lstm_grad", "gru", "bnlstm")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _DECLARE: Dict[str, Callable[[ctypes.CDLL], None]] = {}

@@ -1,0 +1,90 @@
+"""One LSTM direction for inference (CUDA kernel + plain version).
+
+Port of ``chiron_tpu/ops/pallas/lstm.py:lstm_layer_pallas``: the recurrence
+over precomputed input projections ``xw = x @ wx + b`` ([T, B, 4H], gate
+order i, g, f, o, forget bias +1). Row b is active on the window
+``starts[b] <= t < starts[b] + lengths[b]`` (``starts`` None: from 0);
+outside it the row's state is frozen and its output zero.
+
+``lstm_layer`` launches the one-direction entry point of ``csrc/bilstm.cu``
+(the fused layer's kernel with a single direction) for CUDA tensors and runs
+``lstm_layer_plain`` for CPU tensors. H is handled directly (no padding to
+128 lanes), up to 256.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from chiron_tpu_torch.ops import cuda_build
+from chiron_tpu_torch.ops.bilstm import MAX_HIDDEN, _lstm_direction
+
+# launches of the CUDA kernel (plain-version calls on the CPU are not counted)
+launches = 0
+
+
+def check_recurrent_inputs(name: str, floats: Sequence[torch.Tensor],
+                           shapes: Sequence[Tuple[int, ...]],
+                           ints: Sequence[Optional[torch.Tensor]], bsz: int) -> torch.device:
+    """Shape, dtype and device checks shared by the recurrent-layer wrappers:
+    every float input float32 of its expected shape, every given index
+    vector int32 [B], all on one CPU or CUDA device (which is returned)."""
+    dev = floats[0].device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    for tsr, shape in zip(floats, shapes):
+        if tsr.device != dev or tsr.dtype != torch.float32:
+            raise ValueError(f"{name}: every float input must be float32 on {dev}")
+        if tuple(tsr.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(tsr.shape)}, expected {tuple(shape)}")
+    for tsr in ints:
+        if tsr is None:
+            continue
+        if tsr.device != dev or tsr.dtype != torch.int32 or tuple(tsr.shape) != (bsz,):
+            raise ValueError(f"{name}: lengths/starts must be int32 [B] on {dev}")
+    return dev
+
+
+def check_cuda_size(name: str, t_max: int, bsz: int, h_dim: int) -> None:
+    if not 1 <= h_dim <= MAX_HIDDEN:
+        raise ValueError(f"{name}: hidden {h_dim} outside 1..{MAX_HIDDEN}")
+    if t_max < 1 or bsz < 1:
+        raise ValueError(f"{name}: empty input [T={t_max}, B={bsz}]")
+
+
+def lstm_layer_plain(xw, wh, lengths, starts=None):
+    """Plain PyTorch version of the kernel: same inputs, same output."""
+    lo = torch.zeros_like(lengths) if starts is None else starts
+    return _lstm_direction(xw, wh, lo, lo + lengths)
+
+
+def lstm_layer(xw: torch.Tensor, wh: torch.Tensor, lengths: torch.Tensor,
+               starts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One LSTM direction.
+
+    Args:
+      xw: [T, B, 4H] float32; wh: [H, 4H] float32.
+      lengths: [B] int32; starts: [B] int32 or None (every window from 0).
+    Returns:
+      hs [T, B, H] float32, zero outside each row's window.
+    """
+    t_max, bsz, four_h = xw.shape
+    h_dim = four_h // 4
+    dev = check_recurrent_inputs("lstm_layer", (xw, wh), ((t_max, bsz, 4 * h_dim), (h_dim, four_h)),
+                                 (lengths, starts), bsz)
+    if dev.type == "cpu":
+        return lstm_layer_plain(xw, wh, lengths, starts)
+    check_cuda_size("lstm_layer", t_max, bsz, h_dim)
+    global launches
+    xw, wh, lengths = xw.contiguous(), wh.contiguous(), lengths.contiguous()
+    starts = None if starts is None else starts.contiguous()
+    out = torch.empty((t_max, bsz, h_dim), dtype=torch.float32, device=dev)
+    lib = cuda_build.load("bilstm")
+    rc = lib.lstm_launch(xw.data_ptr(), wh.data_ptr(), lengths.data_ptr(),
+                         None if starts is None else starts.data_ptr(), out.data_ptr(),
+                         t_max, bsz, h_dim, torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, "lstm_layer")
+    launches += 1
+    return out

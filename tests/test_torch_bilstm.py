@@ -1,6 +1,7 @@
-"""The port's fused BiLSTM layer (chiron_tpu_torch/ops/bilstm.py) against the
-JAX package: the Pallas kernel in interpret mode and the XLA scan
-(rnn._lstm_scan) with reverse_sequence.
+"""The port's fused BiLSTM layer (chiron_tpu_torch/ops/bilstm.py) and its
+single LSTM direction (ops/lstm.py) against the JAX package: the Pallas
+kernels in interpret mode and the XLA scan (rnn._lstm_scan) with
+reverse_sequence.
 
 Inputs are made with numpy from a seed. Tolerance atol 1e-5: the h @ wh
 products sum in another order than XLA's.
@@ -15,6 +16,7 @@ from chiron_tpu.models import rnn as jrnn
 from chiron_tpu.ops.pallas import lstm as jlstm
 from chiron_tpu_torch.models import rnn as trnn
 from chiron_tpu_torch.ops import bilstm as tbl
+from chiron_tpu_torch.ops import lstm as tlstm
 
 ATOL = 1e-5
 
@@ -107,4 +109,45 @@ def test_wrapper_rejects_bad_inputs():
         _port(xw_f, xw_b, wh_f, wh_b, lengths.astype(np.int64))
     with pytest.raises(ValueError):
         _port(xw_f, xw_b[:, :2], wh_f, wh_b, lengths)
+
+
+# ---- the single direction (ops/lstm.py), tolerance 2e-5 as the JAX tests' ----
+
+@pytest.mark.parametrize("h", [100, 128])
+@pytest.mark.parametrize("with_starts", [False, True])
+def test_lstm_layer_matches_pallas_interpret(h, with_starts):
+    t, b = 12, 16
+    xw, _, wh, _, lengths = _inputs(10 + h, t, b, h)
+    lengths[4:8] = 5
+    starts = (t - lengths).astype(np.int32) if with_starts else None
+    wh_p = jlstm.pad_lstm_weights(jnp.zeros((1, 4 * h)), jnp.asarray(wh),
+                                  np.zeros(4 * h, np.float32), h)[1]
+    want = jlstm.lstm_layer_pallas(
+        jlstm.pad_gate_cols(jnp.asarray(xw), h), wh_p, jnp.asarray(lengths), hidden=h,
+        interpret=True, starts=None if starts is None else jnp.asarray(starts))
+    got = tlstm.lstm_layer(torch.tensor(xw), torch.tensor(wh), torch.tensor(lengths),
+                           None if starts is None else torch.tensor(starts))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("h", [100, 128])
+def test_lstm_layer_matches_xla_scan(h):
+    t, b = 12, 16
+    xw, _, wh, _, lengths = _inputs(20 + h, t, b, h)
+    mask = jnp.asarray((np.arange(t)[:, None] < lengths[None, :]).astype(np.float32)[..., None])
+    want = jrnn._lstm_scan({"wh": jnp.asarray(wh)}, jnp.asarray(xw), mask)
+    got = tlstm.lstm_layer(torch.tensor(xw), torch.tensor(wh), torch.tensor(lengths))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+def test_lstm_layer_is_one_direction_of_the_fused_layer():
+    t = 10
+    xw_f, xw_b, wh_f, wh_b, lengths = _inputs(8, t, 6, 16)
+    tf, tb = _port(xw_f, xw_b, wh_f, wh_b, lengths)
+    lens = torch.tensor(lengths)
+    assert torch.equal(tf, tlstm.lstm_layer(torch.tensor(xw_f), torch.tensor(wh_f), lens))
+    assert torch.equal(tb, tlstm.lstm_layer(torch.tensor(xw_b), torch.tensor(wh_b), lens,
+                                            torch.tensor((t - lengths).astype(np.int32))))
+    with pytest.raises(ValueError):
+        tlstm.lstm_layer(torch.tensor(xw_f), torch.tensor(wh_f), lens.to(torch.int64))
 

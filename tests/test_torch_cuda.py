@@ -11,7 +11,10 @@ Tolerances: float32 sums in another order than the plain version's
 LSTM forward (plus 1e-4 relative: its carried c grows without bound and
 carries the sum-order residue of every step), 1e-4 for its dxw and 1e-4 of max |dwh| for dwh, a sum over
 T*B rows); the beam search is exact (trace, decodes) with log masses within
-1e-4. The training LSTM's dwh must be bit-identical from run to run.
+1e-4. The training LSTM's dwh must be bit-identical from run to run. The
+single LSTM direction and the GRU kernels 1e-5; the BNLSTM kernels 1e-4 (each
+step's rsqrt(var + 1e-5) amplifies the sum-order residue) and bit-identical
+from run to run.
 """
 
 import numpy as np
@@ -20,7 +23,10 @@ import torch
 
 from chiron_tpu_torch.ops import beam as tbeam
 from chiron_tpu_torch.ops import bilstm as tbl
+from chiron_tpu_torch.ops import bnlstm as tbn
 from chiron_tpu_torch.ops import conv_bn as tconv
+from chiron_tpu_torch.ops import gru as tgru
+from chiron_tpu_torch.ops import lstm as tlstm
 from chiron_tpu_torch.ops import lstm_grad as tlg
 
 
@@ -79,6 +85,114 @@ def test_bilstm_kernel_matches_plain(cuda, h):
     torch.cuda.synchronize()
     for g, r in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=1e-5, rtol=0)
+
+
+def _lengths(rng, t, b, full=1):
+    """Seeded lengths with an empty row, ``full`` full rows and partial rows."""
+    lengths = rng.randint(1, t, size=b).astype(np.int32)
+    lengths[0] = 0
+    lengths[-full:] = t
+    return lengths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [16, 100, 128, 256])
+def test_lstm_layer_kernel_matches_plain(cuda, h):
+    rng = np.random.RandomState(200 + h)
+    t, b = 30, 11
+    to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    xw_f, xw_b = (to(rng.randn(t, b, 4 * h).astype(np.float32)) for _ in range(2))
+    # recurrent weights of row norm ~1: larger ones make the recurrence
+    # chaotic at H >= 128, and it then amplifies the sum-order residue
+    wh_f, wh_b = (to((rng.randn(h, 4 * h) / np.sqrt(h)).astype(np.float32)) for _ in range(2))
+    lengths = _lengths(rng, t, b)
+    lens, starts = to(lengths), to((t - lengths).astype(np.int32))
+    before = tlstm.launches
+    got_f = tlstm.lstm_layer(xw_f, wh_f, lens)
+    got_b = tlstm.lstm_layer(xw_b, wh_b, lens, starts)
+    assert tlstm.launches == before + 2
+    torch.cuda.synchronize()
+    for got, want in ((got_f, tlstm.lstm_layer_plain(xw_f, wh_f, lens)),
+                      (got_b, tlstm.lstm_layer_plain(xw_b, wh_b, lens, starts))):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5, rtol=0)
+    # the fused layer is these two directions, bit for bit
+    fused_f, fused_b = tbl.bilstm_layer(xw_f, xw_b, wh_f, wh_b, lens, starts)
+    assert torch.equal(fused_f, got_f) and torch.equal(fused_b, got_b)
+    zero = tlstm.lstm_layer(xw_f, wh_f, torch.zeros_like(lens))
+    assert not zero.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [16, 100, 128, 256])
+def test_gru_kernels_match_plain(cuda, h):
+    rng = np.random.RandomState(300 + h)
+    t, b = 30, 11
+    to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    gx_f, gx_b = (to(rng.randn(t, b, 2 * h).astype(np.float32)) for _ in range(2))
+    cx_f, cx_b = (to(rng.randn(t, b, h).astype(np.float32)) for _ in range(2))
+    # row norm ~1 (see the LSTM test above)
+    wh_f, wh_b = ((to((rng.randn(h, 2 * h) / np.sqrt(h)).astype(np.float32)),
+                   to((rng.randn(h, h) / np.sqrt(h)).astype(np.float32))) for _ in range(2))
+    lengths = _lengths(rng, t, b)
+    lens, starts = to(lengths), to((t - lengths).astype(np.int32))
+    before = dict(tgru.launches)
+    got_f, got_b = tgru.bigru_layer(gx_f, cx_f, gx_b, cx_b, wh_f, wh_b, lens, starts)
+    assert tgru.launches["bigru"] == before["bigru"] + 1
+    want_f, want_b = tgru.bigru_layer_plain(gx_f, cx_f, gx_b, cx_b, wh_f, wh_b, lens, starts)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got_f.cpu().numpy(), want_f.cpu().numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got_b.cpu().numpy(), want_b.cpu().numpy(), atol=1e-5, rtol=0)
+    # the fused layer is two single-direction launches, bit for bit
+    one_f = tgru.gru_layer(gx_f, cx_f, *wh_f, lens)
+    one_b = tgru.gru_layer(gx_b, cx_b, *wh_b, lens, starts)
+    assert tgru.launches["gru"] == before["gru"] + 2
+    assert torch.equal(one_f, got_f) and torch.equal(one_b, got_b)
+    zero = tgru.gru_layer(gx_f, cx_f, *wh_f, torch.zeros_like(lens))
+    assert not zero.any()
+
+
+def _bn_weights(rng, h, to):
+    f32 = np.float32
+    return (to((rng.randn(h, 4 * h) / np.sqrt(h)).astype(f32)),
+            to((rng.randn(4 * h) * 0.1).astype(f32)),
+            to((0.1 + rng.rand(4 * h) * 0.2).astype(f32)),
+            to((0.1 + rng.rand(4 * h) * 0.2).astype(f32)),
+            to((0.1 + rng.rand(h) * 0.2).astype(f32)), to((rng.randn(h) * 0.1).astype(f32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,t,b", [(16, 30, 19), (100, 30, 19), (128, 30, 19), (256, 12, 19),
+                                   (64, 8, 2500)])  # the last needs larger row tiles
+def test_bnlstm_kernels_match_plain(cuda, h, t, b):
+    rng = np.random.RandomState(400 + h)
+    to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    xw_f, xw_b = (to(rng.randn(t, b, 4 * h).astype(np.float32)) for _ in range(2))
+    w_f, w_b = _bn_weights(rng, h, to), _bn_weights(rng, h, to)
+    # eight full rows keep each step's variances well above eps
+    lens = to(_lengths(rng, t, b, full=8))
+    before = dict(tbn.launches)
+    got_f, got_b = tbn.bibnlstm_layer(xw_f, xw_b, w_f, w_b, lens)
+    assert tbn.launches["bibnlstm"] == before["bibnlstm"] + 1
+    want_f, want_b = tbn.bibnlstm_layer_plain(xw_f, xw_b, w_f, w_b, lens)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got_f.cpu().numpy(), want_f.cpu().numpy(), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got_b.cpu().numpy(), want_b.cpu().numpy(), atol=1e-4, rtol=0)
+    # bit-stable from run to run
+    again_f, again_b = tbn.bibnlstm_layer(xw_f, xw_b, w_f, w_b, lens)
+    assert torch.equal(again_f, got_f) and torch.equal(again_b, got_b), "differs between runs"
+    # and equal to two single-direction launches: bit for bit where both fit
+    # the card at the same row tile (the partials are combined in tile order);
+    # at the large batch the fused grid needs larger tiles than a single one
+    one_f = tbn.bnlstm_layer(xw_f, *w_f, lens)
+    one_b = tbn.bnlstm_layer(xw_b, *w_b, lens)
+    assert tbn.launches["bnlstm"] == before["bnlstm"] + 2
+    if b <= 400:
+        assert torch.equal(one_f, got_f) and torch.equal(one_b, got_b), "fused != single"
+    else:
+        np.testing.assert_allclose(one_f.cpu().numpy(), got_f.cpu().numpy(), atol=1e-5, rtol=0)
+        np.testing.assert_allclose(one_b.cpu().numpy(), got_b.cpu().numpy(), atol=1e-5, rtol=0)
+    zero = tbn.bnlstm_layer(xw_f, *w_f, torch.zeros_like(lens))
+    assert not zero.any()
 
 
 @pytest.mark.cuda
@@ -154,6 +268,18 @@ def test_wrapper_raises_on_bad_cuda_input(cuda):
         tlg.lstm_fwd_residuals(torch.zeros(3, 2, 4 * h, device=cuda),
                                torch.zeros(h, 4 * h, device=cuda),
                                torch.ones(2, device=cuda, dtype=torch.int32))
+    lens2 = torch.ones(2, device=cuda, dtype=torch.int32)
+    h = tlstm.MAX_HIDDEN + 1
+    with pytest.raises(ValueError):  # hidden above MAX_HIDDEN
+        tlstm.lstm_layer(torch.zeros(3, 2, 4 * h, device=cuda), torch.zeros(h, 4 * h, device=cuda),
+                         lens2)
+    with pytest.raises(ValueError):
+        tgru.gru_layer(torch.zeros(3, 2, 2 * h, device=cuda), torch.zeros(3, 2, h, device=cuda),
+                       torch.zeros(h, 2 * h, device=cuda), torch.zeros(h, h, device=cuda), lens2)
+    with pytest.raises(ValueError):  # lengths on another device than xw
+        tbn.bnlstm_layer(torch.zeros(3, 2, 32, device=cuda), torch.zeros(8, 32, device=cuda),
+                         *[torch.zeros(32, device=cuda)] * 3, *[torch.zeros(8, device=cuda)] * 2,
+                         lens2.cpu())
     with pytest.raises(ValueError):
         tbeam.beam_search(torch.zeros(2, 5, 5, device=cuda), torch.zeros(2, device=cuda,
                                                                           dtype=torch.int32),

@@ -152,3 +152,30 @@ def test_rss_guard_checkpoints_and_requests_restart(tmp_path):
     names = os.listdir(result["model_dir"])
     assert "model-2.npz" in names and "rss-ema-2.npz" in names
     assert tckpt.restore_latest(result["model_dir"])[1] == 2  # resumes from the raw params
+
+
+@pytest.mark.parametrize("cell_type,layer_type", [("GRU", "rna"), ("BNLSTM", "normal")])
+def test_cli_train_then_call_with_other_cells(tmp_path, cell_type, layer_type):
+    """model.json carries the cell and layer type: `train` and then `call`
+    with the model it wrote run with no other flag."""
+    data = os.path.join(str(tmp_path), "train")
+    make_training_dir(data, n_files=2, n_bases=200, seed=2)
+    config = {**CONFIG, "rnn": {**CONFIG["rnn"], "cell_type": cell_type,
+                                "layer_type": layer_type}}
+    cfg_path = os.path.join(str(tmp_path), "cell.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config, f)
+    args = _train_args(tmp_path, 10)
+    args[args.index("--configure") + 1] = cfg_path
+    result = cli.main(args)
+    assert len(result["losses"]) == 1 and np.isfinite(result["losses"][0])
+    with open(os.path.join(result["model_dir"], "model.json")) as f:
+        assert json.load(f)["rnn"]["cell_type"] == cell_type
+    tree, step = tckpt.restore_latest(result["model_dir"])
+    assert step == 10
+    assert ("wh_g" if cell_type == "GRU" else "scale_c") in tree["rnn"]["stack"]["layers"][0]["fw"]
+    out = os.path.join(str(tmp_path), "out")
+    res = cli.main(["call", "-i", data, "-o", out, "-m", result["model_dir"], "-b", "8", "-l",
+                    "120", "-j", "110", "--beam", "5", "--device", "cpu"])
+    assert res["n_files"] == 2 and res["total_windows"] > 0
+    assert len(os.listdir(os.path.join(out, "result"))) == 2
