@@ -8,7 +8,10 @@ Phases (any failure exits non-zero and prints no result line):
      chiron_tpu_torch/csrc (one nvcc per source, all started together);
   2. hold each kernel against its plain PyTorch version ON THE CARD at the
      main path's shapes (dna-pre: batch 400, window 400, DNA_default), with
-     TF32 off for every float32 matmul and convolution; the recurrent
+     TF32 off for every float32 matmul and convolution; conv_bn at every
+     distinct shape of the three bundled fronts, bit-identical across two
+     runs; the training LSTM forward also at H = 100 and 256, B = 1 and a
+     ragged B, bit-identical across two runs; the recurrent
      kernels (one LSTM direction, GRU, BNLSTM, fused and single) also at a
      small H = 100 size, the BNLSTM bit-identical across two runs;
   3. drive the port's `call` entry point with -p dna-pre and the bundled
@@ -28,7 +31,9 @@ Phases (any failure exits non-zero and prints no result line):
      the loss falls; basecall one batch with its final checkpoint; check one
      full-width train step (bundled weights) on the card against the CPU;
   5. time each kernel, its plain version and a PyTorch library yardstick
-     with CUDA events after a warm-up, the whole call in bases/s, and a warm
+     with CUDA events after a warm-up (conv_bn at each dna_model1 shape,
+     cuDNN with TF32 off and, as a second yardstick, on); no kernel may
+     read below its bound; the whole call in bases/s, and a warm
      train step split into forward / loss / backward / update;
   6. print the per-kernel JSON line, then {"ok": true, "device": ...}.
 """
@@ -47,8 +52,10 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 MODEL_DIR = os.path.join(REPO, "chiron_tpu", "model", "DNA_default")
-# H100 SXM published peaks: float32 outside the tensor cores, HBM3 rate
+# H100 SXM published peaks: float32 outside the tensor cores, dense TF32 on
+# the tensor cores, HBM3 rate
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 SEED = 0
 BATCH, SEG, JUMP, BEAM = 400, 400, 390, 30
@@ -71,9 +78,28 @@ def fail(msg):
     sys.exit(1)
 
 
-def bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_F32, nbytes / PEAK_BYTES
+def bound_ms(flops, nbytes, peak=PEAK_F32):
+    """Least time for `flops` operations on the unit whose peak is given
+    (the CUDA cores' float32 rate unless the kernel uses the tensor cores)
+    and `nbytes` of traffic: (ms, which of the two bounds it)."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def conv_bound(terms, w, stride, on_tensor_cores):
+    """conv_bn's bound from its inputs. On the tensor cores the product is
+    three TF32 products (3 x the FLOP over the TF32 peak); the narrow-input
+    kernel runs on the CUDA cores. Bytes: every term and its affine read
+    once, w read once, y and the moments written once."""
+    bsz, t, cin = terms[0][0].shape
+    k, _, cout = w.shape
+    rows_out = bsz * (-(-t // stride))
+    flops = 2.0 * rows_out * k * cin * cout
+    nbytes = 4.0 * (len(terms) * (bsz * t * cin + 2 * cin) + k * cin * cout
+                    + rows_out * cout + 2 * cout)
+    if on_tensor_cores:
+        return bound_ms(3 * flops, nbytes, PEAK_TF32) + ("3 x FLOP / 495 TFLOP/s TF32",)
+    return bound_ms(flops, nbytes) + ("FLOP / 67 TFLOP/s float32",)
 
 
 def time_ms(torch, fn, reps, warm=2):
@@ -143,9 +169,17 @@ def main():
     logs = cuda_build.build_all()
     log(f"built {sorted(logs)} in {time.time() - t0:.1f} s")
     for name, text in sorted(logs.items()):
-        for line in text.splitlines():
+        lines = text.splitlines()
+        for i, line in enumerate(lines):
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+            # the redesigned kernels must not spill: ptxas prints a function's
+            # spill bytes two lines after its "Compiling entry function"
+            if "Compiling entry function" in line and any(
+                    k in line for k in ("conv_bn_mma_kernel", "conv_bn_direct_kernel",
+                                        "lstm_fwd_kernel")):
+                if "0 bytes spill stores, 0 bytes spill loads" not in lines[i + 2]:
+                    fail(f"{name}: a redesigned kernel spills registers: {lines[i + 2].strip()}")
 
     # ---- 2. each kernel against its plain version on the card -------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -159,6 +193,9 @@ def main():
 
     failures = []
 
+    def max_err(got, want):
+        return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
     def hold(name, err, tol, extra=""):
         ok = err <= tol
         log(f"  {name}: max_abs_err {err:.3e} (tolerance {tol:.0e}) {extra}"
@@ -167,9 +204,11 @@ def main():
             failures.append(name)
         return err
 
-    # conv_bn at dna_model1's shapes: residual conv2b (k=3, two deferred terms,
-    # relu) and res1's first-layer convs (k=1, C_in=1); and rna_model2's front
-    # (k=9 stride 5, C_in=1) at the rna-pre batch [300, 2000]
+    # conv_bn at every distinct shape of the three bundled fronts. dna_model1:
+    # the k=3 convs (two deferred terms, relu), the k=1 256 -> 256 convs (7 of
+    # its 12 launches a batch) and res1's first-layer convs (k=1, C_in=1);
+    # rna_model2's front (k=9 stride 5, C_in=1) at the rna-pre batch
+    # [300, 2000] and slow_model1's (k=8 stride 4) at the dna-slow-pre batch
     c = 256
     conv_cases = {
         "k3_two_terms_relu": ([(rnd(BATCH, SEG, c), rnd(c).abs() + 0.5, rnd(c, scale=0.2))
@@ -179,12 +218,25 @@ def main():
         "k9_stride5_cin1": ([(rnd(300, 2000, 1), torch.ones(1, device=dev),
                               torch.zeros(1, device=dev))],
                             rnd(9, 1, c, scale=(2 / (9 + c)) ** 0.5), False, 5),
+        "k1_two_terms_relu": ([(rnd(BATCH, SEG, c), rnd(c).abs() + 0.5, rnd(c, scale=0.2))
+                               for _ in range(2)], rnd(1, c, c, scale=(2 / (2 * c)) ** 0.5), True, 1),
+        "k8_stride4_cin1": ([(rnd(300, 2000, 1), torch.ones(1, device=dev),
+                              torch.zeros(1, device=dev))],
+                            rnd(8, 1, c, scale=(2 / (8 + c)) ** 0.5), False, 4),
     }
+    conv_lib = cuda_build.load("conv_bn")
+    conv_route = {case: conv_lib.conv_bn_route(w.shape[1], w.shape[2], w.shape[0], stride,
+                                               int(len(terms) == 2))
+                  for case, (terms, w, _, stride) in conv_cases.items()}
+    log(f"  conv_bn routes (2 tensor cores, 1 narrow-input CUDA cores): {conv_route}")
     conv_err = 0.0
     for case, (terms, w, relu, stride) in conv_cases.items():
         y, s, q = conv_bn.conv_bn(terms, w, relu, stride)
+        again = conv_bn.conv_bn(terms, w, relu, stride)
         py, ps, pq = conv_bn.conv_bn_plain(terms, w, relu, stride)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, g) for a, g in zip(again, (y, s, q))):
+            failures.append(f"conv_bn {case} differs between two runs")
         mom = max(float(((s - ps).abs() / ps.abs().clamp(min=1.0)).max()),
                   float(((q - pq).abs() / pq.abs().clamp(min=1.0)).max()))
         hold(f"conv_bn {case} y", float((y - py).abs().max()), 1e-4)
@@ -250,6 +302,28 @@ def main():
                                                                  fwd, fwd_p)}
     fwd_err = hold("lstm_fwd_residuals T=400 B=300 H=128", max(fwd_errs.values()), 1e-5,
                    f"{json.dumps(fwd_errs)} ")
+    fwd_again = lstm_grad.lstm_fwd_residuals(xw_t, wh_t, lens_t)
+    fwd_same = all(torch.equal(a, g) for a, g in zip(fwd_again, fwd))
+    # other widths and batch edges: a ragged slice per block (H = 100), a cluster
+    # of 8 (H = 256), a single row, and a batch that is no multiple of the row tile
+    for b_x, h_x in ((tb, 100), (tb, 256), (1, h), (tb + 1, h)):
+        xw_x = rnd(t_len, b_x, 4 * h_x)
+        wh_x = rnd(h_x, 4 * h_x, scale=(6 / (5 * h_x)) ** 0.5 / 2)
+        lens_x = torch.randint(0, t_len + 1, (b_x,), generator=gen).to(torch.int32)
+        lens_x[-1] = t_len
+        lens_x = lens_x.to(dev)
+        got_x = lstm_grad.lstm_fwd_residuals(xw_x, wh_x, lens_x)
+        again_x = lstm_grad.lstm_fwd_residuals(xw_x, wh_x, lens_x)
+        want_x = lstm_grad.lstm_fwd_residuals_plain(xw_x, wh_x, lens_x)
+        torch.cuda.synchronize()
+        hold(f"lstm_fwd_residuals T=400 B={b_x} H={h_x} (cluster, rows, shared bytes "
+             f"{lstm_grad.fwd_geometry(b_x, h_x)})", max_err(got_x, want_x), 1e-5)
+        fwd_same = fwd_same and all(torch.equal(a, g) for a, g in zip(again_x, got_x))
+    log(f"  lstm_fwd_residuals bit-identical across two runs at every shape: {fwd_same}")
+    if not fwd_same:
+        failures.append("lstm_fwd_residuals differs between two runs")
+    # the backward on the residuals the kernel forward wrote
+    dxw_k, dwh_k = lstm_grad.lstm_bwd(*fwd[1:], dhs_t, wh_t, lens_t)
     dxw, dwh = lstm_grad.lstm_bwd(*fwd_p[1:], dhs_t, wh_t, lens_t)
     _, dwh_again = lstm_grad.lstm_bwd(*fwd_p[1:], dhs_t, wh_t, lens_t)
     dxw_p, dwh_p = lstm_grad.lstm_bwd_plain(*fwd_p[1:], dhs_t, wh_t, lens_t)
@@ -257,6 +331,10 @@ def main():
     dwh_scale = float(dwh_p.abs().max())
     dwh_abs = float((dwh - dwh_p).abs().max())
     bwd_err = max(hold("lstm_bwd dxw", float((dxw - dxw_p).abs().max()), 1e-4), dwh_abs)
+    hold("lstm_bwd dxw on the kernel forward's residuals", float((dxw_k - dxw_p).abs().max()),
+         1e-4)
+    hold("lstm_bwd dwh on the kernel forward's residuals (relative to max |dwh|)",
+         float((dwh_k - dwh_p).abs().max()) / dwh_scale, 1e-4)
     hold("lstm_bwd dwh (relative to max |dwh|)", dwh_abs / dwh_scale, 1e-4,
          f"(max |dwh| {dwh_scale:.2f}) ")
     if not torch.equal(dwh, dwh_again):
@@ -286,9 +364,6 @@ def main():
                         (rnd(hid, 2 * hid, scale=ws), rnd(hid, hid, scale=ws)),
                         (rnd(hid, 2 * hid, scale=ws), rnd(hid, hid, scale=ws))),
                 "bn": (rnd(t, b, 4 * hid), rnd(t, b, 4 * hid), bn_weights(), bn_weights())}
-
-    def max_err(got, want):
-        return max(float((g - w).abs().max()) for g, w in zip(got, want))
 
     def recurrent_holds(tag, case):
         ln, st = case["lens"], case["starts"]
@@ -738,16 +813,39 @@ def main():
     else:
         log("profiled train: device busy share not measured (no device events)")
 
+    # conv_bn at each dna_model1 shape (stride 1): the kernel, its plain version
+    # and the library yardstick F.conv1d + F.batch_norm on the normalised input
+    # (cuDNN; the prologue is not timed), with TF32 off as everywhere here and,
+    # as a second yardstick, with cuDNN's TF32 convolutions allowed
     F = torch.nn.functional
-    terms, w, relu, stride = conv_cases["k3_two_terms_relu"]
-    z_ncw = torch.relu(sum(r * a + b for r, a, b in terms)).transpose(1, 2).contiguous()
-    w_oik = w.permute(2, 1, 0).contiguous()
-    timing = {
-        "conv_bn": (time_ms(torch, lambda: conv_bn.conv_bn(terms, w, relu, stride), 10),
-                    time_ms(torch, lambda: conv_bn.conv_bn_plain(terms, w, relu, stride), 10),
-                    time_ms(torch, lambda: F.batch_norm(F.conv1d(z_ncw, w_oik, padding=1),
-                                                        None, None, training=True), 10)),
-    }
+    conv_shapes = {}
+    for case in ("k3_two_terms_relu", "k1_two_terms_relu", "k1_cin1"):
+        terms, w, relu, stride = conv_cases[case]
+        z = sum(r * a + b for r, a, b in terms)
+        z_ncw = (torch.relu(z) if relu else z).transpose(1, 2).contiguous()
+        w_oik = w.permute(2, 1, 0).contiguous()
+        pad = (w.shape[0] - 1) // 2
+
+        def library():
+            return F.batch_norm(F.conv1d(z_ncw, w_oik, padding=pad), None, None, training=True)
+
+        ms = time_ms(torch, lambda: conv_bn.conv_bn(terms, w, relu, stride), 10)
+        plain_ms = time_ms(torch, lambda: conv_bn.conv_bn_plain(terms, w, relu, stride), 5)
+        lib_ms = time_ms(torch, library, 10)
+        torch.backends.cudnn.allow_tf32 = True
+        lib_tf32_ms = time_ms(torch, library, 10)
+        torch.backends.cudnn.allow_tf32 = False
+        b_ms, b_by, b_unit = conv_bound(terms, w, stride, conv_route[case] == 2)
+        conv_shapes[case] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                             "bound_unit": b_unit, "library_ms": lib_ms,
+                             "library_tf32_ms": lib_tf32_ms, "route": conv_route[case]}
+        if ms < b_ms:
+            fail(f"conv_bn {case}: {ms:.4f} ms reads below its bound {b_ms:.4f} ms")
+    log("conv_bn at dna_model1's shapes, [400, 400] batch (3 / 7 / 2 of the 12 launches a "
+        "batch; library = F.conv1d + F.batch_norm, cuDNN TF32 off / on): "
+        + json.dumps(conv_shapes))
+    main_conv = conv_shapes["k3_two_terms_relu"]
+    timing = {"conv_bn": (main_conv["ms"], main_conv["plain_ms"], main_conv["library_ms"])}
     lstm_lib = torch.nn.LSTM(256, h, batch_first=False, bidirectional=True).to(dev)
     x_lib = rnd(t_len, BATCH, 256)
     with torch.no_grad():
@@ -808,10 +906,6 @@ def main():
 
     # bounds from this run's inputs (bytes: each input read once, each output
     # written once; operations: what these inputs need)
-    cin = cout = c
-    rows = BATCH * SEG
-    conv_flops = 2.0 * rows * 3 * cin * cout
-    conv_bytes = 4.0 * (2 * rows * cin + 4 * cin + 3 * cin * cout + rows * cout + 2 * cout)
     active = float(lens.sum())  # active (row, step) pairs per direction
     lstm_flops = 2 * active * (2 * h * 4 * h + 12 * h)
     lstm_bytes = 4.0 * (2 * t_len * BATCH * 4 * h + 2 * h * 4 * h + 2 * BATCH
@@ -851,7 +945,7 @@ def main():
               "bibnlstm_layer": bound_ms(2 * one_bn[0], 2 * one_bn[1]),
               "lstm_fwd_residuals": bound_ms(fwd_flops, fwd_bytes),
               "lstm_bwd": bound_ms(bwd_flops, bwd_bytes),
-              "conv_bn": bound_ms(conv_flops, conv_bytes),
+              "conv_bn": (main_conv["bound_ms"], main_conv["bound_by"]),
               "bilstm": bound_ms(lstm_flops, lstm_bytes),
               "beam_search": bound_ms(beam_ops, beam_bytes),
               "beam_traceback": bound_ms(BATCH * t_len, tb_bytes)}
@@ -892,9 +986,14 @@ def main():
                         "launches": path_launches[name], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": lib_ms})
+    log(f"  bounds: conv_bn's operations are {main_conv['bound_unit']} (tensor cores); every "
+        "other kernel's are FLOP / 67 TFLOP/s float32 (CUDA cores); bytes / 3.35 TB/s")
     for k in kernels:
         log(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, bound "
             f"{k['bound_ms']:.4f} by {k['bound_by']}, library {k['library_ms']})")
+        if k["ms"] < k["bound_ms"]:
+            fail(f"{k['name']}: {k['ms']:.4f} ms reads below its bound {k['bound_ms']:.4f} ms: "
+                 "the count of its work is wrong")
     shutil.rmtree(work, ignore_errors=True)
     log(json.dumps({"call_dna_pre_beam30": call_rate, "train_s400_b300": train_rate,
                     **{f"call_dna_pre_beam30_{c}": r for c, r in cell_rates.items()}}))

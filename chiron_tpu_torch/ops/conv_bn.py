@@ -10,6 +10,22 @@ output flows as two (raw, a, b) terms (see models/layers.py LazyBN).
 ``conv_bn_plain`` for CPU tensors. Numerics: moments are one-pass
 E[y^2] - E[y]^2 in float32 (clamped at 0), as in the JAX kernel; parity with
 the two-pass reference is ~1e-6 relative, asserted at 1e-4 in the tests.
+
+On the card the product runs on the tensor cores as three TF32 products
+with float32 accumulation (3xTF32): each operand is split into a TF32 head
+and a TF32 tail, and head*head + head*tail + tail*head is summed. A single
+TF32 product is excluded: at the main path's depth (K = 3 x 256) it is off
+by ~2e-3, 20 times the 1e-4 gate, while three products stay within ~4e-6,
+the size of float32's own sum-order residue (``tf32_round`` and
+``conv_bn_3xtf32`` below repeat that arithmetic on the CPU, and the tests
+pin both numbers). So the kernel's operations bound is 3 x the product's
+FLOP over the tensor cores' TF32 rate, not the FLOP over the CUDA cores'
+float32 rate. A tensor-core MMA truncates its sum, which leaves each channel
+of y with an offset of ~5e-8; the kernel therefore takes sum(y) from the
+conv's linearity (w applied to the column sums of the normalised input, in
+float64) and only sum(y^2) from y itself. Inputs with k * C_in <= 16 (the
+one-channel first convs and the strided fronts) take a CUDA-core kernel
+bound by the output it writes.
 """
 
 from __future__ import annotations
@@ -63,6 +79,37 @@ def conv_bn_plain(terms, w: torch.Tensor, relu_in: bool, stride: int = 1):
     return y, y.sum(dim=(0, 1)), (y * y).sum(dim=(0, 1))
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits; ties away from
+    zero in magnitude, as ``cvt.rna.tf32.f32`` rounds), kept as float32."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def conv_bn_3xtf32(terms, w: torch.Tensor, relu_in: bool, stride: int = 1, products: int = 3):
+    """The card kernel's arithmetic on the CPU: prologue in float32, then the
+    conv as TF32 products with float32 sums. ``products=3`` is the kernel
+    (head*head + head*tail + tail*head); ``products=1`` is a single TF32
+    product, which the kernel does not use."""
+    x = _prologue(terms, relu_in)
+    xh, wh = tf32_round(x), tf32_round(w)
+    y = conv_same(xh, wh, stride)
+    if products == 3:
+        xt, wt = tf32_round(x - xh), tf32_round(w - wh)
+        y = (conv_same(xt, wh, stride) + conv_same(xh, wt, stride)) + y
+    elif products != 1:
+        raise ValueError("products must be 1 or 3")
+    # sum(y) as the kernel takes it: the conv is linear, so it is w applied to
+    # the per-tap column sums of x, in float64
+    out_t, lpad = same_padding(x.shape[1], w.shape[0], stride)
+    need = (out_t - 1) * stride + w.shape[0]
+    xp = torch.nn.functional.pad(x.double(), (0, 0, lpad, max(need - lpad - x.shape[1], 0)))
+    colsum = torch.stack([xp[:, i:i + (out_t - 1) * stride + 1:stride, :].sum(dim=(0, 1))
+                          for i in range(w.shape[0])])
+    sums = torch.einsum("kc,kcn->n", colsum, w.double()).to(torch.float32)
+    return y, sums, (y * y).sum(dim=(0, 1))
+
+
 def _check(terms, w):
     if len(terms) not in (1, 2):
         raise ValueError("conv_bn takes one or two (raw, a, b) terms")
@@ -107,6 +154,12 @@ def conv_bn(terms: Sequence, w: torch.Tensor, relu_in: bool, stride: int = 1):
     n_tiles = lib.conv_bn_row_tiles(bsz, out_t)
     y = torch.empty((bsz, out_t, c_out), dtype=torch.float32, device=dev)
     partial = torch.empty((2, n_tiles, c_out), dtype=torch.float32, device=dev)
+    # scratch of the tensor-core route: per-tile column sums of the normalised
+    # input and their float64 totals (sum(y) comes from them, see the kernel)
+    xpart = colsum = None
+    if lib.conv_bn_route(c_in, c_out, k, int(stride), int(len(terms) == 2)) == 2:
+        xpart = torch.empty((n_tiles, k * c_in), dtype=torch.float32, device=dev)
+        colsum = torch.empty((k * c_in,), dtype=torch.float64, device=dev)
     sums = torch.empty((c_out,), dtype=torch.float32, device=dev)
     sqs = torch.empty((c_out,), dtype=torch.float32, device=dev)
     two = len(terms) == 2
@@ -115,7 +168,9 @@ def conv_bn(terms: Sequence, w: torch.Tensor, relu_in: bool, stride: int = 1):
     rc = lib.conv_bn_launch(
         p[0], p[3] if two else None, p[1], p[2],
         p[4] if two else None, p[5] if two else None,
-        w.data_ptr(), y.data_ptr(), partial.data_ptr(), sums.data_ptr(),
+        w.data_ptr(), y.data_ptr(), partial.data_ptr(),
+        None if xpart is None else xpart.data_ptr(),
+        None if colsum is None else colsum.data_ptr(), sums.data_ptr(),
         sqs.data_ptr(), bsz, t, c_in, c_out, k, int(stride), lpad, out_t,
         int(bool(relu_in)), stream)
     cuda_build.check(rc, "conv_bn")
@@ -135,7 +190,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.conv_bn_row_tiles.argtypes = [ci, ci]
     lib.conv_bn_row_tiles.restype = ci
-    lib.conv_bn_launch.argtypes = [vp] * 11 + [ci] * 9 + [vp]
+    lib.conv_bn_route.argtypes = [ci] * 5
+    lib.conv_bn_route.restype = ci
+    lib.conv_bn_launch.argtypes = [vp] * 13 + [ci] * 9 + [vp]
     lib.conv_bn_launch.restype = ci
 
 

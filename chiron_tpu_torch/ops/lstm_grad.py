@@ -20,6 +20,19 @@ For CUDA tensors the wrappers launch ``csrc/lstm_grad.cu`` (float32 only);
 for CPU tensors they run the plain versions, which repeat the kernels'
 arithmetic step by step (float32 or float64). H is handled directly (no
 padding to 128 lanes), up to 256.
+
+The forward kernel keeps ``wh`` in shared memory for the whole recurrence.
+One direction's ``wh`` at H = 128 is 256 KB, more than a block's 227 KB, so a
+thread-block cluster owns each tile of 8 batch rows and every block of the
+cluster holds the gate columns of ``ceil(H / cluster)`` hidden units; the
+blocks exchange the new h through distributed shared memory, one cluster
+barrier a step. ``fwd_geometry`` chooses the cluster size from (B, H) here,
+in Python, and the launcher is handed the result: the smallest modelled cost
+``waves * (rows * units_per_block + overhead)`` among the cluster sizes whose
+block fits the shared memory, where a wave is what the card's SMs hold at
+once (a second wave doubles the time). H = 128 takes a cluster of 2 (76
+blocks at B = 300, 100 at B = 400: one wave of an H100's 132 SMs), H = 256 a
+cluster of 8.
 """
 
 from __future__ import annotations
@@ -35,6 +48,18 @@ MAX_HIDDEN = 256
 # the dwh pass splits the T*B rows into at most this many fixed ranges
 _MAX_SPLITS = 16
 _ROWS_PER_SPLIT = 4096
+
+# geometry of the forward kernel (csrc/lstm_grad.cu): batch rows per cluster,
+# the most shared memory a block may ask for, threads per block at most (one
+# per gate column of a block's slice), and the SMs of an H100
+FWD_ROWS = 8
+MAX_SHARED_BYTES = 232448
+_FWD_MAX_COLUMNS = 512
+_H100_SMS = 132
+# per-step cost that does not shrink with the slice (barriers, the gate stage,
+# latency), in the unit of one (row, hidden unit) product column: about what a
+# 64-unit slice costs
+_FWD_STEP_OVERHEAD = 512
 
 # launches of each CUDA entry point (plain-version calls on the CPU are not counted)
 launches = {"lstm_fwd_residuals": 0, "lstm_bwd": 0}
@@ -96,6 +121,37 @@ def lstm_bwd_plain(gates, cc, hc, dhs, wh, lengths):
     return dxw, dwh
 
 
+def fwd_smem_bytes(h_dim: int, cluster: int) -> int:
+    """Dynamic shared memory of one forward block: its slice of wh
+    [H4, 4*HS], h of the whole tile twice, its c, the gate pre-activations
+    and two xw tiles (H4 = H rounded up to 4, HS = ceil(H / cluster)), plus
+    the tile's lengths."""
+    hs = -(-h_dim // cluster)
+    h4 = -(-h_dim // 4) * 4
+    floats = h4 * 4 * hs + 2 * FWD_ROWS * h4 + FWD_ROWS * hs + 3 * FWD_ROWS * 4 * hs
+    return 4 * floats + 4 * FWD_ROWS
+
+
+def fwd_geometry(bsz: int, h_dim: int, sm_count: int = _H100_SMS):
+    """(cluster size, rows per tile, dynamic shared-memory bytes per block)
+    of the forward kernel for a batch of ``bsz`` rows and ``h_dim`` hidden
+    units on a card with ``sm_count`` SMs."""
+    tiles = -(-bsz // FWD_ROWS)
+    best = None
+    for cluster in (1, 2, 4, 8):
+        hs = -(-h_dim // cluster)
+        smem = fwd_smem_bytes(h_dim, cluster)
+        if 4 * hs > _FWD_MAX_COLUMNS or smem > MAX_SHARED_BYTES or cluster > sm_count:
+            continue
+        waves = -(-tiles // (sm_count // cluster))
+        cost = waves * (FWD_ROWS * hs + _FWD_STEP_OVERHEAD)
+        if best is None or cost < best[0]:
+            best = (cost, cluster, smem)
+    if best is None:
+        raise ValueError(f"lstm_fwd_residuals: no cluster of at most 8 blocks holds H={h_dim}")
+    return best[1], FWD_ROWS, best[2]
+
+
 def _check(name, floats, shapes, lengths):
     dev = lengths.device
     dtype = floats[0].dtype
@@ -144,10 +200,12 @@ def lstm_fwd_residuals(xw: torch.Tensor, wh: torch.Tensor, lengths: torch.Tensor
     gates = torch.empty_like(xw)
     cc = torch.empty_like(out)
     hc = torch.empty_like(out)
+    cluster, rows, smem = fwd_geometry(
+        bsz, h_dim, torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = cuda_build.load("lstm_grad")
     rc = lib.lstm_fwd_launch(xw.data_ptr(), wh.data_ptr(), lengths.data_ptr(), out.data_ptr(),
                              gates.data_ptr(), cc.data_ptr(), hc.data_ptr(), t_max, bsz, h_dim,
-                             torch.cuda.current_stream(dev).cuda_stream)
+                             rows, cluster, smem, torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "lstm_fwd_residuals")
     launches["lstm_fwd_residuals"] += 1
     return out, gates, cc, hc
@@ -209,7 +267,7 @@ def lstm_layer_ad(xw: torch.Tensor, wh: torch.Tensor, lengths: torch.Tensor) -> 
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_fwd_launch.argtypes = [vp] * 7 + [ci] * 3 + [vp]
+    lib.lstm_fwd_launch.argtypes = [vp] * 7 + [ci] * 6 + [vp]
     lib.lstm_fwd_launch.restype = ci
     lib.lstm_bwd_launch.argtypes = [vp] * 9 + [ci] * 4 + [vp]
     lib.lstm_bwd_launch.restype = ci

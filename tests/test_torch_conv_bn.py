@@ -125,3 +125,69 @@ def test_cpu_path_does_not_count_launches():
     tconv.conv_bn(_torch_terms(terms), torch.tensor(w), True)
     assert tconv.launches == before
 
+
+# The card kernel runs the product on the tensor cores as three TF32 products
+# (head*head + head*tail + tail*head, float32 sums). Its arithmetic, repeated
+# on the CPU by conv_bn_3xtf32, must stay float32-grade: within 1e-5 of max
+# |y| of the plain version and of the XLA conv, at the main path's depth
+# (K = 3 x 256, relu'd inputs, He-scale weights) and at a ragged small size.
+# A single TF32 product must miss the 1e-4 absolute gate of the on-card
+# holds: that is why the kernel runs three.
+TF32_CASES = [
+    # k, stride, t, c_in, c_out, n_terms, bsz
+    (3, 1, 80, 256, 64, 2, 2),     # the depth of dna_model1's k=3 convs
+    (1, 1, 80, 256, 64, 2, 2),     # its k=1 convs
+    (3, 1, 37, 20, 72, 1, 3),      # ragged rows and channels
+    (9, 5, 51, 8, 8, 2, 2),        # strided, two terms
+]
+
+
+def _he_inputs(seed, bsz, t, c_in, c_out, k, n_terms):
+    rng = np.random.RandomState(seed)
+    terms = [(rng.randn(bsz, t, c_in).astype(np.float32),
+              (0.5 + np.abs(rng.randn(c_in))).astype(np.float32),
+              (rng.randn(c_in) * 0.2).astype(np.float32)) for _ in range(n_terms)]
+    w = (rng.randn(k, c_in, c_out) * np.sqrt(2.0 / (k * c_in))).astype(np.float32)
+    return terms, w
+
+
+def test_tf32_round_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -10, -1.0 - 2.0 ** -11,
+                      3.14159265, -1e-20, 0.0], dtype=torch.float32)
+    r = tconv.tf32_round(x)
+    assert (r.view(torch.int32) & 0x1FFF).eq(0).all()
+    # ties go away from zero, as cvt.rna rounds
+    np.testing.assert_array_equal(r[:4].numpy(), np.float32(
+        [1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10, -1.0 - 2.0 ** -10]))
+    assert float(((r - x).abs() / x.abs().clamp(min=1e-30)).max()) <= 2.0 ** -11
+    # head + tail recovers x to ~2^-22 relative
+    tail = tconv.tf32_round(x - r)
+    assert float(((r + tail - x).abs() / x.abs().clamp(min=1e-30)).max()) <= 2.0 ** -21
+
+
+@pytest.mark.parametrize("k,stride,t,c_in,c_out,n_terms,bsz", TF32_CASES)
+def test_three_tf32_products_are_float32_grade(k, stride, t, c_in, c_out, n_terms, bsz):
+    terms, w = _he_inputs(11 * k + c_in, bsz, t, c_in, c_out, k, n_terms)
+    tt, tw = _torch_terms(terms), torch.tensor(w)
+    py, ps, pq = tconv.conv_bn_plain(tt, tw, True, stride)
+    ey, es, eq = tconv.conv_bn_3xtf32(tt, tw, True, stride)
+    scale = float(py.abs().max())
+    assert float((ey - py).abs().max()) <= 1e-5 * scale
+    jy = np.asarray(_xla_conv(terms, w, True, stride))
+    assert ey.shape == jy.shape
+    assert float(np.abs(ey.numpy() - jy).max()) <= 1e-5 * scale
+    np.testing.assert_allclose(es.numpy(), ps.numpy(), rtol=1e-4, atol=1e-4 * scale)
+    np.testing.assert_allclose(eq.numpy(), pq.numpy(), rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("k,stride,t,c_in,c_out,n_terms,bsz", TF32_CASES[:2])
+def test_one_tf32_product_breaks_the_gate(k, stride, t, c_in, c_out, n_terms, bsz):
+    terms, w = _he_inputs(11 * k + c_in, bsz, t, c_in, c_out, k, n_terms)
+    tt, tw = _torch_terms(terms), torch.tensor(w)
+    py, _, _ = tconv.conv_bn_plain(tt, tw, True, stride)
+    one, _, _ = tconv.conv_bn_3xtf32(tt, tw, True, stride, products=1)
+    three, _, _ = tconv.conv_bn_3xtf32(tt, tw, True, stride, products=3)
+    assert float((one - py).abs().max()) > 1e-4
+    assert float((three - py).abs().max()) < 1e-5
+    with pytest.raises(ValueError):
+        tconv.conv_bn_3xtf32(tt, tw, True, stride, products=2)

@@ -103,3 +103,39 @@ def test_wrapper_rejects_bad_inputs():
     before = dict(tlg.launches)
     tlg.lstm_fwd_residuals(xw, torch.zeros(2, 8), torch.zeros(2, dtype=torch.int32))
     assert tlg.launches == before  # the plain version is not a launch
+
+
+# The forward kernel's geometry is computed in Python (fwd_geometry) and handed
+# to the launcher: a cluster of 1, 2, 4 or 8 blocks owns 8 batch rows, each block
+# holding the gate columns of ceil(H / cluster) hidden units in shared memory.
+GEOMETRY_CASES = [(300, 128), (400, 128), (1, 128), (300, 100), (300, 256), (2500, 128)]
+
+
+@pytest.mark.parametrize("bsz,h_dim", GEOMETRY_CASES)
+def test_fwd_geometry_fits_the_card(bsz, h_dim):
+    cluster, rows, smem = tlg.fwd_geometry(bsz, h_dim)
+    assert cluster in (1, 2, 4, 8) and rows == tlg.FWD_ROWS == 8
+    assert smem == tlg.fwd_smem_bytes(h_dim, cluster) <= 232448 == tlg.MAX_SHARED_BYTES
+    hs = -(-h_dim // cluster)
+    # the slices cover every hidden unit; only the last may be ragged
+    assert (cluster - 1) * hs < h_dim <= cluster * hs
+    assert 4 * hs <= 512  # one thread per gate column of a slice
+    # the slice of wh alone is most of the block's shared memory
+    assert smem > 4 * h_dim * 4 * hs
+    tiles = -(-bsz // rows)
+    if (bsz, h_dim) in ((300, 128), (400, 128)):
+        assert cluster == 2 and tiles * cluster <= 132  # one wave of an H100's SMs
+
+
+def test_fwd_geometry_prefers_one_wave_and_rejects_what_cannot_fit():
+    # H = 128 does not fit one block: 128 x 512 float32 is 256 KB
+    assert tlg.fwd_smem_bytes(128, 1) > tlg.MAX_SHARED_BYTES
+    # on a card with few SMs the same shape needs more waves but stays valid
+    cluster, _, smem = tlg.fwd_geometry(300, 128, sm_count=16)
+    assert cluster in (2, 4, 8) and smem <= tlg.MAX_SHARED_BYTES
+    # small widths fit one block; a second wave costs more than a wider slice
+    for h_dim in (7, 16, 64):
+        cluster, _, _ = tlg.fwd_geometry(2000, h_dim)
+        assert -(-h_dim // cluster) * cluster >= h_dim
+    with pytest.raises(ValueError):
+        tlg.fwd_geometry(8, 2048)
