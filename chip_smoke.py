@@ -10,10 +10,12 @@ Phases (any failure exits non-zero and prints no result line):
      main path's shapes (dna-pre: batch 400, window 400, DNA_default), with
      TF32 off for every float32 matmul and convolution; conv_bn at every
      distinct shape of the three bundled fronts, bit-identical across two
-     runs; the training LSTM forward also at H = 100 and 256, B = 1 and a
-     ragged B, bit-identical across two runs; the recurrent
-     kernels (one LSTM direction, GRU, BNLSTM, fused and single) also at a
-     small H = 100 size, the BNLSTM bit-identical across two runs;
+     runs; the LSTM inference kernel (fused and one direction, with and
+     without starts) also at H = 100 and 256, B = 1 and 301, and the training
+     LSTM forward and backward also at H = 100 and 256, B = 1 and 301, each
+     bit-identical across two runs and printed with its cluster geometry; the
+     recurrent kernels (one LSTM direction, GRU, BNLSTM, fused and single)
+     also at a small H = 100 size, the BNLSTM bit-identical across two runs;
   3. drive the port's `call` entry point with -p dna-pre and the bundled
      DNA_default weights on seeded .signal reads (2-3 full batches), at beam
      30 and at beam 0, with every launch count set to 0 just before each run
@@ -33,8 +35,9 @@ Phases (any failure exits non-zero and prints no result line):
   5. time each kernel, its plain version and a PyTorch library yardstick
      with CUDA events after a warm-up (conv_bn at each dna_model1 shape,
      cuDNN with TF32 off and, as a second yardstick, on); no kernel may
-     read below its bound; the whole call in bases/s, and a warm
-     train step split into forward / loss / backward / update;
+     read below its bound; the LSTM backward split into its recurrence and
+     its dwh pass; the whole call in bases/s, and a warm train step split
+     into forward / loss / backward / update;
   6. print the per-kernel JSON line, then {"ok": true, "device": ...}.
 """
 
@@ -177,7 +180,8 @@ def main():
             # spill bytes two lines after its "Compiling entry function"
             if "Compiling entry function" in line and any(
                     k in line for k in ("conv_bn_mma_kernel", "conv_bn_direct_kernel",
-                                        "lstm_fwd_kernel")):
+                                        "lstm_fwd_kernel", "lstm_infer_kernel",
+                                        "lstm_bwd_kernel")):
                 if "0 bytes spill stores, 0 bytes spill loads" not in lines[i + 2]:
                     fail(f"{name}: a redesigned kernel spills registers: {lines[i + 2].strip()}")
 
@@ -195,6 +199,14 @@ def main():
 
     def max_err(got, want):
         return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def geometry(kind, b, hid, dirs=1):
+        """The cluster geometry a recurrent kernel takes, as printed text."""
+        cl, rows, smem = lstm_grad.cluster_geometry(kind, b, hid, dirs, sms)
+        waves = -(-(-(-b // rows) * dirs) // (sms // cl))
+        return f"cluster {cl}, rows {rows}, shared bytes {smem}, waves {waves}"
 
     def hold(name, err, tol, extra=""):
         ok = err <= tol
@@ -253,10 +265,38 @@ def main():
     starts = (t_len - lens).to(torch.int32)
     lstm_args = (xw_f, xw_b, wh_f, wh_b, lens, starts)
     got = bilstm.bilstm_layer(*lstm_args)
+    again = bilstm.bilstm_layer(*lstm_args)
     want = bilstm.bilstm_layer_plain(*lstm_args)
     torch.cuda.synchronize()
-    lstm_err = hold("bilstm T=B=400 H=128", max(float((g - r).abs().max())
-                                                  for g, r in zip(got, want)), 1e-4)
+    lstm_err = hold(f"bilstm T=B=400 H=128 ({geometry('infer', BATCH, h, 2)})",
+                    max_err(got, want), 1e-4)
+    infer_same = all(torch.equal(a, g) for a, g in zip(again, got))
+    # the inference kernel at other widths and batch edges: a ragged slice per
+    # block (H = 100), a cluster of 8 (H = 256), a single row and a batch that
+    # is no multiple of the row tile; the fused layer and one direction with
+    # and without starts, each bit-identical across two runs
+    for b_x, h_x in ((BATCH, 100), (BATCH, 256), (1, h), (BATCH - 99, h)):
+        ws_x = (6 / (5 * h_x)) ** 0.5 / 2
+        ln_x = torch.randint(0, t_len + 1, (b_x,), generator=gen).to(torch.int32)
+        ln_x[-1] = t_len
+        ln_x = ln_x.to(dev)
+        args_x = (rnd(t_len, b_x, 4 * h_x), rnd(t_len, b_x, 4 * h_x),
+                  rnd(h_x, 4 * h_x, scale=ws_x), rnd(h_x, 4 * h_x, scale=ws_x), ln_x,
+                  (t_len - ln_x).to(torch.int32))
+        one_args = [(args_x[1], args_x[3], ln_x, s) for s in (None, args_x[5])]
+        got_x = [*bilstm.bilstm_layer(*args_x), *[lstm.lstm_layer(*a) for a in one_args]]
+        again_x = [*bilstm.bilstm_layer(*args_x), *[lstm.lstm_layer(*a) for a in one_args]]
+        want_x = [*bilstm.bilstm_layer_plain(*args_x),
+                  *[lstm.lstm_layer_plain(*a) for a in one_args]]
+        torch.cuda.synchronize()
+        hold(f"bilstm T=400 B={b_x} H={h_x} ({geometry('infer', b_x, h_x, 2)})",
+             max_err(got_x[:2], want_x[:2]), 1e-4)
+        hold(f"lstm_layer T=400 B={b_x} H={h_x} without and with starts "
+             f"({geometry('infer', b_x, h_x)})", max_err(got_x[2:], want_x[2:]), 1e-4)
+        infer_same = infer_same and all(torch.equal(a, g) for a, g in zip(again_x, got_x))
+    log(f"  bilstm and lstm_layer bit-identical across two runs at every shape: {infer_same}")
+    if not infer_same:
+        failures.append("the inference LSTM kernel differs between two runs")
 
     # beam W=30 at B = T = 400 with length_bonus 0.6: random and peaky logits
     bonus = 0.6
@@ -305,7 +345,9 @@ def main():
     fwd_again = lstm_grad.lstm_fwd_residuals(xw_t, wh_t, lens_t)
     fwd_same = all(torch.equal(a, g) for a, g in zip(fwd_again, fwd))
     # other widths and batch edges: a ragged slice per block (H = 100), a cluster
-    # of 8 (H = 256), a single row, and a batch that is no multiple of the row tile
+    # of 8 (H = 256), a single row, and a batch that is no multiple of the row
+    # tile; the backward on the plain residuals at the same shapes
+    bwd_same = True
     for b_x, h_x in ((tb, 100), (tb, 256), (1, h), (tb + 1, h)):
         xw_x = rnd(t_len, b_x, 4 * h_x)
         wh_x = rnd(h_x, 4 * h_x, scale=(6 / (5 * h_x)) ** 0.5 / 2)
@@ -319,27 +361,39 @@ def main():
         hold(f"lstm_fwd_residuals T=400 B={b_x} H={h_x} (cluster, rows, shared bytes "
              f"{lstm_grad.fwd_geometry(b_x, h_x)})", max_err(got_x, want_x), 1e-5)
         fwd_same = fwd_same and all(torch.equal(a, g) for a, g in zip(again_x, got_x))
+        dhs_x = rnd(t_len, b_x, h_x)
+        bwd_x = lstm_grad.lstm_bwd(*want_x[1:], dhs_x, wh_x, lens_x)
+        bwd_again = lstm_grad.lstm_bwd(*want_x[1:], dhs_x, wh_x, lens_x)
+        bwd_p = lstm_grad.lstm_bwd_plain(*want_x[1:], dhs_x, wh_x, lens_x)
+        torch.cuda.synchronize()
+        hold(f"lstm_bwd T=400 B={b_x} H={h_x} dxw ({geometry('bwd', b_x, h_x)})",
+             float((bwd_x[0] - bwd_p[0]).abs().max()), 1e-4)
+        hold(f"lstm_bwd T=400 B={b_x} H={h_x} dwh (relative to max |dwh|)",
+             float((bwd_x[1] - bwd_p[1]).abs().max()) / float(bwd_p[1].abs().max()), 1e-4)
+        bwd_same = bwd_same and all(torch.equal(a, g) for a, g in zip(bwd_again, bwd_x))
     log(f"  lstm_fwd_residuals bit-identical across two runs at every shape: {fwd_same}")
     if not fwd_same:
         failures.append("lstm_fwd_residuals differs between two runs")
     # the backward on the residuals the kernel forward wrote
     dxw_k, dwh_k = lstm_grad.lstm_bwd(*fwd[1:], dhs_t, wh_t, lens_t)
     dxw, dwh = lstm_grad.lstm_bwd(*fwd_p[1:], dhs_t, wh_t, lens_t)
-    _, dwh_again = lstm_grad.lstm_bwd(*fwd_p[1:], dhs_t, wh_t, lens_t)
+    dxw_again, dwh_again = lstm_grad.lstm_bwd(*fwd_p[1:], dhs_t, wh_t, lens_t)
     dxw_p, dwh_p = lstm_grad.lstm_bwd_plain(*fwd_p[1:], dhs_t, wh_t, lens_t)
     torch.cuda.synchronize()
     dwh_scale = float(dwh_p.abs().max())
     dwh_abs = float((dwh - dwh_p).abs().max())
-    bwd_err = max(hold("lstm_bwd dxw", float((dxw - dxw_p).abs().max()), 1e-4), dwh_abs)
+    bwd_err = max(hold(f"lstm_bwd T=400 B=300 H=128 dxw ({geometry('bwd', tb, h)})",
+                       float((dxw - dxw_p).abs().max()), 1e-4), dwh_abs)
     hold("lstm_bwd dxw on the kernel forward's residuals", float((dxw_k - dxw_p).abs().max()),
          1e-4)
     hold("lstm_bwd dwh on the kernel forward's residuals (relative to max |dwh|)",
          float((dwh_k - dwh_p).abs().max()) / dwh_scale, 1e-4)
     hold("lstm_bwd dwh (relative to max |dwh|)", dwh_abs / dwh_scale, 1e-4,
          f"(max |dwh| {dwh_scale:.2f}) ")
-    if not torch.equal(dwh, dwh_again):
-        failures.append("lstm_bwd dwh differs between two runs")
-    log(f"  lstm_bwd dwh bit-identical across two runs: {torch.equal(dwh, dwh_again)}")
+    bwd_same = bwd_same and torch.equal(dwh, dwh_again) and torch.equal(dxw, dxw_again)
+    if not bwd_same:
+        failures.append("lstm_bwd differs between two runs")
+    log(f"  lstm_bwd dxw and dwh bit-identical across two runs at every shape: {bwd_same}")
 
     # the other recurrent kernels: one LSTM direction (with and without start
     # offsets), the GRU and the BNLSTM, fused and single, with seeded lengths
@@ -369,10 +423,14 @@ def main():
         ln, st = case["lens"], case["starts"]
         xw, wh = case["lstm"]
         got = [lstm.lstm_layer(xw, wh, ln, s) for s in (None, st)]
+        again = [lstm.lstm_layer(xw, wh, ln, s) for s in (None, st)]
         want = [lstm.lstm_layer_plain(xw, wh, ln, s) for s in (None, st)]
         torch.cuda.synchronize()
-        errs = {"lstm_layer": hold(f"lstm_layer {tag} (without and with starts)",
+        errs = {"lstm_layer": hold(f"lstm_layer {tag} (without and with starts; "
+                                   f"{geometry('infer', ln.shape[0], wh.shape[0])})",
                                    max_err(got, want), 1e-4)}
+        if not all(torch.equal(a, g) for a, g in zip(again, got)):
+            failures.append(f"lstm_layer {tag} differs between two runs")
         gx_f, cx_f, gx_b, cx_b, wh_f, wh_b = case["gru"]
         got = gru.bigru_layer(*case["gru"], ln, st)
         one = gru.gru_layer(gx_b, cx_b, *wh_b, ln, st)
@@ -903,6 +961,22 @@ def main():
         time_ms(torch, lambda: lstm_grad.lstm_bwd_plain(*res_t[1:], dhs_t, wh_t, lens_t), 2, 1),
         time_ms(torch, lambda: torch.autograd.grad(out_lib, lib_inputs, dhs_t,
                                                    retain_graph=True), 5))
+    # row 7 split into its recurrence and its dwh pass (profiler kernel time)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            lstm_grad.lstm_bwd(*res_t[1:], dhs_t, wh_t, lens_t)
+        torch.cuda.synchronize()
+    # (mean over the kernel events the profiler recorded: it may record fewer
+    # than the launches made)
+    bwd_split = {}
+    for ev in prof.key_averages():
+        part = ("recurrence" if "lstm_bwd_kernel" in ev.key else
+                "dwh_pass" if "lstm_dwh" in ev.key else None)
+        if part:
+            bwd_split[part] = bwd_split.get(part, 0.0) + ev.self_device_time_total / ev.count / 1e3
+            bwd_split[f"{part}_events"] = ev.count
+    log(f"  lstm_bwd T=400 B=300 H=128, device ms per launch by part (profiler): "
+        f"{json.dumps(bwd_split)}")
 
     # bounds from this run's inputs (bytes: each input read once, each output
     # written once; operations: what these inputs need)
@@ -994,6 +1068,8 @@ def main():
         if k["ms"] < k["bound_ms"]:
             fail(f"{k['name']}: {k['ms']:.4f} ms reads below its bound {k['bound_ms']:.4f} ms: "
                  "the count of its work is wrong")
+    log("  kernel no slower than its library call: " + json.dumps(
+        {k["name"]: k["ms"] <= k["library_ms"] for k in kernels if k["library_ms"]}))
     shutil.rmtree(work, ignore_errors=True)
     log(json.dumps({"call_dna_pre_beam30": call_rate, "train_s400_b300": train_rate,
                     **{f"call_dna_pre_beam30_{c}": r for c, r in cell_rates.items()}}))

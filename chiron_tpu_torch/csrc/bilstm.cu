@@ -1,5 +1,5 @@
-// One LSTM layer, the whole T-step recurrence in one launch: both directions
-// (bilstm_launch) or one (lstm_launch), through the same kernel.
+// One LSTM layer for inference, the whole T-step recurrence in one launch: both
+// directions (bilstm_launch) or one (lstm_launch), through the same kernel.
 //
 // Replaces the TPU kernels chiron_tpu/ops/pallas/lstm.py:bilstm_layer_pallas
 // (_bilstm_kernel) and lstm_layer_pallas (_lstm_kernel). Same function, over
@@ -14,111 +14,310 @@
 // frozen and its output is zero.
 //
 // What bounds it on an H100: per step a direction does a [B, H] x [H, 4H]
-// product (~42 GFLOP per layer at B = T = 400, H = 128), but the T steps
-// are sequential, so the kernel is bound by per-step latency and by
-// re-reading wh, not by the card's peak rate. One direction's wh is
-// 128 x 512 float32 = 256 KB, more than the 227 KB of shared memory a block
-// may use, so it cannot sit in one block's shared memory. The simple
-// design here: one block per (direction, tile of R batch rows), one thread
-// per gate column (4H threads); the tile's h lives in shared memory and
-// each thread streams its wh column from L2 (both directions' wh, 512 KB,
-// stay resident in the 50 MB L2) once per step for all R rows, then the
-// block does the elementwise c/h update and the mask. Splitting wh between
-// registers and shared memory in a persistent block per SM is later work.
+// product, but the T steps are sequential, so the kernel is bound by per-step
+// latency, not by the card's peak rate. One direction's wh is 128 x 512
+// float32 = 256 KB, more than the 227 KB of shared memory a block may use.
+//
+// The design is that of the training forward (csrc/lstm_grad.cu:lstm_fwd_kernel)
+// without its residuals. A thread-block CLUSTER owns a tile of R batch rows of
+// one direction, and block j of the cluster holds the columns of the hidden units
+// [j * HS, (j + 1) * HS) of all four gates, [H, 4 * HS] float32, in its shared
+// memory, loaded once per launch: no weight traffic is left in the T-step loop.
+// A block finishes c' and h' for its own units with no exchange (c and h of its
+// elements stay in registers), then stores its slice of the new h into its own
+// and its peers' shared memory (distributed shared memory), double-buffered by
+// step parity, so ONE split cluster barrier a step is enough; the out stores go
+// between its arrive and its wait. xw[t + 1] arrives by cp.async into a
+// double-buffered tile while step t computes. One thread per gate column keeps R
+// accumulators in registers, reads its weight from shared memory and h as float4
+// broadcasts along k, and adds the k terms in order with fmaf from xw[t], so the
+// bits do not depend on the geometry (fused and single launches agree bit for
+// bit). The grid holds the clusters of both directions (gridDim.y = dirs), so
+// the fused layer is one launch. The wrapper chooses the cluster size and the
+// rows per tile (ops/lstm_grad.py:cluster_geometry): at B = 400, H = 128 a
+// cluster of 2 with 13 rows puts both directions on 124 SMs, one wave.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int R = 8;  // batch rows per block
+constexpr int THREADS = 256;   // one per gate column of a block's slice: 4 * HS <= 256
+constexpr int MAX_ROWS = 16;   // batch rows of a tile, a template parameter 1..16
+constexpr int EPT = 4;         // (row, unit) elements and 16-byte xw chunks a thread: R * HS <= 4 * THREADS
+constexpr int K_UNROLL = 4;    // k loop of the product: 16 weights and 4R h reads in flight
 
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
 
-__global__ void bilstm_kernel(const float* __restrict__ xw_f, const float* __restrict__ xw_b,
-                              const float* __restrict__ wh_f, const float* __restrict__ wh_b,
-                              const int* __restrict__ lens, const int* __restrict__ starts_f,
-                              const int* __restrict__ starts_b, float* __restrict__ out_f, float* __restrict__ out_b, int T, int B,
-                              int H) {
-  extern __shared__ float smem[];
-  float* h_s = smem;              // [R][H]
-  float* c_s = h_s + R * H;       // [R][H]
-  float* g_s = c_s + R * H;       // [R][4H]
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
+// Floats of dynamic shared memory of one block (plus 2R ints of windows): wh
+// slice [HP][LC], h [2][R][HP], gate pre-activations [R][LC], xw tiles
+// [2][R][LC]; HP = H rounded up to 4, LC = 4 * HS.
+inline int infer_smem_floats(int H, int HS, int R) {
+  const int HP = (H + 3) & ~3, LC = 4 * HS;
+  return HP * LC + 2 * R * HP + 3 * R * LC;
+}
+
+// tools/kernel_probe.py builds this file with -DLSTM_PROBE: thread 0 of block
+// (0, 0) then adds up the clocks it spends in each phase of a step.
+#ifdef LSTM_PROBE
+__device__ long long infer_probe_clocks[8];
+#define PROBE_INIT long long probe_last = clock64();
+#define PROBE(i)                                                       \
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0) {        \
+    const long long now = clock64();                                   \
+    infer_probe_clocks[i] += now - probe_last;                         \
+    probe_last = now;                                                  \
+  }
+#else
+#define PROBE_INIT
+#define PROBE(i)
+#endif
+
+template <int R>
+__global__ void __launch_bounds__(THREADS, 1)
+    lstm_infer_kernel(const float* __restrict__ xw_f, const float* __restrict__ xw_b,
+                      const float* __restrict__ wh_f, const float* __restrict__ wh_b,
+                      const int* __restrict__ lens, const int* __restrict__ starts_f,
+                      const int* __restrict__ starts_b, float* __restrict__ out_f,
+                      float* __restrict__ out_b, int T, int B, int H, int HS, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CS = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
   const int dir = blockIdx.y;  // 0 forward, 1 backward (flipped input)
   const float* xw = dir == 0 ? xw_f : xw_b;
   const float* wh = dir == 0 ? wh_f : wh_b;
   const int* starts = dir == 0 ? starts_f : starts_b;  // null: every row starts at 0
   float* out = dir == 0 ? out_f : out_b;
-  const int b0 = blockIdx.x * R;
+  const int b0 = (blockIdx.x / CS) * R;
+  const int HP = (H + 3) & ~3;
+  const int LC = 4 * HS;
   const int G = 4 * H;
-  const int col = threadIdx.x;
+  const int u0 = rank * HS;                      // first hidden unit of this block
+  const int hs = max(0, min(HS, H - u0));        // its units (the last slice may be ragged)
+  const int tid = threadIdx.x;
 
-  for (int i = threadIdx.x; i < R * H; i += blockDim.x) {
-    h_s[i] = 0.f;
-    c_s[i] = 0.f;
+  float* ws = smem;                 // [HP][LC] wh[:, gate * H + u0 + u] at column gate * HS + u
+  float* h_s = ws + HP * LC;        // [2][R][HP] the whole h of the tile, by step parity
+  float* g_s = h_s + 2 * R * HP;    // [R][LC] gate pre-activations
+  float* xs = g_s + R * LC;         // [2][R][LC] xw tiles, by step parity
+  int* lo_s = reinterpret_cast<int*>(xs + 2 * R * LC);  // [R] window start
+  int* hi_s = lo_s + R;                                 // [R] window end
+
+  for (int i = tid; i < HP * LC; i += THREADS) {
+    const int k = i / LC, lc = i - k * LC;
+    const int gate = lc / HS, u = lc - gate * HS;
+    ws[i] = (k < H && u < hs) ? wh[(size_t)k * G + gate * H + u0 + u] : 0.f;
   }
-  int lo[R], hi[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int b = b0 + r;
+  for (int i = tid; i < 2 * R * HP; i += THREADS) h_s[i] = 0.f;
+  for (int i = tid; i < 2 * R * LC; i += THREADS) xs[i] = 0.f;  // padding rows and units stay 0
+  if (tid < R) {
+    const int b = b0 + tid;
     const int len = b < B ? lens[b] : 0;
     const int st = (b < B && starts != nullptr) ? starts[b] : 0;
-    lo[r] = st;
-    hi[r] = st + len;
+    lo_s[tid] = st;
+    hi_s[tid] = st + len;
   }
-  __syncthreads();
 
+  // This thread's share of one xw tile, the same at every step. With vec, 16-byte
+  // chunks (runs of HS / 4 per row and gate) spread over all threads: offsets in the
+  // tile and in xw[t], -1 for none. Without, 4-byte copies of the thread's own
+  // column, row by row: xw_col is the column's offset in xw[t] for row b0, -1 for none.
+  int xw_dst[EPT], xw_src[EPT], xw_col;
+#pragma unroll
+  for (int i = 0; i < EPT; ++i) {
+    xw_dst[i] = -1;
+    xw_src[i] = 0;
+    if (vec) {
+      const int q = HS / 4;
+      const int e = tid + i * THREADS;
+      const int r = e / (4 * q);
+      const int rem = e - r * 4 * q;
+      const int gate = rem / q;
+      const int u = (rem - gate * q) * 4;
+      if (r < R && b0 + r < B && u < hs) {
+        xw_dst[i] = r * LC + gate * HS + u;
+        xw_src[i] = (b0 + r) * G + gate * H + u0 + u;
+      }
+    }
+  }
+  {
+    const int gate = tid / HS, u = tid - gate * HS;
+    xw_col = (!vec && tid < LC && u < hs) ? b0 * G + gate * H + u0 + u : -1;
+  }
+  auto prefetch = [&](int t) {
+    float* dst = xs + (t & 1) * R * LC;
+    const float* src = xw + (size_t)t * B * G;
+    if (vec) {
+#pragma unroll
+      for (int i = 0; i < EPT; ++i)
+        if (xw_dst[i] >= 0) cp_async16(dst + xw_dst[i], src + xw_src[i]);
+    } else if (xw_col >= 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (b0 + r < B) cp_async4(dst + r * LC + tid, src + xw_col + r * G);
+    }
+    cp_async_commit();
+  };
+
+  __syncthreads();  // the zeros and the windows are down before any cp.async lands
+  prefetch(0);
+  cp_async_wait_all();
+  cluster.sync();  // every block of the cluster is initialised before a peer writes into it
+
+  // this thread's (row, unit) elements of the gate stage, the same at every
+  // step, with their window and their c and h
+  int el_r[EPT], el_u[EPT], el_lo[EPT], el_hi[EPT];
+  float c_reg[EPT], h_reg[EPT];
+#pragma unroll
+  for (int i = 0; i < EPT; ++i) {
+    const int e = tid + i * THREADS;
+    const int r = e / HS;
+    el_u[i] = e - r * HS;
+    el_r[i] = (r < R && el_u[i] < hs) ? r : -1;
+    el_lo[i] = el_r[i] >= 0 ? lo_s[r] : 0;
+    el_hi[i] = el_r[i] >= 0 ? hi_s[r] : 0;
+    c_reg[i] = 0.f;
+    h_reg[i] = 0.f;
+  }
+
+  PROBE_INIT
   for (int t = 0; t < T; ++t) {
-    // gate pre-activations for the tile's rows: xw[t] + h @ wh (column col)
-    if (col < G) {
+    const float* h_cur = h_s + (t & 1) * R * HP;
+    float* h_next = h_s + ((t + 1) & 1) * R * HP;
+
+    // pre-activations of this thread's column: xw[t] + h @ wh, k in order
+    if (tid < LC) {
+      const float* xt = xs + (t & 1) * R * LC + tid;
       float acc[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int b = b0 + r;
-        acc[r] = b < B ? xw[((size_t)t * B + b) * G + col] : 0.f;
-      }
-      for (int k = 0; k < H; ++k) {
-        const float wv = wh[(size_t)k * G + col];
+      for (int r = 0; r < R; ++r) acc[r] = xt[r * LC];
+      const float4* h4 = reinterpret_cast<const float4*>(h_cur);
+      const float* wp = ws + tid;
+#pragma unroll K_UNROLL
+      for (int k = 0; k < HP; k += 4) {
+        const float w0 = wp[k * LC], w1 = wp[(k + 1) * LC], w2 = wp[(k + 2) * LC],
+                    w3 = wp[(k + 3) * LC];
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(h_s[r * H + k], wv, acc[r]);
+        for (int r = 0; r < R; ++r) {
+          const float4 hv = h4[(r * HP + k) >> 2];
+          acc[r] = fmaf(hv.x, w0, acc[r]);
+          acc[r] = fmaf(hv.y, w1, acc[r]);
+          acc[r] = fmaf(hv.z, w2, acc[r]);
+          acc[r] = fmaf(hv.w, w3, acc[r]);
+        }
       }
 #pragma unroll
-      for (int r = 0; r < R; ++r) g_s[r * G + col] = acc[r];
+      for (int r = 0; r < R; ++r) g_s[r * LC + tid] = acc[r];
     }
+    PROBE(0)  // the product
+    if (t + 1 < T) prefetch(t + 1);
     __syncthreads();
-    // elementwise cell update + active-window mask
-    for (int idx = threadIdx.x; idx < R * H; idx += blockDim.x) {
-      const int r = idx / H;
-      const int j = idx - r * H;
-      const int b = b0 + r;
-      if (b >= B) continue;
-      const float* g = g_s + r * G;
-      const bool active = t >= lo[r] && t < hi[r];
-      float hv = 0.f;
+    PROBE(1)  // the prefetch's start and the block barrier
+
+    // gates, c', h' of this block's units; the new h goes to every block of the cluster
+    float v_out[EPT];
+#pragma unroll
+    for (int i = 0; i < EPT; ++i) {
+      v_out[i] = 0.f;
+      if (el_r[i] < 0) continue;
+      const int r = el_r[i], u = el_u[i];
+      const float* g = g_s + r * LC + u;
+      const float ig = sigm(g[0]);
+      const float gg = tanhf(g[HS]);
+      const float fg = sigm(g[2 * HS] + 1.f);
+      const float og = sigm(g[3 * HS]);
+      const float nc = fg * c_reg[i] + ig * gg;
+      const float nh = og * tanhf(nc);
+      const bool active = t >= el_lo[i] && t < el_hi[i];
       if (active) {
-        const float nc = sigm(g[2 * H + j] + 1.f) * c_s[idx] + sigm(g[j]) * tanhf(g[H + j]);
-        hv = sigm(g[3 * H + j]) * tanhf(nc);
-        c_s[idx] = nc;
-        h_s[idx] = hv;
+        c_reg[i] = nc;
+        h_reg[i] = nh;
+        v_out[i] = nh;
       }
-      out[((size_t)t * B + b) * H + j] = hv;
+      float* slot = h_next + r * HP + u0 + u;
+      for (int p = 0; p < CS; ++p) *cluster.map_shared_rank(slot, p) = h_reg[i];
     }
-    __syncthreads();
+    PROBE(2)  // the gate stage and the stores of h into the cluster
+    cp_async_wait_all();  // xw[t + 1] is down: the barrier below publishes it too
+    cluster_arrive();
+    // the outputs leave while the cluster gathers
+#pragma unroll
+    for (int i = 0; i < EPT; ++i) {
+      if (el_r[i] < 0 || b0 + el_r[i] >= B) continue;
+      out[((size_t)t * B + b0 + el_r[i]) * H + u0 + el_u[i]] = v_out[i];
+    }
+    PROBE(3)  // the wait for xw[t + 1], the barrier's arrive and the out stores
+    cluster_wait();
+    PROBE(4)  // the barrier's wait
   }
+}
+
+using InferKernel = void (*)(const float*, const float*, const float*, const float*, const int*,
+                             const int*, const int*, float*, float*, int, int, int, int, int);
+
+// lstm_infer_kernel<rows> for rows in 1..R, nullptr otherwise
+template <int R>
+InferKernel kernel_for_rows(int rows) {
+  if (rows == R) return lstm_infer_kernel<R>;
+  if constexpr (R > 1) return kernel_for_rows<R - 1>(rows);
+  return nullptr;
 }
 
 int launch(int dirs, const float* xw_f, const float* xw_b, const float* wh_f, const float* wh_b,
            const int* lens, const int* starts_f, const int* starts_b, float* out_f, float* out_b,
-           int T, int B, int H, void* stream) {
-  const int threads = ((4 * H + 31) / 32) * 32;
-  const size_t smem = (size_t)R * 6 * H * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(bilstm_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+           int T, int B, int H, int rows, int cluster, int smem_bytes, void* stream) {
+  if (cluster < 1 || cluster > 8 || (cluster & (cluster - 1)) || H < 1 || T < 1 || B < 1)
+    return (int)cudaErrorInvalidValue;
+  const InferKernel kernel = kernel_for_rows<MAX_ROWS>(rows);
+  const int HS = (H + cluster - 1) / cluster;
+  const int need = (int)sizeof(float) * infer_smem_floats(H, HS, rows) + 2 * (int)sizeof(int) * rows;
+  if (kernel == nullptr || 4 * HS > THREADS || rows * HS > EPT * THREADS || smem_bytes < need)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute((const void*)kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((B + R - 1) / R, dirs);
-  bilstm_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      xw_f, xw_b, wh_f, wh_b, lens, starts_f, starts_b, out_f, out_b, T, B, H);
+  const uintptr_t align = reinterpret_cast<uintptr_t>(xw_f) | reinterpret_cast<uintptr_t>(xw_b);
+  const int vec = (H % 4 == 0 && HS % 4 == 0 && (align & 15) == 0);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((B + rows - 1) / rows) * cluster, dirs);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, xw_f, xw_b, wh_f, wh_b, lens, starts_f, starts_b, out_f,
+                           out_b, T, B, H, HS, vec);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -126,18 +325,32 @@ int launch(int dirs, const float* xw_f, const float* xw_b, const float* wh_f, co
 
 extern "C" {
 
+#ifdef LSTM_PROBE
+// Copies the phase clocks to dst[8] and sets them to 0.
+int infer_probe_read(long long* dst) {
+  cudaError_t err = cudaMemcpyFromSymbol(dst, infer_probe_clocks, sizeof(long long) * 8);
+  if (err != cudaSuccess) return (int)err;
+  const long long zero[8] = {0};
+  return (int)cudaMemcpyToSymbol(infer_probe_clocks, zero, sizeof(zero));
+}
+#endif
+
 // xw_*: [T, B, 4H] float32, wh_*: [H, 4H], lens/starts: [B] int32,
-// out_*: [T, B, H]. H <= 256.
+// out_*: [T, B, H]. 1 <= H <= 256. The geometry comes from the caller: rows of a
+// batch tile (1..16), blocks of a cluster (1, 2, 4 or 8, each holding
+// ceil(H / cluster) <= 64 hidden units) and the dynamic shared memory of a block.
 int bilstm_launch(const float* xw_f, const float* xw_b, const float* wh_f, const float* wh_b,
                   const int* lens, const int* starts, float* out_f, float* out_b, int T, int B,
-                  int H, void* stream) {
-  return launch(2, xw_f, xw_b, wh_f, wh_b, lens, nullptr, starts, out_f, out_b, T, B, H, stream);
+                  int H, int rows, int cluster, int smem_bytes, void* stream) {
+  return launch(2, xw_f, xw_b, wh_f, wh_b, lens, nullptr, starts, out_f, out_b, T, B, H, rows,
+                cluster, smem_bytes, stream);
 }
 
 // One direction; starts may be null (every row's window is [0, len)).
 int lstm_launch(const float* xw, const float* wh, const int* lens, const int* starts, float* out,
-                int T, int B, int H, void* stream) {
-  return launch(1, xw, nullptr, wh, nullptr, lens, starts, nullptr, out, nullptr, T, B, H, stream);
+                int T, int B, int H, int rows, int cluster, int smem_bytes, void* stream) {
+  return launch(1, xw, nullptr, wh, nullptr, lens, starts, nullptr, out, nullptr, T, B, H, rows,
+                cluster, smem_bytes, stream);
 }
 
 }  // extern "C"

@@ -41,17 +41,29 @@
 // Rows past their length keep c and h (out is zero; gates, cc, hc are still written);
 // rows b >= B of the last tile compute on zeros and store nothing.
 //
-// The backward (unchanged): one block owns a tile of R batch rows for the whole
-// recurrence; its da lives in shared memory, and each thread streams one column of
-// wh^T (the wrapper passes wh^T so that the reads stay coalesced) from L2 once per
-// step for all R rows. The 4H-long dots are split four ways over all 4H threads and
-// the four partial sums are added in a fixed order.
+// The backward keeps wh^T ([4H, H], 256 KB at H = 128) on chip the same way: a
+// cluster owns a tile of RB batch rows (1..16, a template parameter chosen by the
+// wrapper with the cluster size), and block j holds wh^T[:, j * HS : (j + 1) * HS],
+// [4H, HS], in its shared memory for the whole launch. Per step, in reverse time,
+// block j computes da = [di, dg, df, do] for its own units (dh and dc of its
+// elements stay in registers), writes its da slice into every block's shared
+// memory (double-buffered by parity), sends the dxw stores between the arrive and
+// the wait of one split cluster barrier, and then computes dh[:, own units] =
+// da @ wh^T[:, own units]: thread (q, u) sums gate q's H terms in order, and the
+// four partial sums are added in the fixed order ((q0 + q1) + q2) + q3, so runs are
+// bit-identical. The step's residuals (gates, dhs and cc[t - 1]; cc[t] is the
+// previous step's cc[t - 1], hence two cc tiles) arrive by cp.async for step t - 1
+// while step t exchanges da and computes its product: each thread copies exactly
+// the elements it consumes, so no block barrier guards them, and one tile of each
+// is enough.
 //
 // dwh is the one large product here ([H, T*B] x [T*B, 4H], ~15.7 GFLOP at
-// T = 400, B = 300, H = 128): a tiled SIMT GEMM splits the T*B rows into `splits`
-// fixed ranges, each block writes its tile's partial sum, and a second kernel adds
-// the partials in order. No float atomics, so the same inputs give the same bits
-// on every run.
+// T = 400, B = 300, H = 128): a register-blocked SIMT GEMM in full float32 (128 x
+// 128 tiles, 8 x 8 outputs a thread, rows staged by cp.async, double-buffered)
+// splits the T*B rows into `splits` fixed ranges, each block writes its tile's
+// partial sum, and a second kernel adds the partials in order. No float atomics,
+// so the same inputs give the same bits on every run. (The tensor cores would add
+// with truncation over these long sums, see conv_bn.cu.)
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -61,7 +73,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int R = 8;  // batch rows per block (backward) or per cluster (forward)
+constexpr int R = 8;  // batch rows per cluster of the forward
 
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -95,9 +107,10 @@ inline int fwd_smem_floats(int H, int HS) {
 }
 
 // tools/kernel_probe.py builds this file with -DLSTM_PROBE: thread 0 of block 0 then
-// adds up the clocks it spends in each phase of a step.
+// adds up the clocks it spends in each phase of a step (slots 0-7 the forward's,
+// 8-15 the backward's).
 #ifdef LSTM_PROBE
-__device__ long long lstm_probe_clocks[8];
+__device__ long long lstm_probe_clocks[16];
 #define PROBE_INIT long long probe_last = clock64();
 #define PROBE(i)                                \
   if (threadIdx.x == 0 && blockIdx.x == 0) {    \
@@ -298,152 +311,296 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-__global__ void __launch_bounds__(1024)
+// The backward: 256 threads, one per (gate q, unit u) of a block's slice in the
+// product (4 * HS <= 256), and EPT (row, unit) elements a thread in the gate-gradient
+// stage (RB * HS <= 4 * 256).
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_MAX_ROWS = 16;
+constexpr int BWD_EPT = 4;
+
+// Floats of dynamic shared memory of one backward block (plus RB ints of lengths):
+// wh^T slice [4][HP][HS], da of the tile [2][RB][4][HP], partial sums [4][RB][HS],
+// gates [4][RB * HS], cc [2][RB * HS] and dhs [RB * HS] of its units.
+inline int bwd_smem_floats(int H, int HS, int RB) {
+  const int HP = (H + 3) & ~3;
+  return 4 * HP * HS + 8 * RB * HP + (4 + 4 + 2 + 1) * RB * HS;
+}
+
+template <int RB>
+__global__ void __launch_bounds__(BWD_THREADS, 1)
     lstm_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cc,
                     const float* __restrict__ dhs, const float* __restrict__ wh_t,
-                    const int* __restrict__ lens, float* __restrict__ dxw, int T, int B,
-                    int H) {
-  extern __shared__ float smem[];
-  float* dh_s = smem;              // [R][H] carried dh
-  float* dc_s = dh_s + R * H;      // [R][H] carried dc
-  float* da_s = dc_s + R * H;      // [R][4H] this step's gate gradients
-  float* part_s = da_s + R * 4 * H;  // [4][R][H] partial sums of da @ wh^T
-
-  const int b0 = blockIdx.x * R;
+                    const int* __restrict__ lens, float* __restrict__ dxw, int T, int B, int H,
+                    int HS) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int CS = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b0 = (blockIdx.x / CS) * RB;
+  const int HP = (H + 3) & ~3;
   const int G = 4 * H;
+  const int E = RB * HS;                         // elements of one tile of this block
+  const int u0 = rank * HS;
+  const int hs = max(0, min(HS, H - u0));
   const int tid = threadIdx.x;
 
-  for (int i = tid; i < R * H; i += blockDim.x) {
-    dh_s[i] = 0.f;
-    dc_s[i] = 0.f;
-  }
-  int len[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) len[r] = b0 + r < B ? lens[b0 + r] : 0;
-  __syncthreads();
+  float* ws = smem;                  // [4][HP][HS] wh^T[q * H + k][u0 + u] at (q * HP + k) * HS + u
+  float* da_s = ws + 4 * HP * HS;    // [2][RB][4][HP] da of the whole tile, by step parity
+  float* part_s = da_s + 8 * RB * HP;  // [4][RB][HS] partial sums of da @ wh^T, by gate
+  // A thread copies (cp.async) and reads only its own elements of the residual
+  // tiles, and has used step t's values before it asks for step t - 1's, so one
+  // tile of each is enough, and two of cc: cc[s] in slot s & 1, read at steps s
+  // and s + 1.
+  float* gt_s = part_s + 4 * E;      // [4][E] activated gates of this block's units
+  float* cc_s = gt_s + 4 * E;        // [2][E] carried c
+  float* dhs_s = cc_s + 2 * E;       // [E] output gradient
+  int* len_s = reinterpret_cast<int*>(dhs_s + E);  // [RB]
 
+  for (int i = tid; i < 4 * HP * HS; i += BWD_THREADS) {
+    const int qk = i / HS, u = i - qk * HS;
+    const int q = qk / HP, k = qk - q * HP;
+    ws[i] = (k < H && u < hs) ? wh_t[(size_t)(q * H + k) * H + u0 + u] : 0.f;
+  }
+  // da's padding units stay 0; the tiles of padding rows are never copied
+  for (int i = tid; i < 8 * RB * HP + 11 * E; i += BWD_THREADS) da_s[i] = 0.f;
+  if (tid < RB) len_s[tid] = b0 + tid < B ? lens[b0 + tid] : 0;
+
+  // this thread's (row, unit) elements, the same at every step; b < B for the copies
+  int el_r[BWD_EPT], el_u[BWD_EPT];
+  bool el_in[BWD_EPT];
+#pragma unroll
+  for (int i = 0; i < BWD_EPT; ++i) {
+    const int e = tid + i * BWD_THREADS;
+    const int r = e / HS;
+    el_u[i] = e - r * HS;
+    el_r[i] = (r < RB && el_u[i] < hs) ? r : -1;
+    el_in[i] = el_r[i] >= 0 && b0 + r < B;
+  }
+  // the residuals of step s: gates[s], dhs[s] and cc[s - 1]
+  auto prefetch = [&](int s) {
+#pragma unroll
+    for (int i = 0; i < BWD_EPT; ++i) {
+      if (!el_in[i]) continue;
+      const int e = tid + i * BWD_THREADS;
+      const size_t row = (size_t)s * B + b0 + el_r[i];
+      const int j = u0 + el_u[i];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        cp_async4(gt_s + q * E + e, gates + row * G + q * H + j);
+      cp_async4(dhs_s + e, dhs + row * H + j);
+      if (s > 0) cp_async4(cc_s + ((s - 1) & 1) * E + e, cc + (row - B) * H + j);
+    }
+    cp_async_commit();
+  };
+
+  __syncthreads();  // the zeros are down before any cp.async lands on them
+#pragma unroll
+  for (int i = 0; i < BWD_EPT; ++i)
+    if (el_in[i])
+      cp_async4(cc_s + ((T - 1) & 1) * E + tid + i * BWD_THREADS,
+                cc + ((size_t)(T - 1) * B + b0 + el_r[i]) * H + u0 + el_u[i]);
+  prefetch(T - 1);
+  cp_async_wait_all();
+  cluster.sync();  // every block is initialised before a peer writes into it
+
+  float dh[BWD_EPT], dc[BWD_EPT];
+  int el_len[BWD_EPT];
+  bool act_next[BWD_EPT];  // the row was active at step t + 1: its dh comes from the product
+#pragma unroll
+  for (int i = 0; i < BWD_EPT; ++i) {
+    dh[i] = dc[i] = 0.f;
+    act_next[i] = false;
+    el_len[i] = el_r[i] >= 0 ? len_s[el_r[i]] : 0;
+  }
+
+  PROBE_INIT
   for (int t = T - 1; t >= 0; --t) {
-    // gate gradients of the tile's rows (zero for masked and padding rows)
-    for (int idx = tid; idx < R * H; idx += blockDim.x) {
-      const int r = idx / H;
-      const int j = idx - r * H;
-      const int b = b0 + r;
-      float* da = da_s + r * G;
-      if (b >= B || t >= len[r]) {
-        da[j] = da[H + j] = da[2 * H + j] = da[3 * H + j] = 0.f;
-        if (b < B) {
-          float* dr = dxw + ((size_t)t * B + b) * G;
-          dr[j] = dr[H + j] = dr[2 * H + j] = dr[3 * H + j] = 0.f;
+    // gate gradients of this block's units; masked steps pass dh and dc through
+    float d[BWD_EPT][4];
+#pragma unroll
+    for (int i = 0; i < BWD_EPT; ++i) {
+      d[i][0] = d[i][1] = d[i][2] = d[i][3] = 0.f;
+      if (el_r[i] < 0) continue;
+      const int r = el_r[i], u = el_u[i];
+      const int e = tid + i * BWD_THREADS;
+      if (act_next[i])
+        dh[i] = ((part_s[r * HS + u] + part_s[(RB + r) * HS + u]) + part_s[(2 * RB + r) * HS + u]) +
+                part_s[(3 * RB + r) * HS + u];
+      const bool active = t < el_len[i];
+      act_next[i] = active;
+      if (active) {
+        const float* g = gt_s + e;
+        const float ig = g[0], gg = g[E], fg = g[2 * E], og = g[3 * E];
+        const float c_t = cc_s[(t & 1) * E + e];
+        const float c_prev = t > 0 ? cc_s[((t + 1) & 1) * E + e] : 0.f;
+        const float tc = tanhf(c_t);
+        const float dh_new = dhs_s[e] + dh[i];
+        const float dc_new = dc[i] + dh_new * og * (1.f - tc * tc);
+        d[i][3] = dh_new * tc * og * (1.f - og);
+        d[i][2] = dc_new * c_prev * fg * (1.f - fg);
+        d[i][0] = dc_new * gg * ig * (1.f - ig);
+        d[i][1] = dc_new * ig * (1.f - gg * gg);
+        dc[i] = dc_new * fg;
+      }
+    }
+    PROBE(8)  // the gate gradients
+    // step t - 1's residuals are asked for as soon as step t's are read (into
+    // registers, and used): they have the rest of the step to land
+    if (t > 0) prefetch(t - 1);
+    PROBE(9)  // the prefetch's start
+#pragma unroll
+    for (int i = 0; i < BWD_EPT; ++i) {
+      if (el_r[i] < 0) continue;
+      float* slot = da_s + ((t & 1) * RB + el_r[i]) * 4 * HP + u0 + el_u[i];
+      for (int p = 0; p < CS; ++p) {
+        float* dst = cluster.map_shared_rank(slot, p);
+        dst[0] = d[i][0];
+        dst[HP] = d[i][1];
+        dst[2 * HP] = d[i][2];
+        dst[3 * HP] = d[i][3];
+      }
+    }
+    PROBE(10)  // the stores of da into the cluster
+    cluster_arrive();
+    // dxw leaves while the cluster gathers
+#pragma unroll
+    for (int i = 0; i < BWD_EPT; ++i) {
+      if (!el_in[i]) continue;
+      float* dr = dxw + ((size_t)t * B + b0 + el_r[i]) * G + u0 + el_u[i];
+      dr[0] = d[i][0];
+      dr[H] = d[i][1];
+      dr[2 * H] = d[i][2];
+      dr[3 * H] = d[i][3];
+    }
+    PROBE(11)  // the barrier's arrive and the dxw stores
+    cluster_wait();
+    PROBE(12)  // the barrier's wait
+    if (t == 0) break;
+    // dh of step t - 1 for this block's units: thread (q, u) sums gate q's terms in order
+    if (tid < 4 * HS) {
+      const int q = tid / HS, u = tid - q * HS;
+      float acc[RB];
+#pragma unroll
+      for (int r = 0; r < RB; ++r) acc[r] = 0.f;
+      const float4* d4 = reinterpret_cast<const float4*>(da_s + (t & 1) * RB * 4 * HP + q * HP);
+      const float* wp = ws + q * HP * HS + u;
+#pragma unroll K_UNROLL
+      for (int k = 0; k < HP; k += 4) {
+        const float w0 = wp[k * HS], w1 = wp[(k + 1) * HS], w2 = wp[(k + 2) * HS],
+                    w3 = wp[(k + 3) * HS];
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          const float4 dv = d4[(r * 4 * HP + k) >> 2];
+          acc[r] = fmaf(dv.x, w0, acc[r]);
+          acc[r] = fmaf(dv.y, w1, acc[r]);
+          acc[r] = fmaf(dv.z, w2, acc[r]);
+          acc[r] = fmaf(dv.w, w3, acc[r]);
         }
-        continue;
-      }
-      const size_t row = (size_t)t * B + b;
-      const float* gr = gates + row * G;
-      const float ig = gr[j], gg = gr[H + j], fg = gr[2 * H + j], og = gr[3 * H + j];
-      const float c_t = cc[row * H + j];
-      const float c_prev = t > 0 ? cc[(row - B) * H + j] : 0.f;
-      const float tc = tanhf(c_t);
-      const float dh_new = dhs[row * H + j] + dh_s[idx];
-      const float dc_new = dc_s[idx] + dh_new * og * (1.f - tc * tc);
-      const float d_o = dh_new * tc * og * (1.f - og);
-      const float d_f = dc_new * c_prev * fg * (1.f - fg);
-      const float d_i = dc_new * gg * ig * (1.f - ig);
-      const float d_g = dc_new * ig * (1.f - gg * gg);
-      da[j] = d_i;
-      da[H + j] = d_g;
-      da[2 * H + j] = d_f;
-      da[3 * H + j] = d_o;
-      float* dr = dxw + row * G;
-      dr[j] = d_i;
-      dr[H + j] = d_g;
-      dr[2 * H + j] = d_f;
-      dr[3 * H + j] = d_o;
-      dc_s[idx] = dc_new * fg;
-    }
-    __syncthreads();
-    // partial dots: thread (q, j) sums da[:, qH:(q+1)H] * wh^T[qH:(q+1)H, j]
-    if (tid < G) {
-      const int q = tid / H;
-      const int j = tid - q * H;
-      float acc[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = 0.f;
-      for (int c = q * H; c < (q + 1) * H; ++c) {
-        const float wv = wh_t[(size_t)c * H + j];
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(da_s[r * G + c], wv, acc[r]);
       }
 #pragma unroll
-      for (int r = 0; r < R; ++r) part_s[(q * R + r) * H + j] = acc[r];
+      for (int r = 0; r < RB; ++r) part_s[(q * RB + r) * HS + u] = acc[r];
     }
-    __syncthreads();
-    // dh_{t-1} for active rows, in a fixed order; masked rows keep their dh
-    for (int idx = tid; idx < R * H; idx += blockDim.x) {
-      const int r = idx / H;
-      const int j = idx - r * H;
-      if (b0 + r >= B || t >= len[r]) continue;
-      dh_s[idx] = ((part_s[(0 * R + r) * H + j] + part_s[(1 * R + r) * H + j]) +
-                   part_s[(2 * R + r) * H + j]) +
-                  part_s[(3 * R + r) * H + j];
-    }
-    __syncthreads();
+    PROBE(13)  // the product
+    cp_async_wait_all();  // this thread's residuals of step t - 1 are down
+    __syncthreads();      // the partial sums are down
+    PROBE(14)  // the wait for the residuals and the block barrier
   }
 }
 
-// dwh partials: block (x, y, z) owns dwh[y*64 : +64, x*64 : +64] over the rows
-// n in [z * chunk, (z + 1) * chunk) of the flattened [T*B] axis, where
+using BwdKernel = void (*)(const float*, const float*, const float*, const float*, const int*,
+                           float*, int, int, int, int);
+
+// lstm_bwd_kernel<rows> for rows in 1..RB, nullptr otherwise
+template <int RB>
+BwdKernel bwd_kernel_for_rows(int rows) {
+  if (rows == RB) return lstm_bwd_kernel<RB>;
+  if constexpr (RB > 1) return bwd_kernel_for_rows<RB - 1>(rows);
+  return nullptr;
+}
+
+// dwh partials: block (x, y, z) owns dwh[y*128 : +128, x*128 : +128] over the
+// rows n in [z * chunk, (z + 1) * chunk) of the flattened [T*B] axis, where
 // h_prev[n] = hc[n - B] (zero for the first B rows, time 0). 256 threads, each
-// 4 x 4 outputs; 16 rows of h_prev and dxw staged in shared memory at a time.
-constexpr int TILE = 64, TR = 16;
+// 8 x 8 outputs (two runs of 4 rows and of 4 columns, 64 apart, so that a warp's
+// float4 reads of a staged row are broadcasts or contiguous); 8 rows of h_prev
+// and dxw staged a stage by 4-byte cp.async with zero fill, two stages in flight.
+// Each output adds its rows in order with fmaf.
+constexpr int DW_TILE = 128, DW_ROWS = 8;
+
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
 
 __global__ void __launch_bounds__(256)
     lstm_dwh_partial_kernel(const float* __restrict__ hc, const float* __restrict__ dxw,
                             float* __restrict__ part, int n_rows, int chunk, int B, int H) {
-  __shared__ float a_s[TR][TILE];  // h_prev rows, k
-  __shared__ float b_s[TR][TILE];  // dxw rows, c
+  __shared__ __align__(16) float a_s[2][DW_ROWS][DW_TILE];  // h_prev rows, k
+  __shared__ __align__(16) float b_s[2][DW_ROWS][DW_TILE];  // dxw rows, c
   const int G = 4 * H;
-  const int k0 = blockIdx.y * TILE, c0 = blockIdx.x * TILE;
+  const int k0 = blockIdx.y * DW_TILE, c0 = blockIdx.x * DW_TILE;
   const int n_begin = blockIdx.z * chunk;
   const int n_end = min(n_begin + chunk, n_rows);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) acc[i][jj] = 0.f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  for (int n0 = n_begin; n0 < n_end; n0 += TR) {
-    for (int e = threadIdx.x; e < TR * TILE; e += blockDim.x) {
-      const int rr = e / TILE, cc = e - rr * TILE;
-      const int n = n0 + rr;
-      const int k = k0 + cc, c = c0 + cc;
-      a_s[rr][cc] = (n < n_end && n >= B && k < H) ? hc[(size_t)(n - B) * H + k] : 0.f;
-      b_s[rr][cc] = (n < n_end && c < G) ? dxw[(size_t)n * G + c] : 0.f;
+  auto stage = [&](int n0, int buf) {
+#pragma unroll
+    for (int i = 0; i < DW_ROWS * DW_TILE / 256; ++i) {
+      const int e = tid + i * 256;
+      const int rr = e / DW_TILE, cc = e - rr * DW_TILE;
+      const int n = n0 + rr, k = k0 + cc, c = c0 + cc;
+      const bool va = n < n_end && n >= B && k < H;
+      const bool vb = n < n_end && c < G;
+      cp_async4_zfill(&a_s[buf][rr][cc], va ? hc + (size_t)(n - B) * H + k : hc, va);
+      cp_async4_zfill(&b_s[buf][rr][cc], vb ? dxw + (size_t)n * G + c : dxw, vb);
+    }
+    cp_async_commit();
+  };
+  const int stages = n_end > n_begin ? (n_end - n_begin + DW_ROWS - 1) / DW_ROWS : 0;
+  if (stages > 0) stage(n_begin, 0);
+  for (int s = 0; s < stages; ++s) {
+    if (s + 1 < stages) {
+      stage(n_begin + (s + 1) * DW_ROWS, (s + 1) & 1);
+      cp_async_wait_one();
+    } else {
+      cp_async_wait_all();
     }
     __syncthreads();
+    const int buf = s & 1;
 #pragma unroll
-    for (int rr = 0; rr < TR; ++rr) {
-      float a[4], bv[4];
+    for (int rr = 0; rr < DW_ROWS; ++rr) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&a_s[buf][rr][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&a_s[buf][rr][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&b_s[buf][rr][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&b_s[buf][rr][64 + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = a_s[rr][ty * 4 + i];
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) bv[jj] = b_s[rr][tx * 4 + jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) acc[i][jj] = fmaf(a[i], bv[jj], acc[i][jj]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
     }
-    __syncthreads();
+    __syncthreads();  // the buffer is read before the stage after next lands on it
   }
   float* dst = part + (size_t)blockIdx.z * H * G;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int k = k0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
     if (k >= H) continue;
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int c = c0 + tx * 4 + jj;
-      if (c < G) dst[(size_t)k * G + c] = acc[i][jj];
+    for (int j = 0; j < 8; ++j) {
+      const int c = c0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      if (c < G) dst[(size_t)k * G + c] = acc[i][j];
     }
   }
 }
@@ -467,11 +624,11 @@ int set_smem(const void* kernel, size_t bytes) {
 extern "C" {
 
 #ifdef LSTM_PROBE
-// Copies the phase clocks to dst[8] and sets them to 0.
+// Copies the phase clocks to dst[16] and sets them to 0.
 int lstm_probe_read(long long* dst) {
-  cudaError_t err = cudaMemcpyFromSymbol(dst, lstm_probe_clocks, sizeof(long long) * 8);
+  cudaError_t err = cudaMemcpyFromSymbol(dst, lstm_probe_clocks, sizeof(long long) * 16);
   if (err != cudaSuccess) return (int)err;
-  const long long zero[8] = {0};
+  const long long zero[16] = {0};
   return (int)cudaMemcpyToSymbol(lstm_probe_clocks, zero, sizeof(zero));
 }
 #endif
@@ -512,22 +669,44 @@ int lstm_fwd_launch(const float* xw, const float* wh, const int* lens, float* ou
 
 // gates: [T, B, 4H], cc, hc, dhs: [T, B, H], wh_t: [4H, H] (wh transposed),
 // lens: [B] int32; dxw: [T, B, 4H], dwh: [H, 4H]; part: scratch [splits, H, 4H].
+// The recurrence's geometry comes from the caller: rows of a batch tile (1..16),
+// blocks of a cluster (1, 2, 4 or 8, each holding ceil(H / cluster) <= 64 hidden
+// units) and the dynamic shared memory of a block.
 int lstm_bwd_launch(const float* gates, const float* cc, const float* hc, const float* dhs,
                     const float* wh_t, const int* lens, float* dxw, float* dwh, float* part,
-                    int splits, int T, int B, int H, void* stream) {
+                    int splits, int T, int B, int H, int rows, int cluster, int smem_bytes,
+                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int G = 4 * H;
-  const int threads = ((G + 31) / 32) * 32;
-  const size_t smem = (size_t)R * 10 * H * sizeof(float);
-  int err = set_smem((const void*)lstm_bwd_kernel, smem);
+  if (cluster < 1 || cluster > 8 || (cluster & (cluster - 1)) || H < 1 || T < 1 || B < 1)
+    return (int)cudaErrorInvalidValue;
+  const BwdKernel kernel = bwd_kernel_for_rows<BWD_MAX_ROWS>(rows);
+  const int HS = (H + cluster - 1) / cluster;
+  const int need = (int)sizeof(float) * bwd_smem_floats(H, HS, rows) + (int)sizeof(int) * rows;
+  if (kernel == nullptr || 4 * HS > BWD_THREADS || rows * HS > BWD_EPT * BWD_THREADS ||
+      smem_bytes < need)
+    return (int)cudaErrorInvalidValue;
+  int err = set_smem((const void*)kernel, (size_t)smem_bytes);
   if (err) return err;
-  lstm_bwd_kernel<<<(B + R - 1) / R, threads, smem, s>>>(gates, cc, dhs, wh_t, lens, dxw, T,
-                                                          B, H);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((B + rows - 1) / rows) * cluster);
+  cfg.blockDim = dim3(BWD_THREADS);
+  cfg.dynamicSmemBytes = (size_t)smem_bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = (int)cudaLaunchKernelEx(&cfg, kernel, gates, cc, dhs, wh_t, lens, dxw, T, B, H, HS);
+  if (err) return err;
   err = (int)cudaGetLastError();
   if (err) return err;
   const int n_rows = T * B;
   const int chunk = (n_rows + splits - 1) / splits;
-  dim3 grid((G + TILE - 1) / TILE, (H + TILE - 1) / TILE, splits);
+  dim3 grid((G + DW_TILE - 1) / DW_TILE, (H + DW_TILE - 1) / DW_TILE, splits);
   lstm_dwh_partial_kernel<<<grid, 256, 0, s>>>(hc, dxw, part, n_rows, chunk, B, H);
   err = (int)cudaGetLastError();
   if (err) return err;

@@ -9,7 +9,10 @@ data begins, which is exactly reversing each row within its length.
 
 ``bilstm_layer`` launches ``csrc/bilstm.cu`` for CUDA tensors and runs
 ``bilstm_layer_plain`` for CPU tensors. H is handled directly (no padding
-to 128 lanes), up to 256.
+to 128 lanes), up to 256. The kernel keeps each direction's ``wh`` resident
+in the shared memory of a thread-block cluster; ``inference_geometry``
+chooses the cluster size and the rows per tile (``lstm_grad.cluster_geometry``)
+so that both directions run in one wave where they fit.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import ctypes
 import torch
 
 from chiron_tpu_torch.ops import cuda_build
+from chiron_tpu_torch.ops.lstm_grad import cluster_geometry
 
 _FORGET_BIAS = 1.0
 MAX_HIDDEN = 256
@@ -43,6 +47,13 @@ def _lstm_direction(xw, wh, lo, hi):
         h = torch.where(m, nh, h)
         out[t] = torch.where(m, nh, torch.zeros_like(nh))
     return out
+
+
+def inference_geometry(bsz: int, h_dim: int, dirs: int, dev: torch.device):
+    """(cluster size, rows per tile, shared-memory bytes per block) of the
+    inference kernel for ``dirs`` directions on the card ``dev``."""
+    return cluster_geometry("infer", bsz, h_dim, dirs,
+                            torch.cuda.get_device_properties(dev).multi_processor_count)
 
 
 def bilstm_layer_plain(xw_fw, xw_bw, wh_fw, wh_bw, lengths, starts_bw):
@@ -88,9 +99,10 @@ def bilstm_layer(xw_fw: torch.Tensor, xw_bw: torch.Tensor, wh_fw: torch.Tensor,
     args = [a.contiguous() for a in (xw_fw, xw_bw, wh_fw, wh_bw, lengths, starts_bw)]
     out_f = torch.empty((t_max, bsz, h_dim), dtype=torch.float32, device=dev)
     out_b = torch.empty_like(out_f)
+    cluster, rows, smem = inference_geometry(bsz, h_dim, 2, dev)
     lib = cuda_build.load("bilstm")
     rc = lib.bilstm_launch(*[a.data_ptr() for a in args], out_f.data_ptr(),
-                           out_b.data_ptr(), t_max, bsz, h_dim,
+                           out_b.data_ptr(), t_max, bsz, h_dim, rows, cluster, smem,
                            torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "bilstm")
     launches += 1
@@ -99,9 +111,9 @@ def bilstm_layer(xw_fw: torch.Tensor, xw_bw: torch.Tensor, wh_fw: torch.Tensor,
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.bilstm_launch.argtypes = [vp] * 8 + [ci] * 3 + [vp]
+    lib.bilstm_launch.argtypes = [vp] * 8 + [ci] * 6 + [vp]
     lib.bilstm_launch.restype = ci
-    lib.lstm_launch.argtypes = [vp] * 5 + [ci] * 3 + [vp]  # ops/lstm.py's entry point
+    lib.lstm_launch.argtypes = [vp] * 5 + [ci] * 6 + [vp]  # ops/lstm.py's entry point
     lib.lstm_launch.restype = ci
 
 

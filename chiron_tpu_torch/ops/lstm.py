@@ -7,9 +7,9 @@ order i, g, f, o, forget bias +1). Row b is active on the window
 outside it the row's state is frozen and its output zero.
 
 ``lstm_layer`` launches the one-direction entry point of ``csrc/bilstm.cu``
-(the fused layer's kernel with a single direction) for CUDA tensors and runs
-``lstm_layer_plain`` for CPU tensors. H is handled directly (no padding to
-128 lanes), up to 256.
+(the fused layer's kernel with a single direction, at its own geometry) for
+CUDA tensors and runs ``lstm_layer_plain`` for CPU tensors. H is handled
+directly (no padding to 128 lanes), up to 256.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from chiron_tpu_torch.ops import cuda_build
-from chiron_tpu_torch.ops.bilstm import MAX_HIDDEN, _lstm_direction
+from chiron_tpu_torch.ops.bilstm import MAX_HIDDEN, _lstm_direction, inference_geometry
 
 # launches of the CUDA kernel (plain-version calls on the CPU are not counted)
 launches = 0
@@ -81,10 +81,12 @@ def lstm_layer(xw: torch.Tensor, wh: torch.Tensor, lengths: torch.Tensor,
     xw, wh, lengths = xw.contiguous(), wh.contiguous(), lengths.contiguous()
     starts = None if starts is None else starts.contiguous()
     out = torch.empty((t_max, bsz, h_dim), dtype=torch.float32, device=dev)
+    cluster, rows, smem = inference_geometry(bsz, h_dim, 1, dev)
     lib = cuda_build.load("bilstm")
     rc = lib.lstm_launch(xw.data_ptr(), wh.data_ptr(), lengths.data_ptr(),
                          None if starts is None else starts.data_ptr(), out.data_ptr(),
-                         t_max, bsz, h_dim, torch.cuda.current_stream(dev).cuda_stream)
+                         t_max, bsz, h_dim, rows, cluster, smem,
+                         torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "lstm_layer")
     launches += 1
     return out

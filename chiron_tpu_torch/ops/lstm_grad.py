@@ -33,6 +33,10 @@ block fits the shared memory, where a wave is what the card's SMs hold at
 once (a second wave doubles the time). H = 128 takes a cluster of 2 (76
 blocks at B = 300, 100 at B = 400: one wave of an H100's 132 SMs), H = 256 a
 cluster of 8.
+
+The backward kernel and the inference kernels (``ops/bilstm.py``,
+``ops/lstm.py``) keep ``wh`` (``wh^T``) resident the same way, and
+``cluster_geometry`` chooses their rows per tile as well as the cluster size.
 """
 
 from __future__ import annotations
@@ -45,9 +49,10 @@ from chiron_tpu_torch.ops import cuda_build
 
 _FORGET_BIAS = 1.0
 MAX_HIDDEN = 256
-# the dwh pass splits the T*B rows into at most this many fixed ranges
-_MAX_SPLITS = 16
-_ROWS_PER_SPLIT = 4096
+# the dwh pass splits the T*B rows into at most this many fixed ranges (at
+# H = 128 its 4 tiles of 128 x 128 x 32 ranges are 128 blocks, one an SM)
+_MAX_SPLITS = 32
+_ROWS_PER_SPLIT = 1024
 
 # geometry of the forward kernel (csrc/lstm_grad.cu): batch rows per cluster,
 # the most shared memory a block may ask for, threads per block at most (one
@@ -60,6 +65,12 @@ _H100_SMS = 132
 # latency), in the unit of one (row, hidden unit) product column: about what a
 # 64-unit slice costs
 _FWD_STEP_OVERHEAD = 512
+# the inference and backward kernels (csrc/bilstm.cu, lstm_bwd_kernel): rows
+# per tile 1..16, at most 256 gate columns (64 hidden units) a block, and the
+# narrowest slice that still gives each scheduler two warps of product
+MAX_ROWS = 16
+_CLUSTER_COLUMNS = 256
+_FULL_SLICE = 64
 
 # launches of each CUDA entry point (plain-version calls on the CPU are not counted)
 launches = {"lstm_fwd_residuals": 0, "lstm_bwd": 0}
@@ -152,6 +163,73 @@ def fwd_geometry(bsz: int, h_dim: int, sm_count: int = _H100_SMS):
     return best[1], FWD_ROWS, best[2]
 
 
+def infer_smem_bytes(h_dim: int, cluster: int, rows: int) -> int:
+    """Dynamic shared memory of one block of the inference kernel
+    (``csrc/bilstm.cu``): its slice of wh [H4, 4*HS], h of the tile twice, the
+    gate pre-activations and two xw tiles, plus each row's window."""
+    hs = -(-h_dim // cluster)
+    h4 = -(-h_dim // 4) * 4
+    floats = h4 * 4 * hs + 2 * rows * h4 + 3 * rows * 4 * hs
+    return 4 * floats + 8 * rows
+
+
+def bwd_smem_bytes(h_dim: int, cluster: int, rows: int) -> int:
+    """Dynamic shared memory of one backward block: its slice of wh^T
+    [4, H4, HS], da of the tile twice [2, rows, 4, H4], the partial sums
+    [4, rows, HS], and the gates, two cc tiles and dhs of its units, plus the
+    tile's lengths."""
+    hs = -(-h_dim // cluster)
+    h4 = -(-h_dim // 4) * 4
+    floats = 4 * h4 * hs + 8 * rows * h4 + (4 + 4 + 2 + 1) * rows * hs
+    return 4 * floats + 4 * rows
+
+
+_SMEM_BYTES = {"infer": infer_smem_bytes, "bwd": bwd_smem_bytes}
+
+
+def cluster_geometry(kind: str, bsz: int, h_dim: int, dirs: int = 1,
+                     sm_count: int = _H100_SMS):
+    """(cluster size, rows per tile, dynamic shared-memory bytes per block)
+    of the inference (``kind="infer"``) or backward (``"bwd"``) kernel for
+    ``dirs`` directions of a batch of ``bsz`` rows and ``h_dim`` hidden units
+    on a card with ``sm_count`` SMs.
+
+    Both kernels run 256 threads a block, one block an SM, so a block holds at
+    most 64 hidden units (4 x 64 gate columns) and at most 16 rows. The
+    candidates are every cluster of 1, 2, 4 or 8 blocks with every row count
+    1..16 whose block fits the shared memory; the modelled cost is
+    ``waves * (rows * max(units per block, 64) + overhead)``, where a wave is
+    what the card's SMs hold at once: a step costs its product, rows x the
+    block's units, but a slice narrower than 64 units leaves each scheduler
+    fewer than two warps of product, and one warp a scheduler cannot hide the
+    shared-memory loads, so such a step takes as long as a 64-unit one. Fewer
+    rows per tile shorten the step, so the cheapest candidate is the fewest
+    rows that keep the fewest waves. At H = 128 this takes a cluster of 2:
+    13 rows for both directions at B = 400 (124 blocks, one wave of an H100's
+    132 SMs; 8 rows would need 200 blocks, two waves), 7 rows for one
+    direction at B = 400 (116 blocks), 5 at B = 300 (120 blocks). A cluster
+    of 4 would hold 32 units a block and needs 25 rows at B = 400 for two
+    directions in one wave, more than 16; H = 256 takes a cluster of 8.
+    """
+    smem_bytes = _SMEM_BYTES[kind]
+    best = None
+    for cluster in (1, 2, 4, 8):
+        hs = -(-h_dim // cluster)
+        if 4 * hs > _CLUSTER_COLUMNS or cluster > sm_count:
+            continue
+        for rows in range(1, MAX_ROWS + 1):
+            smem = smem_bytes(h_dim, cluster, rows)
+            if smem > MAX_SHARED_BYTES:
+                break
+            waves = -(-(-(-bsz // rows) * dirs) // (sm_count // cluster))
+            cost = waves * (rows * max(hs, _FULL_SLICE) + _FWD_STEP_OVERHEAD)
+            if best is None or cost < best[0]:
+                best = (cost, cluster, rows, smem)
+    if best is None:
+        raise ValueError(f"{kind} LSTM kernel: no cluster of at most 8 blocks holds H={h_dim}")
+    return best[1], best[2], best[3]
+
+
 def _check(name, floats, shapes, lengths):
     dev = lengths.device
     dtype = floats[0].dtype
@@ -235,10 +313,12 @@ def lstm_bwd(gates: torch.Tensor, cc: torch.Tensor, hc: torch.Tensor, dhs: torch
     dxw = torch.empty_like(gates)
     dwh = torch.empty_like(wh)
     part = torch.empty((splits, h_dim, 4 * h_dim), dtype=torch.float32, device=dev)
+    cluster, rows, smem = cluster_geometry(
+        "bwd", bsz, h_dim, 1, torch.cuda.get_device_properties(dev).multi_processor_count)
     lib = cuda_build.load("lstm_grad")
     rc = lib.lstm_bwd_launch(gates.data_ptr(), cc.data_ptr(), hc.data_ptr(), dhs.data_ptr(),
                              wh_t.data_ptr(), lengths.data_ptr(), dxw.data_ptr(), dwh.data_ptr(),
-                             part.data_ptr(), splits, t_max, bsz, h_dim,
+                             part.data_ptr(), splits, t_max, bsz, h_dim, rows, cluster, smem,
                              torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "lstm_bwd")
     launches["lstm_bwd"] += 1
@@ -269,7 +349,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.lstm_fwd_launch.argtypes = [vp] * 7 + [ci] * 6 + [vp]
     lib.lstm_fwd_launch.restype = ci
-    lib.lstm_bwd_launch.argtypes = [vp] * 9 + [ci] * 4 + [vp]
+    lib.lstm_bwd_launch.argtypes = [vp] * 9 + [ci] * 7 + [vp]
     lib.lstm_bwd_launch.restype = ci
 
 

@@ -1,9 +1,10 @@
-"""Where the two Hopper-specific kernels spend their time, on one NVIDIA GPU.
+"""Where the kernels redesigned for Hopper spend their time, on one NVIDIA GPU.
 
     python -m chiron_tpu_torch.tools.kernel_probe
 
-Builds ``csrc/conv_bn.cu`` and ``csrc/lstm_grad.cu`` again with probe macros
-(the libraries the package uses are left alone) and prints, as JSON lines:
+Builds ``csrc/conv_bn.cu``, ``csrc/lstm_grad.cu`` and ``csrc/bilstm.cu`` again
+with probe macros (the libraries the package uses are left alone) and prints,
+as JSON lines:
 
 - the start rate of ``mma.sync.m16n8k8`` TF32 (``tools/mma_rate.cu``: 20
   independent accumulator tiles a warp, nothing else in the loop), with 1 to 3
@@ -21,10 +22,16 @@ Builds ``csrc/conv_bn.cu`` and ``csrc/lstm_grad.cu`` again with probe macros
 - lstm_fwd_residuals at T = 400, B = 300, H = 128 / 100 / 256
   (``-DLSTM_PROBE``): the clocks per step that thread 0 of block 0 spends in
   the product, the block barrier, the gate stage, the residual stores and the
-  cluster barrier.
+  cluster barrier;
+- the same for the inference kernel (bilstm at B = 400, both directions, and
+  lstm_layer at B = 400, H = 128): product, block barrier, gate stage and h
+  exchange, out stores, cluster barrier; and for lstm_bwd's recurrence at
+  T = 400, B = 300, H = 128 / 100 / 256: the gate gradients, the prefetch,
+  the da exchange, the dxw stores, the cluster barrier, the product, the
+  block barrier.
 
 Times are CUDA events over 10 launches after 2 warm-ups. The numbers on the
-design choices in the two sources' notes and in PERF.md come from this script.
+design choices in the sources' notes and in PERF.md come from this script.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ import sys
 
 import torch
 
-from chiron_tpu_torch.ops import conv_bn, cuda_build, lstm_grad
+from chiron_tpu_torch.ops import bilstm, conv_bn, cuda_build, lstm, lstm_grad
 
 SEED = 0
 CONV_VARIANTS = {"shipped": [], "mma_loop_alone": ["-DCONV_PROBE_NO_STAGING"],
@@ -45,6 +52,11 @@ CONV_VARIANTS = {"shipped": [], "mma_loop_alone": ["-DCONV_PROBE_NO_STAGING"],
                  "one_chain_over_k": ["-DCONV_PROBE_LONG_CHAINS"]}
 LSTM_PHASES = ("product", "prefetch_start_and_block_barrier", "gate_stage_and_h_exchange",
                "xw_wait_arrive_and_residual_stores", "cluster_wait")
+INFER_PHASES = ("product", "prefetch_start_and_block_barrier", "gate_stage_and_h_exchange",
+                "xw_wait_arrive_and_out_stores", "cluster_wait")
+# slots 8-14 of lstm_grad.cu's clocks
+BWD_PHASES = ("gate_gradients", "prefetch_start", "da_exchange", "arrive_and_dxw_stores",
+              "cluster_wait", "product", "residual_wait_and_block_barrier")
 
 
 def _start_build(name, tag, flags, src_dir=cuda_build.CSRC):
@@ -79,6 +91,7 @@ def main():
     builds = {("conv_bn", tag): _start_build("conv_bn", tag, flags)
               for tag, flags in CONV_VARIANTS.items()}
     builds[("lstm_grad", "phases")] = _start_build("lstm_grad", "phases", ["-DLSTM_PROBE"])
+    builds[("bilstm", "phases")] = _start_build("bilstm", "phases", ["-DLSTM_PROBE"])
     builds[("mma_rate", "")] = _start_build("mma_rate", "", [],
                                             os.path.dirname(os.path.abspath(__file__)))
     libs = {}
@@ -156,7 +169,7 @@ def main():
         xw = rnd(t_max, bsz, 4 * h)
         wh = rnd(h, 4 * h, scale=(6 / (5 * h)) ** 0.5 / 2)
         lens = torch.full((bsz,), t_max, dtype=torch.int32, device=dev)
-        clocks = (ctypes.c_longlong * 8)()
+        clocks = (ctypes.c_longlong * 16)()
         lstm_grad.lstm_fwd_residuals(xw, wh, lens)  # warm-up
         torch.cuda.synchronize()
         cuda_build.check(lib.lstm_probe_read(clocks), "lstm_probe_read")
@@ -169,6 +182,47 @@ def main():
             "ms_with_probe": _time_ms(lambda: lstm_grad.lstm_fwd_residuals(xw, wh, lens), 5),
             "clocks_per_step": {name: round(clocks[i] / t_max)
                                 for i, name in enumerate(LSTM_PHASES)}}), flush=True)
+        res = lstm_grad.lstm_fwd_residuals(xw, wh, lens)
+        dhs = rnd(t_max, bsz, h)
+        lstm_grad.lstm_bwd(*res[1:], dhs, wh, lens)  # warm-up
+        torch.cuda.synchronize()
+        cuda_build.check(lib.lstm_probe_read(clocks), "lstm_probe_read")
+        lstm_grad.lstm_bwd(*res[1:], dhs, wh, lens)
+        torch.cuda.synchronize()
+        cuda_build.check(lib.lstm_probe_read(clocks), "lstm_probe_read")
+        print(json.dumps({
+            "kernel": "lstm_bwd", "shape": f"T={t_max} B={bsz} H={h}",
+            "cluster_rows_shared_bytes": lstm_grad.cluster_geometry("bwd", bsz, h),
+            "ms_with_probe": _time_ms(lambda: lstm_grad.lstm_bwd(*res[1:], dhs, wh, lens), 5),
+            "clocks_per_step": {name: round(clocks[8 + i] / t_max)
+                                for i, name in enumerate(BWD_PHASES)}}), flush=True)
+
+    lib = libs[("bilstm", "phases")]
+    bilstm._declare(lib)
+    lib.infer_probe_read.argtypes = [ctypes.c_void_p]
+    lib.infer_probe_read.restype = ctypes.c_int
+    cuda_build._LIBS["bilstm"] = lib
+    t_max, bsz, h = 400, 400, 128
+    clocks = (ctypes.c_longlong * 8)()
+    xw_f, xw_b = rnd(t_max, bsz, 4 * h), rnd(t_max, bsz, 4 * h)
+    wh_f, wh_b = (rnd(h, 4 * h, scale=(6 / (5 * h)) ** 0.5 / 2) for _ in range(2))
+    lens = torch.full((bsz,), t_max, dtype=torch.int32, device=dev)
+    starts = torch.zeros_like(lens)
+    cases = {"bilstm": (2, lambda: bilstm.bilstm_layer(xw_f, xw_b, wh_f, wh_b, lens, starts)),
+             "lstm_layer": (1, lambda: lstm.lstm_layer(xw_f, wh_f, lens))}
+    for name, (dirs, fn) in cases.items():
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        cuda_build.check(lib.infer_probe_read(clocks), "infer_probe_read")
+        fn()
+        torch.cuda.synchronize()
+        cuda_build.check(lib.infer_probe_read(clocks), "infer_probe_read")
+        print(json.dumps({
+            "kernel": name, "shape": f"T={t_max} B={bsz} H={h}",
+            "cluster_rows_shared_bytes": lstm_grad.cluster_geometry("infer", bsz, h, dirs),
+            "ms_with_probe": _time_ms(fn, 5),
+            "clocks_per_step": {n: round(clocks[i] / t_max)
+                                for i, n in enumerate(INFER_PHASES)}}), flush=True)
 
 
 if __name__ == "__main__":

@@ -17,6 +17,7 @@ from chiron_tpu.ops.pallas import lstm as jlstm
 from chiron_tpu_torch.models import rnn as trnn
 from chiron_tpu_torch.ops import bilstm as tbl
 from chiron_tpu_torch.ops import lstm as tlstm
+from chiron_tpu_torch.ops import lstm_grad as tlg
 
 ATOL = 1e-5
 
@@ -151,3 +152,26 @@ def test_lstm_layer_is_one_direction_of_the_fused_layer():
     with pytest.raises(ValueError):
         tlstm.lstm_layer(torch.tensor(xw_f), torch.tensor(wh_f), lens.to(torch.int64))
 
+
+
+# The inference kernel's geometry (lstm_grad.cluster_geometry("infer", ...)),
+# shared by bilstm_layer (two directions) and lstm_layer (one): a cluster of 1,
+# 2, 4 or 8 blocks owns 1..16 batch rows of one direction, each block holding
+# wh's gate columns of ceil(H / cluster) <= 64 hidden units and running 256 threads.
+@pytest.mark.parametrize("dirs", [1, 2])
+@pytest.mark.parametrize("h_dim", [16, 100, 128, 256])
+@pytest.mark.parametrize("bsz", [1, 300, 301, 400])
+def test_inference_geometry_fits_the_card(bsz, h_dim, dirs):
+    cluster, rows, smem = tlg.cluster_geometry("infer", bsz, h_dim, dirs)
+    assert cluster in (1, 2, 4, 8) and 1 <= rows <= tlg.MAX_ROWS
+    assert smem == tlg.infer_smem_bytes(h_dim, cluster, rows) <= tlg.MAX_SHARED_BYTES
+    hs = -(-h_dim // cluster)
+    assert (cluster - 1) * hs < h_dim <= cluster * hs  # every unit; only the last slice ragged
+    assert 4 * hs <= 256 and rows * hs <= 4 * 256  # a thread per gate column; 4 elements a thread
+    tiles = -(-bsz // rows)
+    assert (tiles - 1) * rows < bsz <= tiles * rows  # every row, no empty tile
+    if h_dim == 128 and bsz >= 300:
+        # one wave of an H100's SMs: at B = 400 both directions take 13 rows,
+        # where 8 would need 200 blocks, two waves
+        assert cluster == 2 and tiles * dirs * cluster <= 132
+        assert (bsz, dirs) != (400, 2) or rows == 13

@@ -15,7 +15,9 @@ T*B rows); the beam search is exact (trace, decodes) with log masses within
 1e-4. The training LSTM's dwh must be bit-identical from run to run. The
 single LSTM direction and the GRU kernels 1e-5; the BNLSTM kernels 1e-4 (each
 step's rsqrt(var + 1e-5) amplifies the sum-order residue) and bit-identical
-from run to run.
+from run to run. The LSTM kernels (inference, fused and single, and the
+training forward and backward) are also held at dna-pre's batch edges
+(B = 1, 300, 301, 400) and must be bit-identical from run to run.
 """
 
 import numpy as np
@@ -76,14 +78,18 @@ def test_conv_bn_kernel_matches_plain(cuda, k, stride, t, c_in, c_out, n_terms,
     assert all(torch.equal(a, g) for a, g in zip(again, got)), "differs between runs"
 
 
+# (h, t, b): widths with a ragged slice (100) and a cluster of 8 (256), a single
+# row, and both directions of a dna-pre batch (B = 400: 13 rows a tile, one wave)
 @pytest.mark.cuda
-@pytest.mark.parametrize("h", [16, 100, 128])
-def test_bilstm_kernel_matches_plain(cuda, h):
-    rng = np.random.RandomState(h)
-    t, b = 30, 11
+@pytest.mark.parametrize("h,t,b", [(16, 30, 11), (100, 30, 11), (128, 30, 11), (256, 30, 11),
+                                   (128, 30, 1), (128, 40, 400), (100, 40, 301)])
+def test_bilstm_kernel_matches_plain(cuda, h, t, b):
+    rng = np.random.RandomState(h + b)
     to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
     xw_f, xw_b = (to(rng.randn(t, b, 4 * h).astype(np.float32)) for _ in range(2))
-    wh_f, wh_b = (to((rng.randn(h, 4 * h) * 0.3).astype(np.float32)) for _ in range(2))
+    # at H = 256 and B >= 300 weights of row norm ~1 (see the LSTM tests below)
+    scale = 0.3 if h <= 128 and b < 300 else 1.0 / np.sqrt(h)
+    wh_f, wh_b = (to((rng.randn(h, 4 * h) * scale).astype(np.float32)) for _ in range(2))
     lengths = rng.randint(1, t, size=b).astype(np.int32)
     lengths[0], lengths[-1] = 0, t
     args = (xw_f, xw_b, wh_f, wh_b, to(lengths), to((t - lengths).astype(np.int32)))
@@ -91,9 +97,11 @@ def test_bilstm_kernel_matches_plain(cuda, h):
     got = tbl.bilstm_layer(*args)
     assert tbl.launches == before + 1
     want = tbl.bilstm_layer_plain(*args)
+    again = tbl.bilstm_layer(*args)
     torch.cuda.synchronize()
     for g, r in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=1e-5, rtol=0)
+    assert all(torch.equal(a, g) for a, g in zip(again, got)), "differs between runs"
 
 
 def _lengths(rng, t, b, full=1):
@@ -105,10 +113,11 @@ def _lengths(rng, t, b, full=1):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h", [16, 100, 128, 256])
-def test_lstm_layer_kernel_matches_plain(cuda, h):
-    rng = np.random.RandomState(200 + h)
-    t, b = 30, 11
+@pytest.mark.parametrize("h,b", [(16, 11), (100, 11), (128, 11), (256, 11), (128, 1),
+                                 (128, 301), (128, 400), (100, 400), (256, 301)])
+def test_lstm_layer_kernel_matches_plain(cuda, h, b):
+    rng = np.random.RandomState(200 + h + b)
+    t = 30
     to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
     xw_f, xw_b = (to(rng.randn(t, b, 4 * h).astype(np.float32)) for _ in range(2))
     # recurrent weights of row norm ~1: larger ones make the recurrence
@@ -124,7 +133,9 @@ def test_lstm_layer_kernel_matches_plain(cuda, h):
     for got, want in ((got_f, tlstm.lstm_layer_plain(xw_f, wh_f, lens)),
                       (got_b, tlstm.lstm_layer_plain(xw_b, wh_b, lens, starts))):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5, rtol=0)
-    # the fused layer is these two directions, bit for bit
+    assert torch.equal(tlstm.lstm_layer(xw_b, wh_b, lens, starts), got_b), "differs between runs"
+    # the fused layer is these two directions, bit for bit (at another geometry:
+    # each column's k sum is one thread's, in order, whatever the tile)
     fused_f, fused_b = tbl.bilstm_layer(xw_f, xw_b, wh_f, wh_b, lens, starts)
     assert torch.equal(fused_f, got_f) and torch.equal(fused_b, got_b)
     zero = tlstm.lstm_layer(xw_f, wh_f, torch.zeros_like(lens))
@@ -206,15 +217,17 @@ def test_bnlstm_kernels_match_plain(cuda, h, t, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,b", [(16, 19), (100, 19), (128, 19), (256, 19), (128, 1), (128, 24),
-                                 (7, 5)])
+                                 (7, 5), (128, 300), (128, 301), (100, 300), (256, 300)])
 def test_lstm_grad_kernels_match_plain(cuda, h, b):
     rng = np.random.RandomState(100 + h)
     t = 37
     to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
     xw = to(rng.randn(t, b, 4 * h).astype(np.float32))
     # at H = 256 weights of row norm ~1: 0.3 * randn makes the recurrence chaotic
-    # there, and it then amplifies the sum-order residue past any tolerance
-    wh = to((rng.randn(h, 4 * h) * (0.3 if h <= 128 else 1.0 / np.sqrt(h))).astype(np.float32))
+    # there, and it then amplifies the sum-order residue past any tolerance; so
+    # at B >= 300 too, where a few of the many rows reach that regime
+    scale = 0.3 if h <= 128 and b < 300 else 1.0 / np.sqrt(h)
+    wh = to((rng.randn(h, 4 * h) * scale).astype(np.float32))
     dhs = to(rng.randn(t, b, h).astype(np.float32))
     lengths = rng.randint(1, t, size=b).astype(np.int32)
     lengths[0], lengths[-1] = 0, t  # a single row is a full one
@@ -235,8 +248,14 @@ def test_lstm_grad_kernels_match_plain(cuda, h, b):
     np.testing.assert_allclose(dxw.cpu().numpy(), dxw_p.cpu().numpy(), atol=1e-4, rtol=0)
     scale = float(dwh_p.abs().max())
     assert float((dwh - dwh_p).abs().max()) <= 1e-4 * scale
-    _, dwh2 = tlg.lstm_bwd(*want[1:], dhs, wh, lens)
-    assert torch.equal(dwh, dwh2)
+    dxw2, dwh2 = tlg.lstm_bwd(*want[1:], dhs, wh, lens)
+    assert torch.equal(dwh, dwh2) and torch.equal(dxw, dxw2)
+    # and on the residuals the kernel forward wrote
+    dxw_k, dwh_k = tlg.lstm_bwd(*got[1:], dhs, wh, lens)
+    dxw_kp, dwh_kp = tlg.lstm_bwd_plain(*got[1:], dhs, wh, lens)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(dxw_k.cpu().numpy(), dxw_kp.cpu().numpy(), atol=1e-4, rtol=0)
+    assert float((dwh_k - dwh_kp).abs().max()) <= 1e-4 * float(dwh_kp.abs().max())
 
 
 @pytest.mark.cuda

@@ -139,3 +139,22 @@ def test_fwd_geometry_prefers_one_wave_and_rejects_what_cannot_fit():
         assert -(-h_dim // cluster) * cluster >= h_dim
     with pytest.raises(ValueError):
         tlg.fwd_geometry(8, 2048)
+
+
+# The backward kernel's geometry (cluster_geometry("bwd", ...)): a cluster of 1,
+# 2, 4 or 8 blocks owns 1..16 batch rows of one direction, each block holding
+# wh^T's columns of ceil(H / cluster) <= 64 hidden units and running 256 threads.
+@pytest.mark.parametrize("dirs", [1, 2])
+@pytest.mark.parametrize("h_dim", [16, 100, 128, 256])
+@pytest.mark.parametrize("bsz", [1, 300, 301, 400])
+def test_bwd_geometry_fits_the_card(bsz, h_dim, dirs):
+    cluster, rows, smem = tlg.cluster_geometry("bwd", bsz, h_dim, dirs)
+    assert cluster in (1, 2, 4, 8) and 1 <= rows <= tlg.MAX_ROWS
+    assert smem == tlg.bwd_smem_bytes(h_dim, cluster, rows) <= tlg.MAX_SHARED_BYTES
+    hs = -(-h_dim // cluster)
+    assert (cluster - 1) * hs < h_dim <= cluster * hs  # every unit; only the last slice ragged
+    assert 4 * hs <= 256 and rows * hs <= 4 * 256  # a thread per (gate, unit); 4 elements a thread
+    tiles = -(-bsz // rows)
+    assert (tiles - 1) * rows < bsz <= tiles * rows  # every row, no empty tile
+    if h_dim == 128 and bsz >= 300:
+        assert cluster == 2 and tiles * dirs * cluster <= 132  # one wave of an H100's SMs
