@@ -36,6 +36,14 @@
 // the fused layer is one launch. The wrapper chooses the cluster size and the
 // rows per tile (ops/lstm_grad.py:cluster_geometry): at B = 400, H = 128 a
 // cluster of 2 with 13 rows puts both directions on 124 SMs, one wave.
+//
+// Above H ~ 330 no cluster of at most 8 blocks holds the slices (at H = 384 a
+// block's slice is 295 KB, at H = 512 512 KB). There the WG variant of the
+// same kernel reads each block's slice from device memory instead (L2 holds a
+// direction's 1-4 MB), laid out by the wrapper exactly as it would lie in
+// shared memory ([cluster][HP][LC]), so the product's addresses, its order of
+// sums and its bits are those of the resident kernel. H <= 512: a block holds
+// at most 64 hidden units (4 * HS <= 256 threads) and a cluster 8 blocks.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -74,11 +82,11 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // Floats of dynamic shared memory of one block (plus 2R ints of windows): wh
-// slice [HP][LC], h [2][R][HP], gate pre-activations [R][LC], xw tiles
-// [2][R][LC]; HP = H rounded up to 4, LC = 4 * HS.
-inline int infer_smem_floats(int H, int HS, int R) {
+// slice [HP][LC] (not with wh_global), h [2][R][HP], gate pre-activations
+// [R][LC], xw tiles [2][R][LC]; HP = H rounded up to 4, LC = 4 * HS.
+inline int infer_smem_floats(int H, int HS, int R, bool wh_global) {
   const int HP = (H + 3) & ~3, LC = 4 * HS;
-  return HP * LC + 2 * R * HP + 3 * R * LC;
+  return (wh_global ? 0 : HP * LC) + 2 * R * HP + 3 * R * LC;
 }
 
 // tools/kernel_probe.py builds this file with -DLSTM_PROBE: thread 0 of block
@@ -97,7 +105,7 @@ __device__ long long infer_probe_clocks[8];
 #define PROBE(i)
 #endif
 
-template <int R>
+template <int R, bool WG>
 __global__ void __launch_bounds__(THREADS, 1)
     lstm_infer_kernel(const float* __restrict__ xw_f, const float* __restrict__ xw_b,
                       const float* __restrict__ wh_f, const float* __restrict__ wh_b,
@@ -122,16 +130,18 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int tid = threadIdx.x;
 
   float* ws = smem;                 // [HP][LC] wh[:, gate * H + u0 + u] at column gate * HS + u
-  float* h_s = ws + HP * LC;        // [2][R][HP] the whole h of the tile, by step parity
+  float* h_s = ws + (WG ? 0 : HP * LC);  // [2][R][HP] the whole h of the tile, by step parity
   float* g_s = h_s + 2 * R * HP;    // [R][LC] gate pre-activations
   float* xs = g_s + R * LC;         // [2][R][LC] xw tiles, by step parity
   int* lo_s = reinterpret_cast<int*>(xs + 2 * R * LC);  // [R] window start
   int* hi_s = lo_s + R;                                 // [R] window end
 
-  for (int i = tid; i < HP * LC; i += THREADS) {
-    const int k = i / LC, lc = i - k * LC;
-    const int gate = lc / HS, u = lc - gate * HS;
-    ws[i] = (k < H && u < hs) ? wh[(size_t)k * G + gate * H + u0 + u] : 0.f;
+  if constexpr (!WG) {
+    for (int i = tid; i < HP * LC; i += THREADS) {
+      const int k = i / LC, lc = i - k * LC;
+      const int gate = lc / HS, u = lc - gate * HS;
+      ws[i] = (k < H && u < hs) ? wh[(size_t)k * G + gate * H + u0 + u] : 0.f;
+    }
   }
   for (int i = tid; i < 2 * R * HP; i += THREADS) h_s[i] = 0.f;
   for (int i = tid; i < 2 * R * LC; i += THREADS) xs[i] = 0.f;  // padding rows and units stay 0
@@ -218,6 +228,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int r = 0; r < R; ++r) acc[r] = xt[r * LC];
       const float4* h4 = reinterpret_cast<const float4*>(h_cur);
       const float* wp = ws + tid;
+      if constexpr (WG) wp = wh + (size_t)rank * HP * LC + tid;
 #pragma unroll K_UNROLL
       for (int k = 0; k < HP; k += 4) {
         const float w0 = wp[k * LC], w1 = wp[(k + 1) * LC], w2 = wp[(k + 2) * LC],
@@ -280,22 +291,24 @@ __global__ void __launch_bounds__(THREADS, 1)
 using InferKernel = void (*)(const float*, const float*, const float*, const float*, const int*,
                              const int*, const int*, float*, float*, int, int, int, int, int);
 
-// lstm_infer_kernel<rows> for rows in 1..R, nullptr otherwise
+// lstm_infer_kernel<rows, wh_global> for rows in 1..R, nullptr otherwise
 template <int R>
-InferKernel kernel_for_rows(int rows) {
-  if (rows == R) return lstm_infer_kernel<R>;
-  if constexpr (R > 1) return kernel_for_rows<R - 1>(rows);
+InferKernel kernel_for_rows(int rows, bool wh_global) {
+  if (rows == R) return wh_global ? lstm_infer_kernel<R, true> : lstm_infer_kernel<R, false>;
+  if constexpr (R > 1) return kernel_for_rows<R - 1>(rows, wh_global);
   return nullptr;
 }
 
 int launch(int dirs, const float* xw_f, const float* xw_b, const float* wh_f, const float* wh_b,
            const int* lens, const int* starts_f, const int* starts_b, float* out_f, float* out_b,
-           int T, int B, int H, int rows, int cluster, int smem_bytes, void* stream) {
+           int T, int B, int H, int rows, int cluster, int smem_bytes, int wh_global,
+           void* stream) {
   if (cluster < 1 || cluster > 8 || (cluster & (cluster - 1)) || H < 1 || T < 1 || B < 1)
     return (int)cudaErrorInvalidValue;
-  const InferKernel kernel = kernel_for_rows<MAX_ROWS>(rows);
+  const InferKernel kernel = kernel_for_rows<MAX_ROWS>(rows, wh_global != 0);
   const int HS = (H + cluster - 1) / cluster;
-  const int need = (int)sizeof(float) * infer_smem_floats(H, HS, rows) + 2 * (int)sizeof(int) * rows;
+  const int need = (int)sizeof(float) * infer_smem_floats(H, HS, rows, wh_global != 0) +
+                   2 * (int)sizeof(int) * rows;
   if (kernel == nullptr || 4 * HS > THREADS || rows * HS > EPT * THREADS || smem_bytes < need)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute((const void*)kernel,
@@ -336,21 +349,24 @@ int infer_probe_read(long long* dst) {
 #endif
 
 // xw_*: [T, B, 4H] float32, wh_*: [H, 4H], lens/starts: [B] int32,
-// out_*: [T, B, H]. 1 <= H <= 256. The geometry comes from the caller: rows of a
+// out_*: [T, B, H]. 1 <= H <= 512. The geometry comes from the caller: rows of a
 // batch tile (1..16), blocks of a cluster (1, 2, 4 or 8, each holding
-// ceil(H / cluster) <= 64 hidden units) and the dynamic shared memory of a block.
+// ceil(H / cluster) <= 64 hidden units), the dynamic shared memory of a block,
+// and wh_global: wh_* are then [cluster][HP][4 * HS] slices read from device
+// memory (HP = H rounded up to 4, HS = ceil(H / cluster), zero padded).
 int bilstm_launch(const float* xw_f, const float* xw_b, const float* wh_f, const float* wh_b,
                   const int* lens, const int* starts, float* out_f, float* out_b, int T, int B,
-                  int H, int rows, int cluster, int smem_bytes, void* stream) {
+                  int H, int rows, int cluster, int smem_bytes, int wh_global, void* stream) {
   return launch(2, xw_f, xw_b, wh_f, wh_b, lens, nullptr, starts, out_f, out_b, T, B, H, rows,
-                cluster, smem_bytes, stream);
+                cluster, smem_bytes, wh_global, stream);
 }
 
 // One direction; starts may be null (every row's window is [0, len)).
 int lstm_launch(const float* xw, const float* wh, const int* lens, const int* starts, float* out,
-                int T, int B, int H, int rows, int cluster, int smem_bytes, void* stream) {
+                int T, int B, int H, int rows, int cluster, int smem_bytes, int wh_global,
+                void* stream) {
   return launch(1, xw, nullptr, wh, nullptr, lens, starts, nullptr, out, nullptr, T, B, H, rows,
-                cluster, smem_bytes, stream);
+                cluster, smem_bytes, wh_global, stream);
 }
 
 }  // extern "C"

@@ -41,6 +41,7 @@
 namespace {
 
 constexpr int R = 8;  // rows per register sub-tile
+constexpr int MAX_H = 512;  // 4H gate columns over at most 1024 threads, two a thread
 constexpr float BN_EPS = 1e-5f;
 
 struct Dir {
@@ -153,8 +154,10 @@ __device__ __forceinline__ void combine(const float* part, int stride, const flo
 // THREADS bounds the block (4H rounded up to a warp): 512 covers H <= 128,
 // 1024 the rest, so that the registers of one block always fit an SM; one
 // block per SM is all the cooperative grid asks for, which leaves the
-// compiler the registers to unroll the product loop.
-template <int THREADS>
+// compiler the registers to unroll the product loop. Above 4H = 1024 each
+// thread walks COLS gate columns, col = threadIdx.x + j * THREADS (COLS = 2
+// covers H <= 512); every column's arithmetic is the same whatever COLS.
+template <int THREADS, int COLS>
 __global__ void __launch_bounds__(THREADS, 1) bnlstm_kernel(Args a) {
   extern __shared__ float smem[];
   const int H = a.H, G = 4 * a.H, rows = a.rows, B = a.B, T = a.T;
@@ -167,7 +170,6 @@ __global__ void __launch_bounds__(THREADS, 1) bnlstm_kernel(Args a) {
   const Dir d = a.d[dir];
   const int tiles = gridDim.x, tile = blockIdx.x;
   const int b0 = tile * rows;
-  const int col = threadIdx.x;
   float* part_h = a.part_h + (size_t)dir * tiles * G * 2;
   float* part_c = a.part_c + (size_t)dir * tiles * H * 2;
   float* cnt_h = a.cnt_h + dir * tiles;
@@ -181,21 +183,29 @@ __global__ void __launch_bounds__(THREADS, 1) bnlstm_kernel(Args a) {
   }
   for (int r = threadIdx.x; r < rows; r += blockDim.x)
     len_s[r] = b0 + r < B ? a.lens[b0 + r] : 0;
-  float sx = 0.f, sh = 0.f, bias = 0.f, sc = 0.f, oc = 0.f;
-  if (col < G) {
-    sx = d.scale_x[col];
-    sh = d.scale_h[col];
-    bias = d.b[col];
-  }
-  if (col < H) {
-    sc = d.scale_c[col];
-    oc = d.offset_c[col];
+  float sx[COLS], sh[COLS], bias[COLS], sc[COLS], oc[COLS];
+#pragma unroll
+  for (int j = 0; j < COLS; ++j) {
+    const int col = threadIdx.x + j * THREADS;
+    sx[j] = sh[j] = bias[j] = sc[j] = oc[j] = 0.f;
+    if (col < G) {
+      sx[j] = d.scale_x[col];
+      sh[j] = d.scale_h[col];
+      bias[j] = d.b[col];
+    }
+    if (col < H) {
+      sc[j] = d.scale_c[col];
+      oc[j] = d.offset_c[col];
+    }
   }
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
     // 1. hw = h @ wh for the tile's rows (column col), and the tile's moments
-    if (col < G) {
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) {
+      const int col = threadIdx.x + j * THREADS;
+      if (col >= G) continue;
       float sum = 0.f;
       int n = 0;
       for (int r0 = 0; r0 < rows; r0 += R) {
@@ -221,7 +231,10 @@ __global__ void __launch_bounds__(THREADS, 1) bnlstm_kernel(Args a) {
     }
     direction_barrier(bar, ++meetings * tiles);
     // 2. gates = BN_x(xw[t]) + BN_h(hw) + b, left in g_s
-    if (col < G) {
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) {
+      const int col = threadIdx.x + j * THREADS;
+      if (col >= G) continue;
       float mean, inv;
       combine(part_h + col * 2, G * 2, cnt_h, tiles, &mean, &inv);
       const float* xm = a.xmom + (((size_t)dir * T + t) * G + col) * 2;
@@ -230,12 +243,15 @@ __global__ void __launch_bounds__(THREADS, 1) bnlstm_kernel(Args a) {
         const int b = b0 + r;
         if (b >= B) break;
         const float x = d.xw[((size_t)t * B + b) * G + col];
-        g_s[r * G + col] = (x - mx) * ix * sx + (g_s[r * G + col] - mean) * inv * sh + bias;
+        g_s[r * G + col] = (x - mx) * ix * sx[j] + (g_s[r * G + col] - mean) * inv * sh[j] + bias[j];
       }
     }
     __syncthreads();
     // 3. c' per hidden column (kept in the g gate's slot), and its tile moments
-    if (col < H) {
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) {
+      const int col = threadIdx.x + j * THREADS;
+      if (col >= H) continue;
       float sum = 0.f;
       int n = 0;
       for (int r = 0; r < rows; ++r) {
@@ -254,7 +270,10 @@ __global__ void __launch_bounds__(THREADS, 1) bnlstm_kernel(Args a) {
     }
     direction_barrier(bar, ++meetings * tiles);
     // 4. h' = sig(o) * tanh(BN_c(c') + offset_c), the state update and the mask
-    if (col < H) {
+#pragma unroll
+    for (int j = 0; j < COLS; ++j) {
+      const int col = threadIdx.x + j * THREADS;
+      if (col >= H) continue;
       float mean, inv;
       combine(part_c + col * 2, H * 2, cnt_c, tiles, &mean, &inv);
       for (int r = 0; r < rows; ++r) {
@@ -264,7 +283,7 @@ __global__ void __launch_bounds__(THREADS, 1) bnlstm_kernel(Args a) {
         float hv = 0.f;
         if (len_s[r] > t) {
           const float nc = g[H + col];
-          hv = sigm(g[3 * H + col]) * tanhf((nc - mean) * inv * sc + oc);
+          hv = sigm(g[3 * H + col]) * tanhf((nc - mean) * inv * sc[j] + oc[j]);
           c_s[r * H + col] = nc;
           h_s[r * H + col] = hv;
         }
@@ -282,7 +301,8 @@ int launch(int dirs, const float* xw_f, const float* xw_b, const float* wh_f, co
            float* scratch, unsigned* bar, int T, int B, int H, int rows, void* stream) {
   const int G = 4 * H;
   const int tiles = (B + rows - 1) / rows;
-  const int threads = ((G + 31) / 32) * 32;
+  if (H < 1 || H > MAX_H) return (int)cudaErrorInvalidValue;
+  const int threads = min(((G + 31) / 32) * 32, 1024);
   const size_t smem = (size_t)rows * (6 * H + 1) * sizeof(float);
   const cudaStream_t s = (cudaStream_t)stream;
 
@@ -315,8 +335,9 @@ int launch(int dirs, const float* xw_f, const float* xw_b, const float* wh_f, co
   cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (!coop) return (int)cudaErrorNotSupported;
   if (smem > (size_t)smem_max) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const void* kernel = threads <= 512 ? (const void*)bnlstm_kernel<512>
-                                      : (const void*)bnlstm_kernel<1024>;
+  const void* kernel = threads <= 512 ? (const void*)bnlstm_kernel<512, 1>
+                       : G <= 1024    ? (const void*)bnlstm_kernel<1024, 1>
+                                      : (const void*)bnlstm_kernel<1024, 2>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   // every block must be resident at once, or the barrier never completes
@@ -339,7 +360,7 @@ extern "C" {
 
 // xw_*: [T, B, 4H] float32 (no bias), wh_*: [H, 4H], vec_*: [14H] (see
 // launch), lens: [B] int32, out_*: [T, B, H], scratch: floats (see launch),
-// bar: 2 zeroed uint32. rows: batch rows per block, a multiple of 8. H <= 256.
+// bar: 2 zeroed uint32. rows: batch rows per block, a multiple of 8. H <= 512.
 // Returns cudaErrorCooperativeLaunchTooLarge (720), with nothing launched,
 // when the grid for this `rows` cannot be co-resident.
 int bibnlstm_launch(const float* xw_f, const float* xw_b, const float* wh_f, const float* wh_b,

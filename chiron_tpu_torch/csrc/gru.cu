@@ -31,11 +31,13 @@
 namespace {
 
 constexpr int R = 8;  // batch rows per block
+constexpr int MAX_H = 512;  // one thread per gate column: 2H <= 1024
 
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
 
 // THREADS bounds the block (2H rounded up to a warp): 256 covers H <= 128, 512
-// the rest, so that the registers of one block always fit an SM. The second
+// H <= 256 and 1024 H <= 512, so that the registers of one block always fit an
+// SM. The second
 // bound (one block per SM is enough) lets the compiler spend registers on
 // unrolling the product loops, which keeps several weight loads in flight
 // against the L2 latency that bounds a step: builds that aimed at more
@@ -134,9 +136,11 @@ int launch(int dirs, const float* gx_f, const float* cx_f, const float* gx_b, co
            const float* whg_f, const float* whc_f, const float* whg_b, const float* whc_b,
            const int* lens, const int* starts_f, const int* starts_b, float* out_f, float* out_b,
            int T, int B, int H, void* stream) {
+  if (H < 1 || H > MAX_H) return (int)cudaErrorInvalidValue;
   const int threads = ((2 * H + 31) / 32) * 32;
   const size_t smem = (size_t)R * 3 * H * sizeof(float);
-  auto kernel = threads <= 256 ? gru_kernel<256> : gru_kernel<512>;
+  auto kernel = threads <= 256 ? gru_kernel<256> : threads <= 512 ? gru_kernel<512>
+                                                                  : gru_kernel<1024>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -152,7 +156,7 @@ int launch(int dirs, const float* gx_f, const float* cx_f, const float* gx_b, co
 extern "C" {
 
 // gx_*: [T, B, 2H] float32, cx_*: [T, B, H], whg_*: [H, 2H], whc_*: [H, H],
-// lens/starts: [B] int32, out_*: [T, B, H]. H <= 256.
+// lens/starts: [B] int32, out_*: [T, B, H]. H <= 512.
 int bigru_launch(const float* gx_f, const float* cx_f, const float* gx_b, const float* cx_b,
                  const float* whg_f, const float* whc_f, const float* whg_b, const float* whc_b,
                  const int* lens, const int* starts, float* out_f, float* out_b, int T, int B,

@@ -25,9 +25,9 @@
 // R = 8 batch rows, and block j of the cluster holds the columns of the hidden units
 // [j * HS, (j + 1) * HS) of all four gates, [H, 4 * HS] float32, in its shared memory,
 // loaded once per launch (H = 128: 2 blocks of 128 KB; H = 256: 8 blocks of 128 KB;
-// any H <= 256 fits some cluster of 1, 2, 4 or 8, so no width streams wh any more;
-// the wrapper chooses the cluster from (B, H)). No weight traffic is left in the
-// T-step loop. Because a block holds i, g, f and o of its units it finishes c' and h'
+// any H up to ~360 fits some cluster of 1, 2, 4 or 8, wider ones take the WG
+// variant below; the wrapper chooses the cluster from (B, H)). No weight traffic is
+// left in the T-step loop. Because a block holds i, g, f and o of its units it finishes c' and h'
 // for them with no exchange, then stores its slice of the new h into its own and its
 // peers' shared memory (distributed shared memory). h is double-buffered by step
 // parity, so ONE cluster barrier a step is enough: a block that runs ahead writes the
@@ -64,6 +64,14 @@
 // partial sum, and a second kernel adds the partials in order. No float atomics,
 // so the same inputs give the same bits on every run. (The tensor cores would add
 // with truncation over these long sums, see conv_bn.cu.)
+//
+// Above H ~ 330 (forward: ~ 360) no cluster of at most 8 blocks holds the
+// slices of wh (wh^T); the WG variant of each recurrence then reads every
+// block's slice from device memory (L2 holds a direction's 1-4 MB), laid out
+// by the wrapper exactly as it would lie in shared memory, so the addresses,
+// the order of the sums and the bits are those of the resident kernel. H <=
+// 512 for the backward (4 * HS <= 256 threads, a cluster of at most 8), H <=
+// 1024 for the forward (4 * HS <= 512); the wrappers cap both at 512.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -99,11 +107,11 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // Floats of dynamic shared memory of one forward block (plus R ints of lengths):
-// wh slice [HP][LC], h [2][R][HP], c [R][HS], gate pre-activations [R][LC], xw tiles
-// [2][R][LC]; HP = H rounded up to 4, LC = 4 * HS.
-inline int fwd_smem_floats(int H, int HS) {
+// wh slice [HP][LC] (not with wh_global), h [2][R][HP], c [R][HS], gate
+// pre-activations [R][LC], xw tiles [2][R][LC]; HP = H rounded up to 4, LC = 4 * HS.
+inline int fwd_smem_floats(int H, int HS, bool wh_global) {
   const int HP = (H + 3) & ~3, LC = 4 * HS;
-  return HP * LC + 2 * R * HP + R * HS + R * LC + 2 * R * LC;
+  return (wh_global ? 0 : HP * LC) + 2 * R * HP + R * HS + R * LC + 2 * R * LC;
 }
 
 // tools/kernel_probe.py builds this file with -DLSTM_PROBE: thread 0 of block 0 then
@@ -129,7 +137,7 @@ __device__ long long lstm_probe_clocks[16];
 constexpr int K_UNROLL = 4;  // k loop of the product: 16 weights and 32 h reads in flight
 constexpr int EPT = 2;  // (row, unit) elements and 16-byte xw chunks per thread: R * HS <= 2 * THREADS
 
-template <int THREADS>
+template <int THREADS, bool WG>
 __global__ void __launch_bounds__(THREADS, 1)
     lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ wh,
                     const int* __restrict__ lens, float* __restrict__ out,
@@ -148,16 +156,18 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int tid = threadIdx.x;
 
   float* ws = smem;                 // [HP][LC] wh[:, gate * H + u0 + u] at column gate * HS + u
-  float* h_s = ws + HP * LC;        // [2][R][HP] the whole h of the tile, by step parity
+  float* h_s = ws + (WG ? 0 : HP * LC);  // [2][R][HP] the whole h of the tile, by step parity
   float* c_s = h_s + 2 * R * HP;    // [R][HS] c of this block's units
   float* g_s = c_s + R * HS;        // [R][LC] gate pre-activations
   float* xs = g_s + R * LC;         // [2][R][LC] xw tiles, by step parity
   int* len_s = reinterpret_cast<int*>(xs + 2 * R * LC);  // [R]
 
-  for (int i = tid; i < HP * LC; i += THREADS) {
-    const int k = i / LC, lc = i - k * LC;
-    const int gate = lc / HS, u = lc - gate * HS;
-    ws[i] = (k < H && u < hs) ? wh[(size_t)k * G + gate * H + u0 + u] : 0.f;
+  if constexpr (!WG) {
+    for (int i = tid; i < HP * LC; i += THREADS) {
+      const int k = i / LC, lc = i - k * LC;
+      const int gate = lc / HS, u = lc - gate * HS;
+      ws[i] = (k < H && u < hs) ? wh[(size_t)k * G + gate * H + u0 + u] : 0.f;
+    }
   }
   for (int i = tid; i < 2 * R * HP; i += THREADS) h_s[i] = 0.f;
   for (int i = tid; i < R * HS; i += THREADS) c_s[i] = 0.f;
@@ -234,6 +244,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int r = 0; r < R; ++r) acc[r] = xt[r * LC];
       const float4* h4 = reinterpret_cast<const float4*>(h_cur);
       const float* wp = ws + tid;
+      if constexpr (WG) wp = wh + (size_t)rank * HP * LC + tid;
 #pragma unroll K_UNROLL
       for (int k = 0; k < HP; k += 4) {
         const float w0 = wp[k * LC], w1 = wp[(k + 1) * LC], w2 = wp[(k + 2) * LC],
@@ -319,14 +330,15 @@ constexpr int BWD_MAX_ROWS = 16;
 constexpr int BWD_EPT = 4;
 
 // Floats of dynamic shared memory of one backward block (plus RB ints of lengths):
-// wh^T slice [4][HP][HS], da of the tile [2][RB][4][HP], partial sums [4][RB][HS],
-// gates [4][RB * HS], cc [2][RB * HS] and dhs [RB * HS] of its units.
-inline int bwd_smem_floats(int H, int HS, int RB) {
+// wh^T slice [4][HP][HS] (not with wh_global), da of the tile [2][RB][4][HP],
+// partial sums [4][RB][HS], gates [4][RB * HS], cc [2][RB * HS] and dhs [RB * HS] of
+// its units.
+inline int bwd_smem_floats(int H, int HS, int RB, bool wh_global) {
   const int HP = (H + 3) & ~3;
-  return 4 * HP * HS + 8 * RB * HP + (4 + 4 + 2 + 1) * RB * HS;
+  return (wh_global ? 0 : 4 * HP * HS) + 8 * RB * HP + (4 + 4 + 2 + 1) * RB * HS;
 }
 
-template <int RB>
+template <int RB, bool WG>
 __global__ void __launch_bounds__(BWD_THREADS, 1)
     lstm_bwd_kernel(const float* __restrict__ gates, const float* __restrict__ cc,
                     const float* __restrict__ dhs, const float* __restrict__ wh_t,
@@ -345,7 +357,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   const int tid = threadIdx.x;
 
   float* ws = smem;                  // [4][HP][HS] wh^T[q * H + k][u0 + u] at (q * HP + k) * HS + u
-  float* da_s = ws + 4 * HP * HS;    // [2][RB][4][HP] da of the whole tile, by step parity
+  float* da_s = ws + (WG ? 0 : 4 * HP * HS);  // [2][RB][4][HP] da of the whole tile, by step parity
   float* part_s = da_s + 8 * RB * HP;  // [4][RB][HS] partial sums of da @ wh^T, by gate
   // A thread copies (cp.async) and reads only its own elements of the residual
   // tiles, and has used step t's values before it asks for step t - 1's, so one
@@ -356,10 +368,12 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
   float* dhs_s = cc_s + 2 * E;       // [E] output gradient
   int* len_s = reinterpret_cast<int*>(dhs_s + E);  // [RB]
 
-  for (int i = tid; i < 4 * HP * HS; i += BWD_THREADS) {
-    const int qk = i / HS, u = i - qk * HS;
-    const int q = qk / HP, k = qk - q * HP;
-    ws[i] = (k < H && u < hs) ? wh_t[(size_t)(q * H + k) * H + u0 + u] : 0.f;
+  if constexpr (!WG) {
+    for (int i = tid; i < 4 * HP * HS; i += BWD_THREADS) {
+      const int qk = i / HS, u = i - qk * HS;
+      const int q = qk / HP, k = qk - q * HP;
+      ws[i] = (k < H && u < hs) ? wh_t[(size_t)(q * H + k) * H + u0 + u] : 0.f;
+    }
   }
   // da's padding units stay 0; the tiles of padding rows are never copied
   for (int i = tid; i < 8 * RB * HP + 11 * E; i += BWD_THREADS) da_s[i] = 0.f;
@@ -484,6 +498,7 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
       for (int r = 0; r < RB; ++r) acc[r] = 0.f;
       const float4* d4 = reinterpret_cast<const float4*>(da_s + (t & 1) * RB * 4 * HP + q * HP);
       const float* wp = ws + q * HP * HS + u;
+      if constexpr (WG) wp = wh_t + ((size_t)rank * 4 + q) * HP * HS + u;
 #pragma unroll K_UNROLL
       for (int k = 0; k < HP; k += 4) {
         const float w0 = wp[k * HS], w1 = wp[(k + 1) * HS], w2 = wp[(k + 2) * HS],
@@ -510,11 +525,11 @@ __global__ void __launch_bounds__(BWD_THREADS, 1)
 using BwdKernel = void (*)(const float*, const float*, const float*, const float*, const int*,
                            float*, int, int, int, int);
 
-// lstm_bwd_kernel<rows> for rows in 1..RB, nullptr otherwise
+// lstm_bwd_kernel<rows, wh_global> for rows in 1..RB, nullptr otherwise
 template <int RB>
-BwdKernel bwd_kernel_for_rows(int rows) {
-  if (rows == RB) return lstm_bwd_kernel<RB>;
-  if constexpr (RB > 1) return bwd_kernel_for_rows<RB - 1>(rows);
+BwdKernel bwd_kernel_for_rows(int rows, bool wh_global) {
+  if (rows == RB) return wh_global ? lstm_bwd_kernel<RB, true> : lstm_bwd_kernel<RB, false>;
+  if constexpr (RB > 1) return bwd_kernel_for_rows<RB - 1>(rows, wh_global);
   return nullptr;
 }
 
@@ -634,19 +649,23 @@ int lstm_probe_read(long long* dst) {
 #endif
 
 // xw: [T, B, 4H] float32, wh: [H, 4H], lens: [B] int32; out, cc, hc: [T, B, H],
-// gates: [T, B, 4H]. 1 <= H <= 256, T, B >= 1. The geometry comes from the caller:
-// rows of a batch tile (must be 8), blocks of a cluster (1, 2, 4 or 8, each holding
-// ceil(H / cluster) hidden units) and the dynamic shared memory of a block.
+// gates: [T, B, 4H]. 1 <= H, 4 * ceil(H / cluster) <= 512, T, B >= 1. The geometry
+// comes from the caller: rows of a batch tile (must be 8), blocks of a cluster (1,
+// 2, 4 or 8, each holding ceil(H / cluster) hidden units), the dynamic shared
+// memory of a block, and wh_global: wh is then [cluster][HP][4 * HS] slices read
+// from device memory (HP = H rounded up to 4, HS = ceil(H / cluster), zero padded).
 int lstm_fwd_launch(const float* xw, const float* wh, const int* lens, float* out, float* gates,
                     float* cc, float* hc, int T, int B, int H, int rows, int cluster,
-                    int smem_bytes, void* stream) {
+                    int smem_bytes, int wh_global, void* stream) {
   if (rows != R || cluster < 1 || cluster > 8 || (cluster & (cluster - 1)))
     return (int)cudaErrorInvalidValue;
   const int HS = (H + cluster - 1) / cluster;
-  const int need = (int)sizeof(float) * fwd_smem_floats(H, HS) + (int)sizeof(int) * R;
+  const int need = (int)sizeof(float) * fwd_smem_floats(H, HS, wh_global != 0) +
+                   (int)sizeof(int) * R;
   if (4 * HS > 512 || smem_bytes < need) return (int)cudaErrorInvalidValue;
   const int threads = 4 * HS <= 256 ? 256 : 512;
-  auto kernel = threads == 256 ? lstm_fwd_kernel<256> : lstm_fwd_kernel<512>;
+  auto kernel = threads == 256 ? (wh_global ? lstm_fwd_kernel<256, true> : lstm_fwd_kernel<256, false>)
+                               : (wh_global ? lstm_fwd_kernel<512, true> : lstm_fwd_kernel<512, false>);
   int err = set_smem((const void*)kernel, (size_t)smem_bytes);
   if (err) return err;
   const int vec = (H % 4 == 0 && HS % 4 == 0 && (reinterpret_cast<uintptr_t>(xw) & 15) == 0);
@@ -671,18 +690,20 @@ int lstm_fwd_launch(const float* xw, const float* wh, const int* lens, float* ou
 // lens: [B] int32; dxw: [T, B, 4H], dwh: [H, 4H]; part: scratch [splits, H, 4H].
 // The recurrence's geometry comes from the caller: rows of a batch tile (1..16),
 // blocks of a cluster (1, 2, 4 or 8, each holding ceil(H / cluster) <= 64 hidden
-// units) and the dynamic shared memory of a block.
+// units), the dynamic shared memory of a block, and wh_global: wh_t is then
+// [cluster][4][HP][HS] slices read from device memory (zero padded).
 int lstm_bwd_launch(const float* gates, const float* cc, const float* hc, const float* dhs,
                     const float* wh_t, const int* lens, float* dxw, float* dwh, float* part,
                     int splits, int T, int B, int H, int rows, int cluster, int smem_bytes,
-                    void* stream) {
+                    int wh_global, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int G = 4 * H;
   if (cluster < 1 || cluster > 8 || (cluster & (cluster - 1)) || H < 1 || T < 1 || B < 1)
     return (int)cudaErrorInvalidValue;
-  const BwdKernel kernel = bwd_kernel_for_rows<BWD_MAX_ROWS>(rows);
+  const BwdKernel kernel = bwd_kernel_for_rows<BWD_MAX_ROWS>(rows, wh_global != 0);
   const int HS = (H + cluster - 1) / cluster;
-  const int need = (int)sizeof(float) * bwd_smem_floats(H, HS, rows) + (int)sizeof(int) * rows;
+  const int need = (int)sizeof(float) * bwd_smem_floats(H, HS, rows, wh_global != 0) +
+                   (int)sizeof(int) * rows;
   if (kernel == nullptr || 4 * HS > BWD_THREADS || rows * HS > BWD_EPT * BWD_THREADS ||
       smem_bytes < need)
     return (int)cudaErrorInvalidValue;

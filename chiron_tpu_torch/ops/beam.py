@@ -13,6 +13,15 @@ exact top-W with ties to the lowest candidate index in the pool layout
 tensors and run their plain versions for CPU tensors. The hash is uint32
 arithmetic that wraps; the plain version keeps it in int64 masked to 32
 bits, since torch has no wrapping uint32 multiply.
+
+The plain versions take any ``beam_width >= 1`` and any ``2 <= classes``.
+On the card, widths up to 32 with up to 8 classes run one warp a row
+(``beam_warp_kernel``); every other width runs one block a row
+(``beam_block_kernel``) with its candidate pool in shared memory, which
+holds ``block_smem_bytes(W, C) <= 232,448`` bytes: W <= 1,638 at C = 5
+(the DNA and RNA alphabets), 819 at C = 10, 2,764 at C = 2. A wider beam
+raises ``ValueError`` naming that limit; it never falls back to the plain
+version on the card.
 """
 
 from __future__ import annotations
@@ -27,8 +36,10 @@ from chiron_tpu_torch.ops.ctc_greedy import compact_labels
 _NEG = -1e30
 _MULT = 2654435761
 _MASK = 0xFFFFFFFF
-MAX_WIDTH = 64
-MAX_CLASSES = 8
+# csrc/beam.cu: the warp kernel's limits, the staged lp chunk, a block's shared memory
+WARP_MAX_WIDTH, WARP_MAX_CLASSES = 32, 8
+_LP_CHUNK = 64
+MAX_SHARED_BYTES = 232448
 
 # launches of each CUDA kernel (plain-version calls on the CPU are not counted)
 launches = {"beam_search": 0, "beam_traceback": 0}
@@ -49,8 +60,28 @@ def _hash_mul(h):
     return (lo * _MULT + (((hi * _MULT) & 0xFFFF) << 16)) & _MASK
 
 
-def beam_search_plain(lp, lens, beam_width: int, length_bonus: float = 0.0):
-    """Plain PyTorch version of the search kernel: same inputs, same outputs."""
+def block_smem_bytes(beam_width: int, nclass: int) -> int:
+    """Shared-memory bytes of ``beam_block_kernel`` at (W, C): 64-bit sort
+    keys for W*C rounded up to a power of two, two lp chunks, two copies of
+    the beam state, the stay pb, the candidate pnb, the raw extend mass and
+    hashes, the match counts and masses, a flag (``csrc/beam.cu:block_smem_bytes``)."""
+    w, c = beam_width, nclass
+    np2 = 1 << max(0, (w * c - 1).bit_length())
+    return 8 * np2 + 4 * (2 * _LP_CHUNK * c + 8 * w + w + w * c + 2 * (c - 1) * w + 2 * w) + 16
+
+
+def search_route(beam_width: int, nclass: int) -> str:
+    """Which kernel takes (W, C) on the card: "warp", "block", or "" (none)."""
+    if beam_width < 1 or nclass < 2 or beam_width > 65535:
+        return ""
+    if beam_width <= WARP_MAX_WIDTH and nclass <= WARP_MAX_CLASSES:
+        return "warp"
+    return "block" if block_smem_bytes(beam_width, nclass) <= MAX_SHARED_BYTES else ""
+
+
+def beam_search_plain(lp, lens, beam_width: int, length_bonus: float = 0.0, step_scores=None):
+    """Plain PyTorch version of the search kernel: same inputs, same outputs.
+    ``step_scores``, a list, receives each step's candidate scores [B, W*C]."""
     bsz, t_max, nclass = lp.shape
     w = beam_width
     nlab = nclass - 1  # blank is the last class
@@ -90,6 +121,8 @@ def beam_search_plain(lp, lens, beam_width: int, length_bonus: float = 0.0):
         cand_pb = torch.cat([stay_pb, neg_ext], dim=1)
         cand_pnb = torch.cat([stay_pnb, ext_flat], dim=1)
         score = _lae(cand_pb, cand_pnb)
+        if step_scores is not None:
+            step_scores.append(score)
         top = torch.sort(score, dim=1, descending=True, stable=True).indices[:, :w]
         is_stay = top < w
         parent = torch.where(is_stay, top, (top - w) % w)
@@ -104,6 +137,34 @@ def beam_search_plain(lp, lens, beam_width: int, length_bonus: float = 0.0):
         h = torch.where(active, new_h, h)
         last = torch.where(active, new_last, last)
     return trace, pb, pnb
+
+
+def first_divergence(lp_a, lp_b, lens, beam_width: int, length_bonus: float = 0.0):
+    """Where two searches of one row on slightly different log-probabilities
+    (say, two libraries' log_softmax of the same logits) first choose
+    differently: None if their traces agree, else a dict with the step, the
+    beam slot whose candidate differs, the two candidates' scores in the
+    first search (their margin) and the largest difference between the two
+    searches' candidate scores at that step (what rounding moved)."""
+    runs = []
+    for lp in (lp_a, lp_b):
+        scores = []
+        trace, _, _ = beam_search_plain(lp[None], lens[None], beam_width, length_bonus, scores)
+        runs.append((trace[0], scores))
+    differ = (runs[0][0] != runs[1][0]).any(dim=1).nonzero()
+    if differ.numel() == 0:
+        return None
+    t = int(differ[0])
+    slot = int((runs[0][0][t] != runs[1][0][t]).nonzero()[0])
+    sa, sb = runs[0][1][t][0], runs[1][1][t][0]
+    order = torch.sort(sa, descending=True, stable=True).indices
+    chosen_a = int(order[slot])
+    chosen_b = int(torch.sort(sb, descending=True, stable=True).indices[slot])
+    live = (sa > _NEG / 2) & (sb > _NEG / 2)
+    return {"step": t, "slot": slot, "candidates": (chosen_a, chosen_b),
+            "scores": (float(sa[chosen_a]), float(sa[chosen_b])),
+            "margin": abs(float(sa[chosen_a] - sa[chosen_b])),
+            "rounding": float((sa - sb)[live].abs().max())}
 
 
 def beam_traceback_plain(trace, best):
@@ -130,12 +191,17 @@ def beam_search(lp: torch.Tensor, lens: torch.Tensor, beam_width: int,
     if lp.dtype != torch.float32 or lens.dtype != torch.int32 or lens.shape != (bsz,) \
             or lens.device != dev:
         raise ValueError("beam_search: lp float32 [B,T,C], lens int32 [B] on one device")
-    if not 1 <= beam_width <= MAX_WIDTH or not 2 <= nclass <= MAX_CLASSES:
-        raise ValueError(f"beam_search: width <= {MAX_WIDTH}, classes <= {MAX_CLASSES}")
+    if beam_width < 1 or nclass < 2:
+        raise ValueError(f"beam_search: width {beam_width} < 1 or classes {nclass} < 2")
     if dev.type == "cpu":
         return beam_search_plain(lp, lens, beam_width, length_bonus)
     if dev.type != "cuda":
         raise ValueError(f"beam_search: unsupported device {dev}")
+    if not search_route(beam_width, nclass):
+        raise ValueError(
+            f"beam_search: beam_block_kernel holds a pool of at most {MAX_SHARED_BYTES} bytes of "
+            f"shared memory; width {beam_width} with {nclass} classes needs "
+            f"{block_smem_bytes(beam_width, nclass)}")
     lp = lp.contiguous()
     lens = lens.contiguous()
     trace = torch.empty((bsz, t_max, beam_width), dtype=torch.int32, device=dev)

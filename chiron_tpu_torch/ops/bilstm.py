@@ -9,10 +9,12 @@ data begins, which is exactly reversing each row within its length.
 
 ``bilstm_layer`` launches ``csrc/bilstm.cu`` for CUDA tensors and runs
 ``bilstm_layer_plain`` for CPU tensors. H is handled directly (no padding
-to 128 lanes), up to 256. The kernel keeps each direction's ``wh`` resident
-in the shared memory of a thread-block cluster; ``inference_geometry``
-chooses the cluster size and the rows per tile (``lstm_grad.cluster_geometry``)
-so that both directions run in one wave where they fit.
+to 128 lanes), up to 512 on the card. The kernel keeps each direction's
+``wh`` resident in the shared memory of a thread-block cluster where one
+holds it (H <= ~330) and reads it from device memory above that;
+``inference_geometry`` chooses the cluster size and the rows per tile
+(``lstm_grad.cluster_geometry``) so that both directions run in one wave
+where they fit.
 """
 
 from __future__ import annotations
@@ -22,10 +24,9 @@ import ctypes
 import torch
 
 from chiron_tpu_torch.ops import cuda_build
-from chiron_tpu_torch.ops.lstm_grad import cluster_geometry
+from chiron_tpu_torch.ops.lstm_grad import cluster_geometry, weights_resident, wh_slices
 
 _FORGET_BIAS = 1.0
-MAX_HIDDEN = 256
 
 # launches of the CUDA kernel (plain-version calls on the CPU are not counted)
 launches = 0
@@ -51,9 +52,20 @@ def _lstm_direction(xw, wh, lo, hi):
 
 def inference_geometry(bsz: int, h_dim: int, dirs: int, dev: torch.device):
     """(cluster size, rows per tile, shared-memory bytes per block) of the
-    inference kernel for ``dirs`` directions on the card ``dev``."""
+    inference kernel for ``dirs`` directions on the card ``dev`` (raises
+    above ``MAX_HIDDEN``: no cluster of 8 blocks of 64 units covers it)."""
     return cluster_geometry("infer", bsz, h_dim, dirs,
                             torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
+def weight_args(whs, h_dim, geometry):
+    """The recurrent kernels as the inference kernel reads them at this
+    geometry, and its ``wh_global`` flag: as they are where a cluster holds
+    them, else as device-memory slices (``lstm_grad.wh_slices``)."""
+    cluster, rows, smem = geometry
+    if weights_resident("infer", h_dim, cluster, rows, smem):
+        return list(whs), 0
+    return [wh_slices(w, cluster) for w in whs], 1
 
 
 def bilstm_layer_plain(xw_fw, xw_bw, wh_fw, wh_bw, lengths, starts_bw):
@@ -93,16 +105,17 @@ def bilstm_layer(xw_fw: torch.Tensor, xw_bw: torch.Tensor, wh_fw: torch.Tensor,
         return bilstm_layer_plain(xw_fw, xw_bw, wh_fw, wh_bw, lengths, starts_bw)
     if dev.type != "cuda":
         raise ValueError(f"bilstm_layer: unsupported device {dev}")
-    if h_dim > MAX_HIDDEN:
-        raise ValueError(f"bilstm_layer: hidden {h_dim} > {MAX_HIDDEN}")
     global launches
-    args = [a.contiguous() for a in (xw_fw, xw_bw, wh_fw, wh_bw, lengths, starts_bw)]
+    geometry = inference_geometry(bsz, h_dim, 2, dev)
+    cluster, rows, smem = geometry
+    whs, wh_global = weight_args((wh_fw.contiguous(), wh_bw.contiguous()), h_dim, geometry)
+    args = [a.contiguous() for a in (xw_fw, xw_bw)] + whs + [lengths.contiguous(),
+                                                              starts_bw.contiguous()]
     out_f = torch.empty((t_max, bsz, h_dim), dtype=torch.float32, device=dev)
     out_b = torch.empty_like(out_f)
-    cluster, rows, smem = inference_geometry(bsz, h_dim, 2, dev)
     lib = cuda_build.load("bilstm")
     rc = lib.bilstm_launch(*[a.data_ptr() for a in args], out_f.data_ptr(),
-                           out_b.data_ptr(), t_max, bsz, h_dim, rows, cluster, smem,
+                           out_b.data_ptr(), t_max, bsz, h_dim, rows, cluster, smem, wh_global,
                            torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "bilstm")
     launches += 1
@@ -111,9 +124,9 @@ def bilstm_layer(xw_fw: torch.Tensor, xw_bw: torch.Tensor, wh_fw: torch.Tensor,
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.bilstm_launch.argtypes = [vp] * 8 + [ci] * 6 + [vp]
+    lib.bilstm_launch.argtypes = [vp] * 8 + [ci] * 7 + [vp]
     lib.bilstm_launch.restype = ci
-    lib.lstm_launch.argtypes = [vp] * 5 + [ci] * 6 + [vp]  # ops/lstm.py's entry point
+    lib.lstm_launch.argtypes = [vp] * 5 + [ci] * 7 + [vp]  # ops/lstm.py's entry point
     lib.lstm_launch.restype = ci
 
 

@@ -9,7 +9,8 @@ outside it the row's state is frozen and its output zero.
 ``lstm_layer`` launches the one-direction entry point of ``csrc/bilstm.cu``
 (the fused layer's kernel with a single direction, at its own geometry) for
 CUDA tensors and runs ``lstm_layer_plain`` for CPU tensors. H is handled
-directly (no padding to 128 lanes), up to 256.
+directly (no padding to 128 lanes), up to ``MAX_HIDDEN`` = 512 on the card:
+the GRU and BNLSTM wrappers share that limit through ``check_cuda_size``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from chiron_tpu_torch.ops import cuda_build
-from chiron_tpu_torch.ops.bilstm import MAX_HIDDEN, _lstm_direction, inference_geometry
+from chiron_tpu_torch.ops.bilstm import _lstm_direction, inference_geometry, weight_args
+from chiron_tpu_torch.ops.lstm_grad import MAX_HIDDEN
 
 # launches of the CUDA kernel (plain-version calls on the CPU are not counted)
 launches = 0
@@ -48,8 +50,10 @@ def check_recurrent_inputs(name: str, floats: Sequence[torch.Tensor],
 
 
 def check_cuda_size(name: str, t_max: int, bsz: int, h_dim: int) -> None:
+    """Raise for a shape the recurrent kernels do not take: every one holds
+    1..MAX_HIDDEN (512) hidden units."""
     if not 1 <= h_dim <= MAX_HIDDEN:
-        raise ValueError(f"{name}: hidden {h_dim} outside 1..{MAX_HIDDEN}")
+        raise ValueError(f"{name}: the kernel holds 1..{MAX_HIDDEN} hidden units, got {h_dim}")
     if t_max < 1 or bsz < 1:
         raise ValueError(f"{name}: empty input [T={t_max}, B={bsz}]")
 
@@ -78,14 +82,16 @@ def lstm_layer(xw: torch.Tensor, wh: torch.Tensor, lengths: torch.Tensor,
         return lstm_layer_plain(xw, wh, lengths, starts)
     check_cuda_size("lstm_layer", t_max, bsz, h_dim)
     global launches
-    xw, wh, lengths = xw.contiguous(), wh.contiguous(), lengths.contiguous()
+    xw, lengths = xw.contiguous(), lengths.contiguous()
     starts = None if starts is None else starts.contiguous()
     out = torch.empty((t_max, bsz, h_dim), dtype=torch.float32, device=dev)
-    cluster, rows, smem = inference_geometry(bsz, h_dim, 1, dev)
+    geometry = inference_geometry(bsz, h_dim, 1, dev)
+    cluster, rows, smem = geometry
+    (wh,), wh_global = weight_args((wh.contiguous(),), h_dim, geometry)
     lib = cuda_build.load("bilstm")
     rc = lib.lstm_launch(xw.data_ptr(), wh.data_ptr(), lengths.data_ptr(),
                          None if starts is None else starts.data_ptr(), out.data_ptr(),
-                         t_max, bsz, h_dim, rows, cluster, smem,
+                         t_max, bsz, h_dim, rows, cluster, smem, wh_global,
                          torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "lstm_layer")
     launches += 1

@@ -19,7 +19,7 @@ backward direction's input with ``reverse_sequence``).
 For CUDA tensors the wrappers launch ``csrc/lstm_grad.cu`` (float32 only);
 for CPU tensors they run the plain versions, which repeat the kernels'
 arithmetic step by step (float32 or float64). H is handled directly (no
-padding to 128 lanes), up to 256.
+padding to 128 lanes), up to ``MAX_HIDDEN`` = 512 on the card.
 
 The forward kernel keeps ``wh`` in shared memory for the whole recurrence.
 One direction's ``wh`` at H = 128 is 256 KB, more than a block's 227 KB, so a
@@ -37,6 +37,13 @@ cluster of 8.
 The backward kernel and the inference kernels (``ops/bilstm.py``,
 ``ops/lstm.py``) keep ``wh`` (``wh^T``) resident the same way, and
 ``cluster_geometry`` chooses their rows per tile as well as the cluster size.
+
+Where no cluster of at most 8 blocks holds a block's slice of ``wh`` (the
+forward above H ~ 360, the inference and backward kernels above H ~ 330),
+the geometry functions choose among the kernels' ``wh_global`` variants,
+which read each block's slice from device memory; ``wh_slices`` lays it out
+there exactly as it would lie in shared memory. ``weights_resident`` tells
+which of the two a geometry is.
 """
 
 from __future__ import annotations
@@ -48,7 +55,7 @@ import torch
 from chiron_tpu_torch.ops import cuda_build
 
 _FORGET_BIAS = 1.0
-MAX_HIDDEN = 256
+MAX_HIDDEN = 512
 # the dwh pass splits the T*B rows into at most this many fixed ranges (at
 # H = 128 its 4 tiles of 128 x 128 x 32 ranges are 128 blocks, one an SM)
 _MAX_SPLITS = 32
@@ -71,6 +78,12 @@ _FWD_STEP_OVERHEAD = 512
 MAX_ROWS = 16
 _CLUSTER_COLUMNS = 256
 _FULL_SLICE = 64
+# a product that reads wh from device memory (L2) instead of shared memory,
+# in units of the resident product. The device-memory variant is weighed only
+# above H = 256: up to there a cluster always holds wh, and the geometries are
+# the resident ones that the kernels were measured and tuned at.
+_WH_GLOBAL_COST = 2
+_RESIDENT_ONLY_HIDDEN = 256
 
 # launches of each CUDA entry point (plain-version calls on the CPU are not counted)
 launches = {"lstm_fwd_residuals": 0, "lstm_bwd": 0}
@@ -132,14 +145,15 @@ def lstm_bwd_plain(gates, cc, hc, dhs, wh, lengths):
     return dxw, dwh
 
 
-def fwd_smem_bytes(h_dim: int, cluster: int) -> int:
+def fwd_smem_bytes(h_dim: int, cluster: int, resident: bool = True) -> int:
     """Dynamic shared memory of one forward block: its slice of wh
-    [H4, 4*HS], h of the whole tile twice, its c, the gate pre-activations
-    and two xw tiles (H4 = H rounded up to 4, HS = ceil(H / cluster)), plus
-    the tile's lengths."""
+    [H4, 4*HS] (when resident), h of the whole tile twice, its c, the gate
+    pre-activations and two xw tiles (H4 = H rounded up to 4, HS = ceil(H /
+    cluster)), plus the tile's lengths."""
     hs = -(-h_dim // cluster)
     h4 = -(-h_dim // 4) * 4
-    floats = h4 * 4 * hs + 2 * FWD_ROWS * h4 + FWD_ROWS * hs + 3 * FWD_ROWS * 4 * hs
+    floats = (h4 * 4 * hs if resident else 0) + 2 * FWD_ROWS * h4 + FWD_ROWS * hs \
+        + 3 * FWD_ROWS * 4 * hs
     return 4 * floats + 4 * FWD_ROWS
 
 
@@ -148,43 +162,48 @@ def fwd_geometry(bsz: int, h_dim: int, sm_count: int = _H100_SMS):
     of the forward kernel for a batch of ``bsz`` rows and ``h_dim`` hidden
     units on a card with ``sm_count`` SMs."""
     tiles = -(-bsz // FWD_ROWS)
-    best = None
-    for cluster in (1, 2, 4, 8):
-        hs = -(-h_dim // cluster)
-        smem = fwd_smem_bytes(h_dim, cluster)
-        if 4 * hs > _FWD_MAX_COLUMNS or smem > MAX_SHARED_BYTES or cluster > sm_count:
-            continue
-        waves = -(-tiles // (sm_count // cluster))
-        cost = waves * (FWD_ROWS * hs + _FWD_STEP_OVERHEAD)
-        if best is None or cost < best[0]:
-            best = (cost, cluster, smem)
-    if best is None:
-        raise ValueError(f"lstm_fwd_residuals: no cluster of at most 8 blocks holds H={h_dim}")
-    return best[1], FWD_ROWS, best[2]
+    # wh resident where some cluster holds it, else read from device memory
+    for resident in (True, False):
+        best = None
+        for cluster in (1, 2, 4, 8):
+            hs = -(-h_dim // cluster)
+            smem = fwd_smem_bytes(h_dim, cluster, resident)
+            if 4 * hs > _FWD_MAX_COLUMNS or smem > MAX_SHARED_BYTES or cluster > sm_count:
+                continue
+            waves = -(-tiles // (sm_count // cluster))
+            cost = waves * (FWD_ROWS * hs + _FWD_STEP_OVERHEAD)
+            if best is None or cost < best[0]:
+                best = (cost, cluster, smem)
+        if best is not None:
+            return best[1], FWD_ROWS, best[2]
+    raise ValueError(f"lstm_fwd_kernel: no cluster of at most 8 blocks of "
+                     f"{_FWD_MAX_COLUMNS} threads covers H={h_dim}")
 
 
-def infer_smem_bytes(h_dim: int, cluster: int, rows: int) -> int:
+def infer_smem_bytes(h_dim: int, cluster: int, rows: int, resident: bool = True) -> int:
     """Dynamic shared memory of one block of the inference kernel
-    (``csrc/bilstm.cu``): its slice of wh [H4, 4*HS], h of the tile twice, the
-    gate pre-activations and two xw tiles, plus each row's window."""
+    (``csrc/bilstm.cu``): its slice of wh [H4, 4*HS] (when resident), h of
+    the tile twice, the gate pre-activations and two xw tiles, plus each
+    row's window."""
     hs = -(-h_dim // cluster)
     h4 = -(-h_dim // 4) * 4
-    floats = h4 * 4 * hs + 2 * rows * h4 + 3 * rows * 4 * hs
+    floats = (h4 * 4 * hs if resident else 0) + 2 * rows * h4 + 3 * rows * 4 * hs
     return 4 * floats + 8 * rows
 
 
-def bwd_smem_bytes(h_dim: int, cluster: int, rows: int) -> int:
+def bwd_smem_bytes(h_dim: int, cluster: int, rows: int, resident: bool = True) -> int:
     """Dynamic shared memory of one backward block: its slice of wh^T
-    [4, H4, HS], da of the tile twice [2, rows, 4, H4], the partial sums
-    [4, rows, HS], and the gates, two cc tiles and dhs of its units, plus the
-    tile's lengths."""
+    [4, H4, HS] (when resident), da of the tile twice [2, rows, 4, H4], the
+    partial sums [4, rows, HS], and the gates, two cc tiles and dhs of its
+    units, plus the tile's lengths."""
     hs = -(-h_dim // cluster)
     h4 = -(-h_dim // 4) * 4
-    floats = 4 * h4 * hs + 8 * rows * h4 + (4 + 4 + 2 + 1) * rows * hs
+    floats = (4 * h4 * hs if resident else 0) + 8 * rows * h4 + (4 + 4 + 2 + 1) * rows * hs
     return 4 * floats + 4 * rows
 
 
 _SMEM_BYTES = {"infer": infer_smem_bytes, "bwd": bwd_smem_bytes}
+_KERNEL_NAME = {"infer": "lstm_infer_kernel", "bwd": "lstm_bwd_kernel"}
 
 
 def cluster_geometry(kind: str, bsz: int, h_dim: int, dirs: int = 1,
@@ -213,21 +232,52 @@ def cluster_geometry(kind: str, bsz: int, h_dim: int, dirs: int = 1,
     """
     smem_bytes = _SMEM_BYTES[kind]
     best = None
-    for cluster in (1, 2, 4, 8):
-        hs = -(-h_dim // cluster)
-        if 4 * hs > _CLUSTER_COLUMNS or cluster > sm_count:
-            continue
-        for rows in range(1, MAX_ROWS + 1):
-            smem = smem_bytes(h_dim, cluster, rows)
-            if smem > MAX_SHARED_BYTES:
-                break
-            waves = -(-(-(-bsz // rows) * dirs) // (sm_count // cluster))
-            cost = waves * (rows * max(hs, _FULL_SLICE) + _FWD_STEP_OVERHEAD)
-            if best is None or cost < best[0]:
-                best = (cost, cluster, rows, smem)
-    if best is None:
-        raise ValueError(f"{kind} LSTM kernel: no cluster of at most 8 blocks holds H={h_dim}")
-    return best[1], best[2], best[3]
+    for resident in (True,) if h_dim <= _RESIDENT_ONLY_HIDDEN else (True, False):
+        for cluster in (1, 2, 4, 8):
+            hs = -(-h_dim // cluster)
+            if 4 * hs > _CLUSTER_COLUMNS or cluster > sm_count:
+                continue
+            for rows in range(1, MAX_ROWS + 1):
+                smem = smem_bytes(h_dim, cluster, rows, resident)
+                if smem > MAX_SHARED_BYTES:
+                    break
+                waves = -(-(-(-bsz // rows) * dirs) // (sm_count // cluster))
+                product = rows * max(hs, _FULL_SLICE) * (1 if resident else _WH_GLOBAL_COST)
+                cost = waves * (product + _FWD_STEP_OVERHEAD)
+                if best is None or cost < best[0]:
+                    best = (cost, cluster, rows, smem)
+    if best is not None:
+        return best[1], best[2], best[3]
+    raise ValueError(f"{_KERNEL_NAME[kind]}: no cluster of at most 8 blocks of "
+                     f"{_CLUSTER_COLUMNS} threads covers H={h_dim} (at most "
+                     f"{MAX_HIDDEN} hidden units)")
+
+
+def weights_resident(kind: str, h_dim: int, cluster: int, rows: int, smem: int) -> bool:
+    """Whether a geometry of ``fwd_geometry`` (kind "fwd") or
+    ``cluster_geometry`` keeps wh in shared memory (else the kernel's
+    ``wh_global`` variant reads it from device memory)."""
+    if kind == "fwd":
+        return smem == fwd_smem_bytes(h_dim, cluster)
+    return smem == _SMEM_BYTES[kind](h_dim, cluster, rows)
+
+
+def wh_slices(wh: torch.Tensor, cluster: int, transposed: bool = False) -> torch.Tensor:
+    """wh [H, 4H] laid out for the kernels' ``wh_global`` variants, one slice
+    a block as it would lie in shared memory, zero padded: [cluster, H4, 4,
+    HS] (wh[k, gate * H + j * HS + u] for block j) for the forward and
+    inference kernels, [cluster, 4, H4, HS] (wh^T) with ``transposed`` for
+    the backward (H4 = H rounded up to 4, HS = ceil(H / cluster))."""
+    h_dim = wh.shape[0]
+    hs = -(-h_dim // cluster)
+    h4 = -(-h_dim // 4) * 4
+    w = wh.reshape(h_dim, 4, h_dim)  # [k, gate, unit]
+    if transposed:
+        w = w.permute(1, 2, 0)  # [gate, k, unit] = wh^T[gate * H + k, unit]
+        w = torch.nn.functional.pad(w, (0, cluster * hs - h_dim, 0, h4 - h_dim))
+        return w.reshape(4, h4, cluster, hs).permute(2, 0, 1, 3).contiguous()
+    w = torch.nn.functional.pad(w, (0, cluster * hs - h_dim, 0, 0, 0, h4 - h_dim))
+    return w.reshape(h4, 4, cluster, hs).permute(2, 0, 1, 3).contiguous()
 
 
 def _check(name, floats, shapes, lengths):
@@ -251,7 +301,7 @@ def _check(name, floats, shapes, lengths):
 
 def _cuda_shape_ok(name, t_max, bsz, h_dim):
     if not 1 <= h_dim <= MAX_HIDDEN:
-        raise ValueError(f"{name}: hidden {h_dim} outside 1..{MAX_HIDDEN}")
+        raise ValueError(f"{name}: the kernel holds 1..{MAX_HIDDEN} hidden units, got {h_dim}")
     if t_max < 1 or bsz < 1:
         raise ValueError(f"{name}: empty input [T={t_max}, B={bsz}]")
 
@@ -280,10 +330,13 @@ def lstm_fwd_residuals(xw: torch.Tensor, wh: torch.Tensor, lengths: torch.Tensor
     hc = torch.empty_like(out)
     cluster, rows, smem = fwd_geometry(
         bsz, h_dim, torch.cuda.get_device_properties(dev).multi_processor_count)
+    resident = weights_resident("fwd", h_dim, cluster, rows, smem)
+    wsrc = wh if resident else wh_slices(wh, cluster)
     lib = cuda_build.load("lstm_grad")
-    rc = lib.lstm_fwd_launch(xw.data_ptr(), wh.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+    rc = lib.lstm_fwd_launch(xw.data_ptr(), wsrc.data_ptr(), lengths.data_ptr(), out.data_ptr(),
                              gates.data_ptr(), cc.data_ptr(), hc.data_ptr(), t_max, bsz, h_dim,
-                             rows, cluster, smem, torch.cuda.current_stream(dev).cuda_stream)
+                             rows, cluster, smem, int(not resident),
+                             torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "lstm_fwd_residuals")
     launches["lstm_fwd_residuals"] += 1
     return out, gates, cc, hc
@@ -309,17 +362,18 @@ def lstm_bwd(gates: torch.Tensor, cc: torch.Tensor, hc: torch.Tensor, dhs: torch
         return lstm_bwd_plain(gates, cc, hc, dhs, wh, lengths)
     _cuda_shape_ok("lstm_bwd", t_max, bsz, h_dim)
     splits = max(1, min(_MAX_SPLITS, (t_max * bsz) // _ROWS_PER_SPLIT))
-    wh_t = wh.t().contiguous()
     dxw = torch.empty_like(gates)
     dwh = torch.empty_like(wh)
     part = torch.empty((splits, h_dim, 4 * h_dim), dtype=torch.float32, device=dev)
     cluster, rows, smem = cluster_geometry(
         "bwd", bsz, h_dim, 1, torch.cuda.get_device_properties(dev).multi_processor_count)
+    resident = weights_resident("bwd", h_dim, cluster, rows, smem)
+    wh_t = wh.t().contiguous() if resident else wh_slices(wh, cluster, transposed=True)
     lib = cuda_build.load("lstm_grad")
     rc = lib.lstm_bwd_launch(gates.data_ptr(), cc.data_ptr(), hc.data_ptr(), dhs.data_ptr(),
                              wh_t.data_ptr(), lengths.data_ptr(), dxw.data_ptr(), dwh.data_ptr(),
                              part.data_ptr(), splits, t_max, bsz, h_dim, rows, cluster, smem,
-                             torch.cuda.current_stream(dev).cuda_stream)
+                             int(not resident), torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "lstm_bwd")
     launches["lstm_bwd"] += 1
     return dxw, dwh
@@ -347,9 +401,9 @@ def lstm_layer_ad(xw: torch.Tensor, wh: torch.Tensor, lengths: torch.Tensor) -> 
 
 def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.lstm_fwd_launch.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+    lib.lstm_fwd_launch.argtypes = [vp] * 7 + [ci] * 7 + [vp]
     lib.lstm_fwd_launch.restype = ci
-    lib.lstm_bwd_launch.argtypes = [vp] * 9 + [ci] * 7 + [vp]
+    lib.lstm_bwd_launch.argtypes = [vp] * 9 + [ci] * 8 + [vp]
     lib.lstm_bwd_launch.restype = ci
 
 

@@ -1,10 +1,11 @@
 """Where the kernels redesigned for Hopper spend their time, on one NVIDIA GPU.
 
-    python -m chiron_tpu_torch.tools.kernel_probe
+    python -m chiron_tpu_torch.tools.kernel_probe [mma] [conv] [lstm] [beam]
 
-Builds ``csrc/conv_bn.cu``, ``csrc/lstm_grad.cu`` and ``csrc/bilstm.cu`` again
-with probe macros (the libraries the package uses are left alone) and prints,
-as JSON lines:
+Builds ``csrc/conv_bn.cu``, ``csrc/lstm_grad.cu``, ``csrc/bilstm.cu`` and
+``csrc/beam.cu`` again with probe macros (the libraries the package uses are
+left alone) and prints, as JSON lines, for the parts named on the command line
+(all of them when none is named):
 
 - the start rate of ``mma.sync.m16n8k8`` TF32 (``tools/mma_rate.cu``: 20
   independent accumulator tiles a warp, nothing else in the loop), with 1 to 3
@@ -28,7 +29,14 @@ as JSON lines:
   exchange, out stores, cluster barrier; and for lstm_bwd's recurrence at
   T = 400, B = 300, H = 128 / 100 / 256: the gate gradients, the prefetch,
   the da exchange, the dxw stores, the cluster barrier, the product, the
-  block barrier.
+  block barrier;
+- the beam search (``-DBEAM_PROBE``) at B = T = 400, C = 5, ``length_bonus``
+  0.6 on seeded random log-probabilities, at W = 30 (the warp kernel) and
+  100 (the block kernel): the clocks per step that thread 0 of block 0 spends
+  fetching lp (and, in the warp kernel, publishing the beams' hashes),
+  computing the stay and extend values, matching the extends' hashes against
+  the stays', merging and keying the candidates, selecting the top W, and
+  updating the state and storing the trace.
 
 Times are CUDA events over 10 launches after 2 warm-ups. The numbers on the
 design choices in the sources' notes and in PERF.md come from this script.
@@ -44,7 +52,7 @@ import sys
 
 import torch
 
-from chiron_tpu_torch.ops import bilstm, conv_bn, cuda_build, lstm, lstm_grad
+from chiron_tpu_torch.ops import beam, bilstm, conv_bn, cuda_build, lstm, lstm_grad
 
 SEED = 0
 CONV_VARIANTS = {"shipped": [], "mma_loop_alone": ["-DCONV_PROBE_NO_STAGING"],
@@ -55,6 +63,9 @@ LSTM_PHASES = ("product", "prefetch_start_and_block_barrier", "gate_stage_and_h_
 INFER_PHASES = ("product", "prefetch_start_and_block_barrier", "gate_stage_and_h_exchange",
                 "xw_wait_arrive_and_out_stores", "cluster_wait")
 # slots 8-14 of lstm_grad.cu's clocks
+BEAM_PHASES = ("lp_fetch", "stay_and_extend", "hash_match", "merge_and_keys", "top_w",
+               "state_update_and_trace_store")
+PARTS = ("mma", "conv", "lstm", "beam")
 BWD_PHASES = ("gate_gradients", "prefetch_start", "da_exchange", "arrive_and_dxw_stores",
               "cluster_wait", "product", "residual_wait_and_block_barrier")
 
@@ -81,19 +92,28 @@ def _time_ms(fn, reps=10, warm=2):
     return start.elapsed_time(end) / reps
 
 
-def main():
+def main(argv=None):
+    parts = set(sys.argv[1:] if argv is None else argv) or set(PARTS)
+    if parts - set(PARTS):
+        sys.exit(f"kernel_probe: unknown parts {sorted(parts - set(PARTS))}; choose from {PARTS}")
     if not torch.cuda.is_available():
         sys.exit("kernel_probe needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
-    builds = {("conv_bn", tag): _start_build("conv_bn", tag, flags)
-              for tag, flags in CONV_VARIANTS.items()}
-    builds[("lstm_grad", "phases")] = _start_build("lstm_grad", "phases", ["-DLSTM_PROBE"])
-    builds[("bilstm", "phases")] = _start_build("bilstm", "phases", ["-DLSTM_PROBE"])
-    builds[("mma_rate", "")] = _start_build("mma_rate", "", [],
-                                            os.path.dirname(os.path.abspath(__file__)))
+    builds = {}
+    if "conv" in parts:
+        builds.update({("conv_bn", tag): _start_build("conv_bn", tag, flags)
+                       for tag, flags in CONV_VARIANTS.items()})
+    if "lstm" in parts:
+        builds[("lstm_grad", "phases")] = _start_build("lstm_grad", "phases", ["-DLSTM_PROBE"])
+        builds[("bilstm", "phases")] = _start_build("bilstm", "phases", ["-DLSTM_PROBE"])
+    if "beam" in parts:
+        builds[("beam", "phases")] = _start_build("beam", "phases", ["-DBEAM_PROBE"])
+    if "mma" in parts:
+        builds[("mma_rate", "")] = _start_build("mma_rate", "", [],
+                                                os.path.dirname(os.path.abspath(__file__)))
     libs = {}
     for key, (out, proc) in builds.items():
         text = proc.communicate()[0]
@@ -101,128 +121,156 @@ def main():
             sys.exit(f"nvcc failed for {key}:\n{text}")
         libs[key] = ctypes.CDLL(out)
 
-    rate = libs[("mma_rate", "")]
-    rate.mma_rate_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    rate.mma_rate_launch.restype = ctypes.c_int
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    out = torch.empty((3 * sms * 128,), dtype=torch.float32, device=dev)
-    iters = 5000
-    for blocks_per_sm, extra in ((1, 0), (2, 0), (3, 0), (3, 4), (3, 8)):
-        def launch():
-            cuda_build.check(rate.mma_rate_launch(
-                out.data_ptr(), iters, blocks_per_sm * sms, extra,
-                torch.cuda.current_stream(dev).cuda_stream), "mma_rate")
-        ms = _time_ms(launch, reps=3, warm=1)
-        mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
-                                    "--format=csv,noheader,nounits"], capture_output=True,
-                                   text=True).stdout.split()[0])
-        mmas_per_quarter = blocks_per_sm * iters * 20  # one warp of each block per SM quarter
-        print(json.dumps({
-            "kernel": "mma_rate", "blocks_per_sm": blocks_per_sm,
-            "integer_adds_per_mma": extra / 4, "ms": ms, "sm_clock_mhz_after": mhz,
-            "clocks_per_mma_per_sm_quarter": ms * 1e-3 * mhz * 1e6 / mmas_per_quarter,
-            "tflops_tf32": blocks_per_sm * sms * 4 * iters * 20 * 2048 / ms / 1e9}), flush=True)
+    if "mma" in parts:
+        rate = libs[("mma_rate", "")]
+        rate.mma_rate_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        rate.mma_rate_launch.restype = ctypes.c_int
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        out = torch.empty((3 * sms * 128,), dtype=torch.float32, device=dev)
+        iters = 5000
+        for blocks_per_sm, extra in ((1, 0), (2, 0), (3, 0), (3, 4), (3, 8)):
+            def launch():
+                cuda_build.check(rate.mma_rate_launch(
+                    out.data_ptr(), iters, blocks_per_sm * sms, extra,
+                    torch.cuda.current_stream(dev).cuda_stream), "mma_rate")
+            ms = _time_ms(launch, reps=3, warm=1)
+            mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                                        "--format=csv,noheader,nounits"], capture_output=True,
+                                       text=True).stdout.split()[0])
+            mmas_per_quarter = blocks_per_sm * iters * 20  # one warp of each block per SM quarter
+            print(json.dumps({
+                "kernel": "mma_rate", "blocks_per_sm": blocks_per_sm,
+                "integer_adds_per_mma": extra / 4, "ms": ms, "sm_clock_mhz_after": mhz,
+                "clocks_per_mma_per_sm_quarter": ms * 1e-3 * mhz * 1e6 / mmas_per_quarter,
+                "tflops_tf32": blocks_per_sm * sms * 4 * iters * 20 * 2048 / ms / 1e9}), flush=True)
 
     gen = torch.Generator().manual_seed(SEED)
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).to(dev)
 
-    c = 256
-    for k, n_terms in ((3, 2), (3, 1), (1, 2)):
-        terms = [(rnd(400, 400, c), rnd(c).abs() + 0.5, rnd(c, scale=0.2)) for _ in range(n_terms)]
-        w = rnd(k, c, c, scale=(2 / ((k + 1) * c)) ** 0.5)
-        py, ps, _ = conv_bn.conv_bn_plain(terms, w, True, 1)
-        x64 = torch.relu(sum(r.double() * a.double() + b.double() for r, a, b in terms))
-        y64 = conv_bn.conv_same(x64, w.double(), 1)
-        del x64
-        s64 = y64.sum(dim=(0, 1))
+    if "conv" in parts:
+        c = 256
+        for k, n_terms in ((3, 2), (3, 1), (1, 2)):
+            terms = [(rnd(400, 400, c), rnd(c).abs() + 0.5, rnd(c, scale=0.2)) for _ in range(n_terms)]
+            w = rnd(k, c, c, scale=(2 / ((k + 1) * c)) ** 0.5)
+            py, ps, _ = conv_bn.conv_bn_plain(terms, w, True, 1)
+            x64 = torch.relu(sum(r.double() * a.double() + b.double() for r, a, b in terms))
+            y64 = conv_bn.conv_same(x64, w.double(), 1)
+            del x64
+            s64 = y64.sum(dim=(0, 1))
 
-        def errors(y, s):
-            d = y.double() - y64
-            return {"max_abs_err_vs_float64": float(d.abs().max()),
-                    "mean_err_along_sign_of_y": float((d * torch.sign(y64)).mean()),
-                    "sums_rel_err_vs_float64": float(((s.double() - s64).abs()
-                                                      / s64.abs().clamp(min=1.0)).max())}
+            def errors(y, s):
+                d = y.double() - y64
+                return {"max_abs_err_vs_float64": float(d.abs().max()),
+                        "mean_err_along_sign_of_y": float((d * torch.sign(y64)).mean()),
+                        "sums_rel_err_vs_float64": float(((s.double() - s64).abs()
+                                                          / s64.abs().clamp(min=1.0)).max())}
 
-        row = {"kernel": "conv_bn", "shape": f"[400,400,{c}]->{c} k={k} terms={n_terms}",
-               "plain": errors(py, ps)}
-        for tag in CONV_VARIANTS:
-            lib = libs[("conv_bn", tag)]
-            conv_bn._declare(lib)
-            cuda_build._LIBS["conv_bn"] = lib
-            y, s, _ = conv_bn.conv_bn(terms, w, True, 1)
+            row = {"kernel": "conv_bn", "shape": f"[400,400,{c}]->{c} k={k} terms={n_terms}",
+                   "plain": errors(py, ps)}
+            for tag in CONV_VARIANTS:
+                lib = libs[("conv_bn", tag)]
+                conv_bn._declare(lib)
+                cuda_build._LIBS["conv_bn"] = lib
+                y, s, _ = conv_bn.conv_bn(terms, w, True, 1)
+                torch.cuda.synchronize()
+                row[tag] = {"ms": _time_ms(lambda: conv_bn.conv_bn(terms, w, True, 1))}
+                if tag in ("shipped", "one_chain_over_k"):
+                    row[tag].update(errors(y, s))
+            print(json.dumps(row), flush=True)
+            del y64
+
+    if "lstm" in parts:
+        lib = libs[("lstm_grad", "phases")]
+        lstm_grad._declare(lib)
+        lib.lstm_probe_read.argtypes = [ctypes.c_void_p]
+        lib.lstm_probe_read.restype = ctypes.c_int
+        cuda_build._LIBS["lstm_grad"] = lib
+        t_max, bsz = 400, 300
+        for h in (128, 100, 256):
+            xw = rnd(t_max, bsz, 4 * h)
+            wh = rnd(h, 4 * h, scale=(6 / (5 * h)) ** 0.5 / 2)
+            lens = torch.full((bsz,), t_max, dtype=torch.int32, device=dev)
+            clocks = (ctypes.c_longlong * 16)()
+            lstm_grad.lstm_fwd_residuals(xw, wh, lens)  # warm-up
             torch.cuda.synchronize()
-            row[tag] = {"ms": _time_ms(lambda: conv_bn.conv_bn(terms, w, True, 1))}
-            if tag in ("shipped", "one_chain_over_k"):
-                row[tag].update(errors(y, s))
-        print(json.dumps(row), flush=True)
-        del y64
+            cuda_build.check(lib.lstm_probe_read(clocks), "lstm_probe_read")
+            lstm_grad.lstm_fwd_residuals(xw, wh, lens)
+            torch.cuda.synchronize()
+            cuda_build.check(lib.lstm_probe_read(clocks), "lstm_probe_read")
+            print(json.dumps({
+                "kernel": "lstm_fwd_residuals", "shape": f"T={t_max} B={bsz} H={h}",
+                "cluster_rows_shared_bytes": lstm_grad.fwd_geometry(bsz, h),
+                "ms_with_probe": _time_ms(lambda: lstm_grad.lstm_fwd_residuals(xw, wh, lens), 5),
+                "clocks_per_step": {name: round(clocks[i] / t_max)
+                                    for i, name in enumerate(LSTM_PHASES)}}), flush=True)
+            res = lstm_grad.lstm_fwd_residuals(xw, wh, lens)
+            dhs = rnd(t_max, bsz, h)
+            lstm_grad.lstm_bwd(*res[1:], dhs, wh, lens)  # warm-up
+            torch.cuda.synchronize()
+            cuda_build.check(lib.lstm_probe_read(clocks), "lstm_probe_read")
+            lstm_grad.lstm_bwd(*res[1:], dhs, wh, lens)
+            torch.cuda.synchronize()
+            cuda_build.check(lib.lstm_probe_read(clocks), "lstm_probe_read")
+            print(json.dumps({
+                "kernel": "lstm_bwd", "shape": f"T={t_max} B={bsz} H={h}",
+                "cluster_rows_shared_bytes": lstm_grad.cluster_geometry("bwd", bsz, h),
+                "ms_with_probe": _time_ms(lambda: lstm_grad.lstm_bwd(*res[1:], dhs, wh, lens), 5),
+                "clocks_per_step": {name: round(clocks[8 + i] / t_max)
+                                    for i, name in enumerate(BWD_PHASES)}}), flush=True)
 
-    lib = libs[("lstm_grad", "phases")]
-    lstm_grad._declare(lib)
-    lib.lstm_probe_read.argtypes = [ctypes.c_void_p]
-    lib.lstm_probe_read.restype = ctypes.c_int
-    cuda_build._LIBS["lstm_grad"] = lib
-    t_max, bsz = 400, 300
-    for h in (128, 100, 256):
-        xw = rnd(t_max, bsz, 4 * h)
-        wh = rnd(h, 4 * h, scale=(6 / (5 * h)) ** 0.5 / 2)
+        lib = libs[("bilstm", "phases")]
+        bilstm._declare(lib)
+        lib.infer_probe_read.argtypes = [ctypes.c_void_p]
+        lib.infer_probe_read.restype = ctypes.c_int
+        cuda_build._LIBS["bilstm"] = lib
+        t_max, bsz, h = 400, 400, 128
+        clocks = (ctypes.c_longlong * 8)()
+        xw_f, xw_b = rnd(t_max, bsz, 4 * h), rnd(t_max, bsz, 4 * h)
+        wh_f, wh_b = (rnd(h, 4 * h, scale=(6 / (5 * h)) ** 0.5 / 2) for _ in range(2))
         lens = torch.full((bsz,), t_max, dtype=torch.int32, device=dev)
-        clocks = (ctypes.c_longlong * 16)()
-        lstm_grad.lstm_fwd_residuals(xw, wh, lens)  # warm-up
-        torch.cuda.synchronize()
-        cuda_build.check(lib.lstm_probe_read(clocks), "lstm_probe_read")
-        lstm_grad.lstm_fwd_residuals(xw, wh, lens)
-        torch.cuda.synchronize()
-        cuda_build.check(lib.lstm_probe_read(clocks), "lstm_probe_read")
-        print(json.dumps({
-            "kernel": "lstm_fwd_residuals", "shape": f"T={t_max} B={bsz} H={h}",
-            "cluster_rows_shared_bytes": lstm_grad.fwd_geometry(bsz, h),
-            "ms_with_probe": _time_ms(lambda: lstm_grad.lstm_fwd_residuals(xw, wh, lens), 5),
-            "clocks_per_step": {name: round(clocks[i] / t_max)
-                                for i, name in enumerate(LSTM_PHASES)}}), flush=True)
-        res = lstm_grad.lstm_fwd_residuals(xw, wh, lens)
-        dhs = rnd(t_max, bsz, h)
-        lstm_grad.lstm_bwd(*res[1:], dhs, wh, lens)  # warm-up
-        torch.cuda.synchronize()
-        cuda_build.check(lib.lstm_probe_read(clocks), "lstm_probe_read")
-        lstm_grad.lstm_bwd(*res[1:], dhs, wh, lens)
-        torch.cuda.synchronize()
-        cuda_build.check(lib.lstm_probe_read(clocks), "lstm_probe_read")
-        print(json.dumps({
-            "kernel": "lstm_bwd", "shape": f"T={t_max} B={bsz} H={h}",
-            "cluster_rows_shared_bytes": lstm_grad.cluster_geometry("bwd", bsz, h),
-            "ms_with_probe": _time_ms(lambda: lstm_grad.lstm_bwd(*res[1:], dhs, wh, lens), 5),
-            "clocks_per_step": {name: round(clocks[8 + i] / t_max)
-                                for i, name in enumerate(BWD_PHASES)}}), flush=True)
+        starts = torch.zeros_like(lens)
+        cases = {"bilstm": (2, lambda: bilstm.bilstm_layer(xw_f, xw_b, wh_f, wh_b, lens, starts)),
+                 "lstm_layer": (1, lambda: lstm.lstm_layer(xw_f, wh_f, lens))}
+        for name, (dirs, fn) in cases.items():
+            fn()  # warm-up
+            torch.cuda.synchronize()
+            cuda_build.check(lib.infer_probe_read(clocks), "infer_probe_read")
+            fn()
+            torch.cuda.synchronize()
+            cuda_build.check(lib.infer_probe_read(clocks), "infer_probe_read")
+            print(json.dumps({
+                "kernel": name, "shape": f"T={t_max} B={bsz} H={h}",
+                "cluster_rows_shared_bytes": lstm_grad.cluster_geometry("infer", bsz, h, dirs),
+                "ms_with_probe": _time_ms(fn, 5),
+                "clocks_per_step": {n: round(clocks[i] / t_max)
+                                    for i, n in enumerate(INFER_PHASES)}}), flush=True)
 
-    lib = libs[("bilstm", "phases")]
-    bilstm._declare(lib)
-    lib.infer_probe_read.argtypes = [ctypes.c_void_p]
-    lib.infer_probe_read.restype = ctypes.c_int
-    cuda_build._LIBS["bilstm"] = lib
-    t_max, bsz, h = 400, 400, 128
-    clocks = (ctypes.c_longlong * 8)()
-    xw_f, xw_b = rnd(t_max, bsz, 4 * h), rnd(t_max, bsz, 4 * h)
-    wh_f, wh_b = (rnd(h, 4 * h, scale=(6 / (5 * h)) ** 0.5 / 2) for _ in range(2))
-    lens = torch.full((bsz,), t_max, dtype=torch.int32, device=dev)
-    starts = torch.zeros_like(lens)
-    cases = {"bilstm": (2, lambda: bilstm.bilstm_layer(xw_f, xw_b, wh_f, wh_b, lens, starts)),
-             "lstm_layer": (1, lambda: lstm.lstm_layer(xw_f, wh_f, lens))}
-    for name, (dirs, fn) in cases.items():
-        fn()  # warm-up
-        torch.cuda.synchronize()
-        cuda_build.check(lib.infer_probe_read(clocks), "infer_probe_read")
-        fn()
-        torch.cuda.synchronize()
-        cuda_build.check(lib.infer_probe_read(clocks), "infer_probe_read")
-        print(json.dumps({
-            "kernel": name, "shape": f"T={t_max} B={bsz} H={h}",
-            "cluster_rows_shared_bytes": lstm_grad.cluster_geometry("infer", bsz, h, dirs),
-            "ms_with_probe": _time_ms(fn, 5),
-            "clocks_per_step": {n: round(clocks[i] / t_max)
-                                for i, n in enumerate(INFER_PHASES)}}), flush=True)
+    if "beam" in parts:
+        lib = libs[("beam", "phases")]
+        beam._declare(lib)
+        lib.beam_probe_read.argtypes = [ctypes.c_void_p]
+        lib.beam_probe_read.restype = ctypes.c_int
+        cuda_build._LIBS["beam"] = lib
+        t_max, bsz, ncls = 400, 400, 5
+        clocks = (ctypes.c_longlong * 8)()
+        lp = torch.log_softmax(rnd(bsz, t_max, ncls, scale=2.0), -1)
+        lens = torch.full((bsz,), t_max, dtype=torch.int32, device=dev)
+        for width in (30, 100):
+            def fn():
+                return beam.beam_search(lp, lens, width, 0.6)
+            fn()  # warm-up
+            torch.cuda.synchronize()
+            cuda_build.check(lib.beam_probe_read(clocks), "beam_probe_read")
+            fn()
+            torch.cuda.synchronize()
+            cuda_build.check(lib.beam_probe_read(clocks), "beam_probe_read")
+            print(json.dumps({
+                "kernel": "beam_search", "shape": f"T={t_max} B={bsz} C={ncls} W={width}",
+                "ms_with_probe": _time_ms(fn, 5),
+                "clocks_per_step": {n: round(clocks[i] / t_max)
+                                    for i, n in enumerate(BEAM_PHASES)}}), flush=True)
 
 
 if __name__ == "__main__":

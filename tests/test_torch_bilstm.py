@@ -175,3 +175,52 @@ def test_inference_geometry_fits_the_card(bsz, h_dim, dirs):
         # where 8 would need 200 blocks, two waves
         assert cluster == 2 and tiles * dirs * cluster <= 132
         assert (bsz, dirs) != (400, 2) or rows == 13
+
+
+@pytest.mark.parametrize("dirs", [1, 2])
+@pytest.mark.parametrize("h_dim", [257, 384, 512])
+@pytest.mark.parametrize("bsz", [1, 301, 400])
+def test_wide_inference_geometry_fits_the_card(bsz, h_dim, dirs):
+    """Past H = 256 the inference kernel reads wh from device memory where no
+    cluster holds it (``weight_args`` lays it out), at most 64 units a block."""
+    cluster, rows, smem = tlg.cluster_geometry("infer", bsz, h_dim, dirs)
+    resident = tlg.weights_resident("infer", h_dim, cluster, rows, smem)
+    assert cluster in (1, 2, 4, 8) and 1 <= rows <= tlg.MAX_ROWS
+    assert smem == tlg.infer_smem_bytes(h_dim, cluster, rows, resident) <= tlg.MAX_SHARED_BYTES
+    hs = -(-h_dim // cluster)
+    assert (cluster - 1) * hs < h_dim <= cluster * hs
+    assert 4 * hs <= 256 and rows * hs <= 4 * 256
+    tiles = -(-bsz // rows)
+    assert (tiles - 1) * rows < bsz <= tiles * rows
+    assert h_dim == 257 or not resident
+    whs, wh_global = tbl.weight_args([torch.zeros(h_dim, 4 * h_dim)], h_dim, (cluster, rows, smem))
+    assert wh_global == int(not resident)
+    h4 = -(-h_dim // 4) * 4
+    assert tuple(whs[0].shape) == ((h_dim, 4 * h_dim) if resident else (cluster, h4, 4, hs))
+
+
+def test_apply_model_dna_default_at_hidden_384_matches_jax():
+    """DNA_default's model.json (dna_model1, 3 BiLSTM layers) at hidden_num
+    384, seeded JAX weights: the port on the CPU against the JAX package,
+    within 5e-4 of max |logit| (the batch-stat convs' sum order)."""
+    import os
+
+    import jax
+
+    from chiron_tpu.models import model as jmodel
+    from chiron_tpu_torch import config as tconfig
+    from chiron_tpu_torch.params import from_jax_params
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    config = tconfig.read_config(os.path.join(repo, "chiron_tpu", "model", "DNA_default",
+                                              "model.json"))
+    config = {**config, "rnn": {**config["rnn"], "hidden_num": 384}}
+    params = jmodel.init_model(jax.random.PRNGKey(6), config)
+    seg = 40
+    x = np.random.RandomState(6).randn(3, seg).astype(np.float32)
+    seq_len = np.array([seg, seg - 7, 3], np.int32)
+    want = np.asarray(jmodel.apply_model(params, config, jnp.asarray(x), jnp.asarray(seq_len)))
+    model = from_jax_params(jax.tree_util.tree_map(np.asarray, params), config, "cpu")
+    got = model(torch.tensor(x), torch.tensor(seq_len)).numpy()
+    assert got.shape == want.shape and want.shape[-1] == 5
+    np.testing.assert_allclose(got, want, atol=5e-4 * np.abs(want).max(), rtol=0)

@@ -17,7 +17,12 @@ single LSTM direction and the GRU kernels 1e-5; the BNLSTM kernels 1e-4 (each
 step's rsqrt(var + 1e-5) amplifies the sum-order residue) and bit-identical
 from run to run. The LSTM kernels (inference, fused and single, and the
 training forward and backward) are also held at dna-pre's batch edges
-(B = 1, 300, 301, 400) and must be bit-identical from run to run.
+(B = 1, 300, 301, 400) and must be bit-identical from run to run. Every
+recurrent kernel is also held at H = 384 and 512, where no cluster holds the
+recurrent weights (the LSTM kernels' device-memory variant; the GRU's
+1024-thread instance; the BNLSTM walking two gate columns a thread), and the
+beam search at widths past one warp (65, 100, 256) and at 10 classes (the
+block kernel), each bit-identical from run to run.
 """
 
 import numpy as np
@@ -82,7 +87,8 @@ def test_conv_bn_kernel_matches_plain(cuda, k, stride, t, c_in, c_out, n_terms,
 # row, and both directions of a dna-pre batch (B = 400: 13 rows a tile, one wave)
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,t,b", [(16, 30, 11), (100, 30, 11), (128, 30, 11), (256, 30, 11),
-                                   (128, 30, 1), (128, 40, 400), (100, 40, 301)])
+                                   (128, 30, 1), (128, 40, 400), (100, 40, 301), (384, 30, 64),
+                                   (512, 30, 301), (512, 30, 1)])
 def test_bilstm_kernel_matches_plain(cuda, h, t, b):
     rng = np.random.RandomState(h + b)
     to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
@@ -114,7 +120,8 @@ def _lengths(rng, t, b, full=1):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,b", [(16, 11), (100, 11), (128, 11), (256, 11), (128, 1),
-                                 (128, 301), (128, 400), (100, 400), (256, 301)])
+                                 (128, 301), (128, 400), (100, 400), (256, 301), (384, 64),
+                                 (512, 301), (512, 1)])
 def test_lstm_layer_kernel_matches_plain(cuda, h, b):
     rng = np.random.RandomState(200 + h + b)
     t = 30
@@ -143,7 +150,7 @@ def test_lstm_layer_kernel_matches_plain(cuda, h, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h", [16, 100, 128, 256])
+@pytest.mark.parametrize("h", [16, 100, 128, 256, 384, 512])
 def test_gru_kernels_match_plain(cuda, h):
     rng = np.random.RandomState(300 + h)
     t, b = 30, 11
@@ -182,6 +189,7 @@ def _bn_weights(rng, h, to):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,t,b", [(16, 30, 19), (100, 30, 19), (128, 30, 19), (256, 12, 19),
+                                   (384, 12, 19), (512, 12, 19),
                                    (64, 8, 2500)])  # the last needs larger row tiles
 def test_bnlstm_kernels_match_plain(cuda, h, t, b):
     rng = np.random.RandomState(400 + h)
@@ -217,7 +225,8 @@ def test_bnlstm_kernels_match_plain(cuda, h, t, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,b", [(16, 19), (100, 19), (128, 19), (256, 19), (128, 1), (128, 24),
-                                 (7, 5), (128, 300), (128, 301), (100, 300), (256, 300)])
+                                 (7, 5), (128, 300), (128, 301), (100, 300), (256, 300),
+                                 (384, 64), (512, 301), (512, 1)])
 def test_lstm_grad_kernels_match_plain(cuda, h, b):
     rng = np.random.RandomState(100 + h)
     t = 37
@@ -261,7 +270,10 @@ def test_lstm_grad_kernels_match_plain(cuda, h, b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed,w,nclass,bonus", [(0, 8, 5, 0.0), (1, 30, 5, 0.6),
                                                  (2, 50, 5, 0.0), (3, 8, 6, 0.7),
-                                                 (4, 64, 8, 1.5)])
+                                                 (4, 64, 8, 1.5), (5, 65, 5, 0.6),
+                                                 (6, 100, 5, 0.0), (7, 256, 5, 0.6),
+                                                 (8, 30, 10, 0.6), (9, 32, 8, 0.0),
+                                                 (10, 1, 2, 0.0), (11, 17, 3, 0.6)])
 def test_beam_kernels_match_plain(cuda, seed, w, nclass, bonus):
     rng = np.random.RandomState(seed)
     b, t = 9, 40
@@ -272,9 +284,11 @@ def test_beam_kernels_match_plain(cuda, seed, w, nclass, bonus):
     sl = torch.tensor(lens, device=cuda)
     got = tbeam.beam_search(lp, sl, w, bonus)
     want = tbeam.beam_search_plain(lp, sl, w, bonus)
+    again = tbeam.beam_search(lp, sl, w, bonus)
     best = torch.argmax(tbeam._lae(*got[1:]), dim=1).to(torch.int32)
     chars = tbeam.beam_traceback(got[0], best)
     torch.cuda.synchronize()
+    assert all(torch.equal(a, g) for a, g in zip(again, got)), "differs between runs"
     np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
     for g, r in zip(got[1:], want[1:]):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=1e-4, atol=1e-4)
@@ -284,6 +298,27 @@ def test_beam_kernels_match_plain(cuda, seed, w, nclass, bonus):
     dc = tbeam.beam_search_decode(torch.tensor(logits), torch.tensor(lens), w, bonus)
     np.testing.assert_array_equal(dg[0].cpu().numpy(), dc[0].numpy())
     np.testing.assert_array_equal(dg[1].cpu().numpy(), dc[1].numpy())
+
+
+# logits from {0, 1}: many candidates score exactly alike, besides the -1e30
+# sentinels of the first steps, so the warp kernel's rounds meet tied heads and
+# rerun with the pool-index tie break; the block kernel sorts the ties by index
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [8, 30, 100])
+def test_beam_kernels_exact_on_tied_scores(cuda, w):
+    rng = np.random.RandomState(w)
+    b, t = 16, 60
+    logits = rng.randint(0, 2, size=(b, t, 5)).astype(np.float32)
+    lens = rng.randint(1, t, size=b).astype(np.int32)
+    lens[0] = t
+    lp = torch.log_softmax(torch.tensor(logits, device=cuda), dim=-1)
+    sl = torch.tensor(lens, device=cuda)
+    got = tbeam.beam_search(lp, sl, w, 0.3)
+    want = tbeam.beam_search_plain(lp, sl, w, 0.3)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
+    for g, r in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda
@@ -296,14 +331,15 @@ def test_wrapper_raises_on_bad_cuda_input(cuda):
         tlg.lstm_fwd_residuals(torch.zeros(3, 2, 8, device=cuda, dtype=torch.float64),
                                torch.zeros(2, 8, device=cuda, dtype=torch.float64),
                                torch.ones(2, device=cuda, dtype=torch.int32))
-    with pytest.raises(ValueError):  # hidden above MAX_HIDDEN
+    assert tlg.MAX_HIDDEN == tlstm.MAX_HIDDEN == 512
+    with pytest.raises(ValueError):  # hidden above 512
         h = tlg.MAX_HIDDEN + 1
         tlg.lstm_fwd_residuals(torch.zeros(3, 2, 4 * h, device=cuda),
                                torch.zeros(h, 4 * h, device=cuda),
                                torch.ones(2, device=cuda, dtype=torch.int32))
     lens2 = torch.ones(2, device=cuda, dtype=torch.int32)
     h = tlstm.MAX_HIDDEN + 1
-    with pytest.raises(ValueError):  # hidden above MAX_HIDDEN
+    with pytest.raises(ValueError):  # hidden above 512
         tlstm.lstm_layer(torch.zeros(3, 2, 4 * h, device=cuda), torch.zeros(h, 4 * h, device=cuda),
                          lens2)
     with pytest.raises(ValueError):
@@ -313,7 +349,7 @@ def test_wrapper_raises_on_bad_cuda_input(cuda):
         tbn.bnlstm_layer(torch.zeros(3, 2, 32, device=cuda), torch.zeros(8, 32, device=cuda),
                          *[torch.zeros(32, device=cuda)] * 3, *[torch.zeros(8, device=cuda)] * 2,
                          lens2.cpu())
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError):  # a pool no block's shared memory holds (W <= 1638 at C = 5)
         tbeam.beam_search(torch.zeros(2, 5, 5, device=cuda), torch.zeros(2, device=cuda,
                                                                           dtype=torch.int32),
-                          beam_width=65)
+                          beam_width=1639)

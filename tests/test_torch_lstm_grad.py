@@ -158,3 +158,75 @@ def test_bwd_geometry_fits_the_card(bsz, h_dim, dirs):
     assert (tiles - 1) * rows < bsz <= tiles * rows  # every row, no empty tile
     if h_dim == 128 and bsz >= 300:
         assert cluster == 2 and tiles * dirs * cluster <= 132  # one wave of an H100's SMs
+
+
+# Past H = 256 (up to the kernels' 512): where no cluster of at most 8 blocks
+# holds a block's slice of wh (wh^T), the geometry takes the kernels'
+# device-memory variant, whose shared memory holds no weights.
+WIDE = [257, 384, 512]
+
+
+@pytest.mark.parametrize("h_dim", WIDE)
+@pytest.mark.parametrize("bsz", [1, 301, 400])
+def test_wide_fwd_geometry_fits_the_card(bsz, h_dim):
+    cluster, rows, smem = tlg.fwd_geometry(bsz, h_dim)
+    resident = tlg.weights_resident("fwd", h_dim, cluster, rows, smem)
+    assert cluster in (1, 2, 4, 8) and rows == 8
+    assert smem == tlg.fwd_smem_bytes(h_dim, cluster, resident) <= tlg.MAX_SHARED_BYTES
+    hs = -(-h_dim // cluster)
+    assert (cluster - 1) * hs < h_dim <= cluster * hs and 4 * hs <= 512
+    assert resident == (h_dim == 257)  # 257: 8 blocks of 167 KB; 384: 238 KB a slice
+
+
+@pytest.mark.parametrize("dirs", [1, 2])
+@pytest.mark.parametrize("h_dim", WIDE)
+@pytest.mark.parametrize("bsz", [1, 301, 400])
+def test_wide_bwd_geometry_fits_the_card(bsz, h_dim, dirs):
+    cluster, rows, smem = tlg.cluster_geometry("bwd", bsz, h_dim, dirs)
+    resident = tlg.weights_resident("bwd", h_dim, cluster, rows, smem)
+    assert cluster in (1, 2, 4, 8) and 1 <= rows <= tlg.MAX_ROWS
+    assert smem == tlg.bwd_smem_bytes(h_dim, cluster, rows, resident) <= tlg.MAX_SHARED_BYTES
+    hs = -(-h_dim // cluster)
+    assert (cluster - 1) * hs < h_dim <= cluster * hs
+    assert 4 * hs <= 256 and rows * hs <= 4 * 256
+    tiles = -(-bsz // rows)
+    assert (tiles - 1) * rows < bsz <= tiles * rows
+    assert resident == (tlg.bwd_smem_bytes(h_dim, cluster, rows) <= tlg.MAX_SHARED_BYTES)
+    if h_dim >= 384:
+        assert not resident  # no cluster of 8 holds 4 x 384 x 48 floats a block
+
+
+def test_limit_past_512_names_the_kernel():
+    for kind, name in (("infer", "lstm_infer_kernel"), ("bwd", "lstm_bwd_kernel")):
+        with pytest.raises(ValueError, match=name):
+            tlg.cluster_geometry(kind, 64, 513)
+    with pytest.raises(ValueError, match="512"):
+        tlg._cuda_shape_ok("lstm_bwd", 3, 2, 513)
+
+
+def _kernel_slice(wh, cluster, rank, transposed):
+    """The block's slice as the resident kernels load it into shared memory
+    (csrc/lstm_grad.cu, csrc/bilstm.cu), zero where k or the unit is padding."""
+    h_dim = wh.shape[0]
+    hs, h4 = -(-h_dim // cluster), -(-h_dim // 4) * 4
+    u0 = rank * hs
+    out = np.zeros((4, h4, hs) if transposed else (h4, 4 * hs), np.float32)
+    wh_t = wh.T
+    for k in range(h_dim):
+        for gate in range(4):
+            for u in range(min(hs, h_dim - u0)):
+                if transposed:  # ws[(q * HP + k) * HS + u] = wh_t[(q * H + k) * H + u0 + u]
+                    out[gate, k, u] = wh_t[gate * h_dim + k, u0 + u]
+                else:  # ws[k * LC + gate * HS + u] = wh[k * G + gate * H + u0 + u]
+                    out[k, gate * hs + u] = wh[k, gate * h_dim + u0 + u]
+    return out
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("h_dim,cluster", [(7, 4), (10, 2), (21, 8)])
+def test_wh_slices_lie_as_in_shared_memory(h_dim, cluster, transposed):
+    wh = np.random.RandomState(h_dim).randn(h_dim, 4 * h_dim).astype(np.float32)
+    got = tlg.wh_slices(torch.tensor(wh), cluster, transposed).numpy()
+    for rank in range(cluster):
+        want = _kernel_slice(wh, cluster, rank, transposed)
+        np.testing.assert_array_equal(got[rank].reshape(want.shape), want)
