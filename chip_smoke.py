@@ -18,7 +18,10 @@ Phases (any failure exits non-zero and prints no result line):
      LSTM forward and backward also at H = 100 and 256, B = 1 and 301, each
      bit-identical across two runs and printed with its cluster geometry; the
      recurrent kernels (one LSTM direction, GRU, BNLSTM, fused and single)
-     also at a small H = 100 size, the BNLSTM bit-identical across two runs;
+     also at a small H = 100 size, the BNLSTM bit-identical across two runs
+     and fused == single, printed with the instance and geometry it takes
+     (ops/bnlstm.py:geometry: the cluster kernel at dna-pre's width, the
+     cooperative kernel where no cluster holds the shape, both driven);
      every recurrent kernel at H = 384 and 512 (T = 100, B = 1 / 64 / 301),
      where the LSTM kernels read wh from device memory; the beam search at
      W = 30 (the warp kernel; random, peaky and tied scores) and at W = 65,
@@ -46,7 +49,8 @@ Phases (any failure exits non-zero and prints no result line):
   5. time each kernel, its plain version and a PyTorch library yardstick
      with CUDA events after a warm-up (conv_bn at each dna_model1 shape,
      cuDNN with TF32 off and, as a second yardstick, on); no kernel may
-     read below its bound; the LSTM backward split into its recurrence and
+     read below its bound; the BNLSTM's cooperative instance re-timed at the
+     main path's shape beside its cluster instance; the LSTM backward split into its recurrence and
      its dwh pass; the recurrent kernels at H = 384 / 512 and the beam search
      at W = 65 / 100; the whole call in bases/s, and a warm train step split
      into forward / loss / backward / update;
@@ -196,7 +200,8 @@ def main(out_dir=OUT_DIR):
                     k in line for k in ("conv_bn_mma_kernel", "conv_bn_direct_kernel",
                                         "lstm_fwd_kernel", "lstm_infer_kernel",
                                         "lstm_bwd_kernel", "beam_warp_kernel",
-                                        "beam_block_kernel", "beam_traceback_kernel")):
+                                        "beam_block_kernel", "beam_traceback_kernel",
+                                        "bnlstm_cluster_kernel")):
                 if "0 bytes spill stores, 0 bytes spill loads" not in lines[i + 2]:
                     fail(f"{name}: a redesigned kernel spills registers: {lines[i + 2].strip()}")
 
@@ -448,6 +453,8 @@ def main(out_dir=OUT_DIR):
         ws = (6 / (5 * hid)) ** 0.5 / 2
         ln = torch.randint(0, t + 1, (b,), generator=gen).to(torch.int32)
         ln[0], ln[1:9] = 0, t
+        if b == 1:  # a single row: a full one
+            ln[0] = t
         ln = ln.to(dev)
 
         def bn_weights():
@@ -462,6 +469,18 @@ def main(out_dir=OUT_DIR):
                         (rnd(hid, 2 * hid, scale=ws), rnd(hid, hid, scale=ws)),
                         (rnd(hid, 2 * hid, scale=ws), rnd(hid, hid, scale=ws))),
                 "bn": (rnd(t, b, 4 * hid), rnd(t, b, 4 * hid), bn_weights(), bn_weights())}
+
+    bn_limits = bnlstm.card_limits(dev)
+
+    def bn_route(b, hid):
+        """The BNLSTM instance and geometry a shape takes, as printed text."""
+        g = bnlstm.geometry(b, hid, 2, sms, *bn_limits)
+        if g.instance == "cooperative":
+            return (f"cooperative instance: {g.row_groups} blocks of {g.rows} rows a direction, "
+                    f"shared bytes {g.smem_bytes}")
+        return (f"cluster instance: {g.split} cluster(s) of {g.cluster} blocks a direction, each "
+                f"{g.row_groups} row groups x {g.unit_slices} unit slices, {g.rows} rows x "
+                f"{g.units} units a thread, {g.threads} threads, shared bytes {g.smem_bytes}")
 
     def recurrent_holds(tag, case):
         ln, st = case["lens"], case["starts"]
@@ -483,12 +502,17 @@ def main(out_dir=OUT_DIR):
         errs["bigru_layer"] = hold(f"bigru_layer {tag}", max_err(got, want), 1e-4)
         errs["gru_layer"] = hold(f"gru_layer {tag} (with starts)", max_err([one], want[1:]), 1e-4)
         xw_f, xw_b, w_f, w_b = case["bn"]
+        route = bnlstm.geometry(ln.shape[0], w_f[0].shape[0], 2, sms, *bn_limits).instance
+        before = bnlstm.instance_launches[route]
         got = bnlstm.bibnlstm_layer(*case["bn"], ln)
         again = bnlstm.bibnlstm_layer(*case["bn"], ln)
         one = bnlstm.bnlstm_layer(xw_f, *w_f, ln)
         want = bnlstm.bibnlstm_layer_plain(*case["bn"], ln)
         torch.cuda.synchronize()
-        errs["bibnlstm_layer"] = hold(f"bibnlstm_layer {tag}", max_err(got, want), 1e-4)
+        if bnlstm.instance_launches[route] != before + 3:
+            failures.append(f"bibnlstm_layer {tag} did not run the {route} instance")
+        errs["bibnlstm_layer"] = hold(f"bibnlstm_layer {tag} ({bn_route(ln.shape[0], w_f[0].shape[0])})",
+                                      max_err(got, want), 1e-4)
         errs["bnlstm_layer"] = hold(f"bnlstm_layer {tag}", max_err([one], want[:1]), 1e-4)
         same = all(torch.equal(a, g) for a, g in zip(again, got)) and torch.equal(one, got[0])
         log(f"  bibnlstm_layer {tag} bit-identical across two runs and to the single "
@@ -536,10 +560,13 @@ def main(out_dir=OUT_DIR):
                  float((bwd_x[1] - bwd_want[1]).abs().max()) / float(bwd_want[1].abs().max()), 1e-4)
             wide_same = wide_same and all(torch.equal(a, g) for a, g in zip(
                 [*again_x, *fwd_again, *bwd_again], [*got_x, *fwd_x, *bwd_x]))
-        for b_x in (64, 301):
+        for b_x in (1, 64, 301):
             recurrent_holds(f"T={t_w} B={b_x} H={h_x}", recurrent_inputs(t_w, b_x, h_x))
     log(f"  bilstm, lstm_fwd_residuals and lstm_bwd at H = 384 / 512 bit-identical across two "
         f"runs: {wide_same}")
+    log(f"  BNLSTM launches by instance over the holds above: {json.dumps(bnlstm.instance_launches)}")
+    if not all(bnlstm.instance_launches.values()):
+        failures.append("a BNLSTM instance was not driven: " + json.dumps(bnlstm.instance_launches))
     if not wide_same:
         failures.append("an LSTM kernel at H = 384 / 512 differs between two runs")
     if failures:
@@ -559,14 +586,15 @@ def main(out_dir=OUT_DIR):
 
     def reset():
         conv_bn.launches = bilstm.launches = lstm.launches = 0
-        for counter in (beam.launches, gru.launches, bnlstm.launches):
+        for counter in (beam.launches, gru.launches, bnlstm.launches, bnlstm.instance_launches):
             for k in counter:
                 counter[k] = 0
 
     def counts():
         return {"conv_bn": conv_bn.launches, "bilstm": bilstm.launches, **beam.launches,
                 "lstm_layer": lstm.launches,
-                **{f"{k}_layer": n for k, n in {**gru.launches, **bnlstm.launches}.items()}}
+                **{f"{k}_layer": n for k, n in {**gru.launches, **bnlstm.launches}.items()},
+                **{f"bnlstm_{k}": n for k, n in bnlstm.instance_launches.items()}}
 
     def call(out, beam_width, model=None):
         args = ["call", "-i", sig_dir, "-o", out, "-p", "dna-pre", "--sig_norm", "1",
@@ -601,7 +629,11 @@ def main(out_dir=OUT_DIR):
         return cnt
 
     def check_counts(label, cnt, want):
-        """Every count of the run must be the expected one, 0 where none is named."""
+        """Every count of the run must be the expected one, 0 where none is named.
+        Every BNLSTM layer of these runs (B = 400, H = 128) takes the cluster
+        instance."""
+        want = {"bnlstm_cluster": want.get("bibnlstm_layer", 0) + want.get("bnlstm_layer", 0),
+                **want}
         bad = {k: (n, want.get(k, 0)) for k, n in cnt.items() if n != want.get(k, 0)}
         if bad:
             fail(f"{label} run: launches (got, expected) {bad}")
@@ -1068,13 +1100,26 @@ def main(out_dir=OUT_DIR):
         timing["bnlstm_layer"] = (
             time_ms(torch, lambda: bnlstm.bnlstm_layer(bn_xw, *bn_w, rl), 5),
             time_ms(torch, lambda: bnlstm.bnlstm_layer_plain(bn_xw, *bn_w, rl), 2, 1), None)
+        # the cooperative instance at the same shape, in the same run
+        coop = bnlstm.Geometry("cooperative", 1, -(-BATCH // 8), 1, 8, 1, 4 * h,
+                               bnlstm.coop_smem_bytes(h, 8))
+        coop_ms = {
+            "bibnlstm_layer": time_ms(torch, lambda: bnlstm._launch(
+                "bibnlstm", rec_case["bn"][:2], rec_case["bn"][2:], rl, coop), 3),
+            "bnlstm_layer": time_ms(torch, lambda: bnlstm._launch(
+                "bnlstm", (bn_xw,), (bn_w,), rl, coop), 3)}
+    log(f"BNLSTM at T = B = 400, H = 128, ms: cluster instance ({bn_route(BATCH, h)}) "
+        f"{timing['bibnlstm_layer'][0]:.4f} fused / {timing['bnlstm_layer'][0]:.4f} one direction; "
+        f"cooperative instance (50 blocks of 8 rows a direction, grid barriers) "
+        f"{coop_ms['bibnlstm_layer']:.4f} / {coop_ms['bnlstm_layer']:.4f}")
 
     # the recurrent kernels past H = 256 (the PERF.md sub-rows), T = B = 400, the
     # training LSTM at B = 300, and the beam search at widths past one warp
-    wide_ms = {}
+    wide_ms, wide_act = {}, {}
     for h_x in (384, 512):
         c_x = recurrent_inputs(t_len, BATCH, h_x)
         ln_x, st_x = c_x["lens"], c_x["starts"]
+        wide_act[h_x] = float(ln_x.sum())
         xw_x, wh_x = c_x["lstm"]
         gx_x, cx_x, whg_x = c_x["gru"][2], c_x["gru"][3], c_x["gru"][5]
         xt_x, lt_x = xw_x[:, :tb].contiguous(), ln_x[:tb].contiguous()
@@ -1099,6 +1144,18 @@ def main(out_dir=OUT_DIR):
         del c_x, xw_x, gx_x, cx_x, xt_x, res_x
     log("recurrent kernels at H = 384 / 512 (T = B = 400; the training LSTM at B = 300), ms: "
         + json.dumps(wide_ms))
+    # the BNLSTM "w" rows' bounds, counted as rows 10 / 11's below (the timed
+    # inputs' lengths, T = B = 400)
+    wide_bn_bounds = {}
+    for h_x in (384, 512):
+        act_x = wide_act[h_x]
+        one_x = (act_x * (2 * h_x * 4 * h_x + 52 * h_x),
+                 4.0 * (t_len * BATCH * 4 * h_x + h_x * 4 * h_x + 14 * h_x + BATCH
+                        + t_len * BATCH * h_x))
+        wide_bn_bounds[f"H={h_x}"] = {"bnlstm_layer": bound_ms(*one_x),
+                                      "bibnlstm_layer": bound_ms(2 * one_x[0], 2 * one_x[1]),
+                                      "route": bn_route(BATCH, h_x)}
+    log("BNLSTM at H = 384 / 512 (T = B = 400), bound ms (by): " + json.dumps(wide_bn_bounds))
     log("beam_search past one warp (block kernel, B = T = 400, C = 5), ms: " + json.dumps(
         {f"W={w_x}": time_ms(torch, lambda: beam.beam_search(lp, beam_lens, w_x, bonus), 3, 1)
          for w_x in (65, 100)}))

@@ -1,9 +1,9 @@
 """Where the kernels redesigned for Hopper spend their time, on one NVIDIA GPU.
 
-    python -m chiron_tpu_torch.tools.kernel_probe [mma] [conv] [lstm] [beam]
+    python -m chiron_tpu_torch.tools.kernel_probe [mma] [conv] [lstm] [beam] [bnlstm]
 
-Builds ``csrc/conv_bn.cu``, ``csrc/lstm_grad.cu``, ``csrc/bilstm.cu`` and
-``csrc/beam.cu`` again with probe macros (the libraries the package uses are
+Builds ``csrc/conv_bn.cu``, ``csrc/lstm_grad.cu``, ``csrc/bilstm.cu``,
+``csrc/beam.cu`` and ``csrc/bnlstm.cu`` again with probe macros (the libraries the package uses are
 left alone) and prints, as JSON lines, for the parts named on the command line
 (all of them when none is named):
 
@@ -36,7 +36,22 @@ left alone) and prints, as JSON lines, for the parts named on the command line
   fetching lp (and, in the warp kernel, publishing the beams' hashes),
   computing the stay and extend values, matching the extends' hashes against
   the stays', merging and keying the candidates, selecting the top W, and
-  updating the state and storing the trace.
+  updating the state and storing the trace;
+- the BNLSTM recurrence (``-DBNLSTM_PROBE``) at T = B = 400, H = 128, both
+  directions (bibnlstm_layer) and one (bnlstm_layer), on seeded inputs with
+  chip_smoke's lengths: the clocks per step that thread 0 of block 0 spends
+  in each phase, for the cooperative instance (the product,
+  the BN_h tile moments, grid barrier 1, the BN_h combine and the gates, c'
+  and its tile moments, grid barrier 2, the BN_c combine, h' and the
+  stores) and for the cluster instance at the geometry ``ops/bnlstm.py``
+  chooses (the start of the copies of xw[t], the wait for the peers' h, the
+  product, the BN_h block moments, cluster barrier 1, the BN_h combine, the
+  gates, c' and the BN_c block moments, cluster barrier 2, the BN_c combine,
+  h' and the h copies; with two clusters a direction, the two combines'
+  exchanges through device memory apart), with the device time of the
+  xw-moments pre-pass and of the recurrence (torch.profiler); then every
+  cluster geometry that fits the shape, fused, beside the cost model's
+  clocks and the card's count of co-resident clusters.
 
 Times are CUDA events over 10 launches after 2 warm-ups. The numbers on the
 design choices in the sources' notes and in PERF.md come from this script.
@@ -52,7 +67,7 @@ import sys
 
 import torch
 
-from chiron_tpu_torch.ops import beam, bilstm, conv_bn, cuda_build, lstm, lstm_grad
+from chiron_tpu_torch.ops import beam, bilstm, bnlstm, conv_bn, cuda_build, lstm, lstm_grad
 
 SEED = 0
 CONV_VARIANTS = {"shipped": [], "mma_loop_alone": ["-DCONV_PROBE_NO_STAGING"],
@@ -65,7 +80,17 @@ INFER_PHASES = ("product", "prefetch_start_and_block_barrier", "gate_stage_and_h
 # slots 8-14 of lstm_grad.cu's clocks
 BEAM_PHASES = ("lp_fetch", "stay_and_extend", "hash_match", "merge_and_keys", "top_w",
                "state_update_and_trace_store")
-PARTS = ("mma", "conv", "lstm", "beam")
+PARTS = ("mma", "conv", "lstm", "beam", "bnlstm")
+COOP_PHASES = ("product", "bn_h_tile_moments", "barrier_1", "bn_h_combine_and_gates",
+               "c_and_tile_moments", "barrier_2", "bn_c_combine_h_and_stores")
+# slots 8-15 of bnlstm.cu's clocks
+CLUSTER_PHASES = ("product", "bn_h_block_moments", "cluster_barrier_1",
+                  "bn_h_combine_gates_c_and_bn_c_block_moments", "cluster_barrier_2",
+                  "bn_c_combine_h_and_h_copies", "wait_for_peers_h", "xw_copy_start")
+# slots 16-19: with a direction over several clusters, the parts of the two
+# combines above spent on the cluster's row groups and on the exchange
+SPLIT_PHASES = ("bn_h_cluster_combine", "bn_h_exchange_between_clusters",
+                "bn_c_cluster_combine", "bn_c_exchange_between_clusters")
 BWD_PHASES = ("gate_gradients", "prefetch_start", "da_exchange", "arrive_and_dxw_stores",
               "cluster_wait", "product", "residual_wait_and_block_barrier")
 
@@ -111,6 +136,8 @@ def main(argv=None):
         builds[("bilstm", "phases")] = _start_build("bilstm", "phases", ["-DLSTM_PROBE"])
     if "beam" in parts:
         builds[("beam", "phases")] = _start_build("beam", "phases", ["-DBEAM_PROBE"])
+    if "bnlstm" in parts:
+        builds[("bnlstm", "phases")] = _start_build("bnlstm", "phases", ["-DBNLSTM_PROBE"])
     if "mma" in parts:
         builds[("mma_rate", "")] = _start_build("mma_rate", "", [],
                                                 os.path.dirname(os.path.abspath(__file__)))
@@ -271,6 +298,93 @@ def main(argv=None):
                 "ms_with_probe": _time_ms(fn, 5),
                 "clocks_per_step": {n: round(clocks[i] / t_max)
                                     for i, n in enumerate(BEAM_PHASES)}}), flush=True)
+
+    if "bnlstm" in parts:
+        _probe_bnlstm(libs[("bnlstm", "phases")], rnd, dev)
+
+
+def _device_ms(fn, names, reps=3):
+    """Device ms per call of the kernels whose names contain each of ``names``
+    (torch.profiler; mean over the events it recorded)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        for n in names:
+            if n in ev.key:
+                out[n] = out.get(n, 0.0) + ev.self_device_time_total / ev.count / 1e3
+    return out
+
+
+def _probe_bnlstm(lib, rnd, dev):
+    bnlstm._declare(lib)
+    lib.bnlstm_probe_read.argtypes = [ctypes.c_void_p]
+    lib.bnlstm_probe_read.restype = ctypes.c_int
+    cuda_build._LIBS["bnlstm"] = lib
+    t_max, bsz, h = 400, 400, 128
+    clocks = (ctypes.c_longlong * 24)()
+    gen = torch.Generator().manual_seed(SEED + 1)
+    lens = torch.randint(0, t_max + 1, (bsz,), generator=gen).to(torch.int32)
+    lens[0], lens[1:9] = 0, t_max
+    lens = lens.to(dev)
+    ws = (6 / (5 * h)) ** 0.5
+
+    def weights():
+        return (rnd(h, 4 * h, scale=ws), rnd(4 * h, scale=0.1),
+                0.1 + 0.2 * torch.rand(4 * h, generator=gen).to(dev),
+                0.1 + 0.2 * torch.rand(4 * h, generator=gen).to(dev),
+                0.1 + 0.2 * torch.rand(h, generator=gen).to(dev), rnd(h, scale=0.1))
+
+    xws, ws_ = (rnd(t_max, bsz, 4 * h), rnd(t_max, bsz, 4 * h)), (weights(), weights())
+    max_cluster, max_split = bnlstm.card_limits(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    coop = bnlstm.Geometry("cooperative", 1, -(-bsz // 8), 1, 8, 1, 512,
+                           bnlstm.coop_smem_bytes(h, 8))
+    phases_of = {"cooperative": (0, COOP_PHASES), "cluster": (8, CLUSTER_PHASES + SPLIT_PHASES)}
+    for instance, geom in (("cooperative", coop),
+                           ("cluster", bnlstm.geometry(bsz, h, 2, sms, max_cluster, max_split))):
+        slots, phases = phases_of[instance]
+        for name, dirs in (("bibnlstm_layer", 2), ("bnlstm_layer", 1)):
+            entry = name.split("_")[0]
+
+            def fn():
+                return bnlstm._launch(entry, xws[:dirs], ws_[:dirs], lens, geom)
+            fn()  # warm-up
+            torch.cuda.synchronize()
+            cuda_build.check(lib.bnlstm_probe_read(clocks), "bnlstm_probe_read")
+            fn()
+            torch.cuda.synchronize()
+            cuda_build.check(lib.bnlstm_probe_read(clocks), "bnlstm_probe_read")
+            print(json.dumps({
+                "kernel": name, "instance": instance, "shape": f"T={t_max} B={bsz} H={h}",
+                "geometry": geom._asdict(), "ms_with_probe": _time_ms(fn, 5),
+                "device_ms": _device_ms(fn, ("bnlstm_xmoments_kernel", "bnlstm_kernel",
+                                             "bnlstm_cluster_kernel")),
+                "clocks_per_step": {n: round(clocks[slots + i] / t_max)
+                                    for i, n in enumerate(phases)}}), flush=True)
+    # every cluster geometry that fits this shape, fused, with the modelled cost
+    # that chose among them and the card's count of co-resident clusters
+    for cost, *shape in bnlstm.cluster_candidates(bsz, h, max_cluster, max_split):
+        geom = bnlstm.Geometry("cluster", *shape)
+        active = ctypes.c_int(0)
+        cuda_build.check(lib.bnlstm_active_clusters(geom.cluster, geom.rows, geom.units,
+                                                    geom.threads, geom.smem_bytes,
+                                                    ctypes.byref(active)), "active_clusters")
+        cuda_build.check(lib.bnlstm_probe_read(clocks), "bnlstm_probe_read")
+        bnlstm._launch("bibnlstm", xws, ws_, lens, geom)
+        torch.cuda.synchronize()
+        cuda_build.check(lib.bnlstm_probe_read(clocks), "bnlstm_probe_read")
+        print(json.dumps({
+            "kernel": "bibnlstm_layer", "instance": "cluster", "shape": f"T={t_max} B={bsz} H={h}",
+            "geometry": geom._asdict(), "modelled_clocks_per_step": cost,
+            "co_resident_clusters": active.value,
+            "clocks_per_step": {n: round(clocks[8 + i] / t_max)
+                                for i, n in enumerate(CLUSTER_PHASES + SPLIT_PHASES)},
+            "ms_with_probe": _time_ms(lambda: bnlstm._launch("bibnlstm", xws, ws_, lens, geom),
+                                      3)}), flush=True)
 
 
 if __name__ == "__main__":

@@ -158,3 +158,100 @@ def test_wrappers_reject_bad_inputs():
         tbn.bnlstm_layer(xw, *w[:4], w[4][:8], w[5], lens)
     with pytest.raises(ValueError):
         tbn.bibnlstm_layer(xw, xw, w, w[:5], lens)
+
+
+# ---- the card's geometry (ops/bnlstm.py:geometry), pure Python ----------------
+
+# (B, H) -> (clusters a direction, cluster, row groups, unit slices) of the
+# cluster instance wherever clusters' shared memory holds wh and the rows,
+# else _C: the cooperative kernel. 1000 rows are past every cluster at H >=
+# 128, 2000 rows at H = 100.
+_C = "cooperative"
+_GEOMETRY_CASES = {
+    (1, 100): (1, 8, 1, 8), (1, 128): (1, 8, 1, 8), (1, 256): (1, 16, 1, 16),
+    (1, 384): (1, 16, 1, 16), (1, 512): _C,
+    (11, 100): (1, 8, 1, 8), (11, 128): (1, 8, 1, 8), (11, 256): (1, 16, 1, 16),
+    (11, 384): (1, 16, 1, 16), (11, 512): _C,
+    (64, 100): (1, 16, 4, 4), (64, 128): (1, 16, 4, 4), (64, 256): (2, 16, 2, 8), (64, 384): _C,
+    (64, 512): _C,
+    (300, 100): (2, 16, 4, 4), (300, 128): (2, 16, 4, 4), (300, 256): _C, (300, 384): _C,
+    (300, 512): _C,
+    (301, 100): (2, 16, 4, 4), (301, 128): (2, 16, 4, 4), (301, 256): _C, (301, 384): _C,
+    (301, 512): _C,
+    (400, 100): (2, 16, 4, 4), (400, 128): (2, 16, 4, 4), (400, 256): _C, (400, 384): _C,
+    (400, 512): _C,
+    (1000, 100): (2, 16, 8, 2), (1000, 128): _C, (1000, 256): _C, (1000, 384): _C,
+    (1000, 512): _C,
+    (2000, 100): _C, (2000, 128): _C, (2000, 256): _C,
+}
+
+
+@pytest.mark.parametrize("dirs", [1, 2])
+@pytest.mark.parametrize("bsz,h", sorted(_GEOMETRY_CASES))
+def test_geometry_routes_and_fits(bsz, h, dirs):
+    g = tbn.geometry(bsz, h, dirs)
+    want = _GEOMETRY_CASES[(bsz, h)]
+    if want == _C:
+        assert g.instance == "cooperative" and g.cluster == g.unit_slices == g.units == 1
+    else:
+        assert g.instance == "cluster" and (g.split, g.cluster, g.row_groups, g.unit_slices) == want
+    assert g.smem_bytes <= tbn.MAX_SHARED_BYTES and 1 <= g.cluster <= tbn.MAX_CLUSTER
+    assert g.threads % 32 == 0 and g.threads <= 1024
+    if g.instance == "cluster":
+        assert g.row_groups * g.unit_slices == g.cluster
+        assert (g.rows, g.units) in ((4, 1), (8, 1), (8, 2))
+        assert g.threads <= tbn.cluster_max_threads(g.rows, g.units)
+        assert g.smem_bytes == tbn.cluster_smem_bytes(bsz, h, g.row_groups, g.unit_slices,
+                                                      g.rows, g.units, g.split)
+        # a direction over several clusters combines row groups in each
+        assert g.split in (1, 2) and (g.split == 1 or g.row_groups >= 2)
+        # every row and hidden unit has a block, and no block is empty
+        groups = g.row_groups * g.split
+        rb, hs = -(-bsz // groups), -(-h // g.unit_slices)
+        assert rb * groups >= bsz > rb * (groups - 1)
+        assert hs * g.unit_slices >= h > hs * (g.unit_slices - 1)
+        # each direction is its own cluster: the fused layer is two single ones
+        assert tbn.geometry(bsz, h, 3 - dirs) == g
+    else:
+        # the smallest row tile whose grid is resident at one block an SM
+        fits = [r for r in (8, 16, 32, 64)
+                if -(-bsz // r) * dirs <= 132 and tbn.coop_smem_bytes(h, r) <= 232448]
+        assert g.rows == fits[0] and g.row_groups == -(-bsz // g.rows)
+        assert g.smem_bytes == tbn.coop_smem_bytes(h, g.rows)
+
+
+def test_geometry_of_the_main_path():
+    # dna-pre's BNLSTM layer: 2 clusters of 16 per direction, each 4 row groups
+    # of 50 rows x 4 slices of 32 units, a thread 8 rows x 1 unit
+    g = tbn.geometry(400, 128, 2)
+    assert g == tbn.Geometry("cluster", 16, 4, 4, 8, 1, 224, g.smem_bytes, 2)
+    assert g.smem_bytes <= tbn.MAX_SHARED_BYTES
+    # the cheapest candidate by the model fitted to the probe's clocks
+    assert tbn.cluster_candidates(400, 128)[0][1:] == (16, 4, 4, 8, 1, 224, g.smem_bytes, 2)
+    # a card without clusters of 16 takes 8 (the largest portable size), one
+    # that holds too few clusters at once keeps a direction in one cluster
+    g8 = tbn.geometry(400, 128, 2, max_cluster=8)
+    assert g8.instance == "cooperative" or g8.cluster <= 8
+    assert tbn.geometry(400, 128, 2, max_split=1).split == 1
+
+
+@pytest.mark.parametrize("h", [1, 7, 16, 63, 100, 128, 200, 256, 333, 384, 470, 511, 512])
+def test_geometry_gives_every_width_an_instance(h):
+    for bsz in (1, 2, 11, 64, 128, 300, 400, 1000):
+        for dirs in (1, 2):
+            g = tbn.geometry(bsz, h, dirs)
+            assert g.smem_bytes <= tbn.MAX_SHARED_BYTES and g.cluster <= tbn.MAX_CLUSTER
+
+
+def test_geometry_raises_past_both_instances():
+    with pytest.raises(ValueError):  # 5000 rows at H = 512: no cluster, no co-resident grid
+        tbn.geometry(5000, 512, 2)
+
+
+def test_cluster_candidates_are_sorted_and_fit():
+    cands = tbn.cluster_candidates(400, 128)
+    assert cands and cands == sorted(cands)
+    for cost, cluster, rg, us, rows, units, threads, smem, split in cands:
+        assert cost == tbn.cluster_step_cost(400, 128, rg, us, rows, units, split)
+        assert smem <= tbn.MAX_SHARED_BYTES and threads <= tbn.cluster_max_threads(rows, units)
+        assert rg * us == cluster and split in (1, 2)

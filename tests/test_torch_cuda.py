@@ -14,8 +14,9 @@ carries the sum-order residue of every step), 1e-4 for its dxw and 1e-4 of max |
 T*B rows); the beam search is exact (trace, decodes) with log masses within
 1e-4. The training LSTM's dwh must be bit-identical from run to run. The
 single LSTM direction and the GRU kernels 1e-5; the BNLSTM kernels 1e-4 (each
-step's rsqrt(var + 1e-5) amplifies the sum-order residue) and bit-identical
-from run to run. The LSTM kernels (inference, fused and single, and the
+step's rsqrt(var + 1e-5) amplifies the sum-order residue), each of its two
+instances (the cluster kernel and the cooperative one) at shapes that take
+it, bit-identical from run to run. The LSTM kernels (inference, fused and single, and the
 training forward and backward) are also held at dna-pre's batch edges
 (B = 1, 300, 301, 400) and must be bit-identical from run to run. Every
 recurrent kernel is also held at H = 384 and 512, where no cluster holds the
@@ -187,10 +188,14 @@ def _bn_weights(rng, h, to):
             to((0.1 + rng.rand(h) * 0.2).astype(f32)), to((rng.randn(h) * 0.1).astype(f32)))
 
 
+# (h, t, b): the cluster instance (H <= 384 at these batches; B = 400 and 301
+# at dna-pre's width are two clusters of 16 a direction, each 4 row groups x 4
+# unit slices) and the cooperative kernel where no cluster holds the shape
+# (H = 512; 2500 rows)
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,t,b", [(16, 30, 19), (100, 30, 19), (128, 30, 19), (256, 12, 19),
-                                   (384, 12, 19), (512, 12, 19),
-                                   (64, 8, 2500)])  # the last needs larger row tiles
+                                   (384, 12, 19), (512, 12, 19), (128, 40, 400), (100, 30, 301),
+                                   (64, 8, 2500)])
 def test_bnlstm_kernels_match_plain(cuda, h, t, b):
     rng = np.random.RandomState(400 + h)
     to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
@@ -198,9 +203,11 @@ def test_bnlstm_kernels_match_plain(cuda, h, t, b):
     w_f, w_b = _bn_weights(rng, h, to), _bn_weights(rng, h, to)
     # eight full rows keep each step's variances well above eps
     lens = to(_lengths(rng, t, b, full=8))
-    before = dict(tbn.launches)
+    geom = tbn.geometry(b, h, 2)
+    before, inst = dict(tbn.launches), dict(tbn.instance_launches)
     got_f, got_b = tbn.bibnlstm_layer(xw_f, xw_b, w_f, w_b, lens)
     assert tbn.launches["bibnlstm"] == before["bibnlstm"] + 1
+    assert tbn.instance_launches[geom.instance] == inst[geom.instance] + 1
     want_f, want_b = tbn.bibnlstm_layer_plain(xw_f, xw_b, w_f, w_b, lens)
     torch.cuda.synchronize()
     np.testing.assert_allclose(got_f.cpu().numpy(), want_f.cpu().numpy(), atol=1e-4, rtol=0)
@@ -208,19 +215,57 @@ def test_bnlstm_kernels_match_plain(cuda, h, t, b):
     # bit-stable from run to run
     again_f, again_b = tbn.bibnlstm_layer(xw_f, xw_b, w_f, w_b, lens)
     assert torch.equal(again_f, got_f) and torch.equal(again_b, got_b), "differs between runs"
-    # and equal to two single-direction launches: bit for bit where both fit
-    # the card at the same row tile (the partials are combined in tile order);
-    # at the large batch the fused grid needs larger tiles than a single one
+    # and equal to two single-direction launches: bit for bit where both take
+    # one geometry (every cluster shape; the cooperative kernel's moments are
+    # combined in tile order, and at the large batch the fused grid needs
+    # larger tiles than a single one)
     one_f = tbn.bnlstm_layer(xw_f, *w_f, lens)
     one_b = tbn.bnlstm_layer(xw_b, *w_b, lens)
     assert tbn.launches["bnlstm"] == before["bnlstm"] + 2
-    if b <= 400:
+    if tbn.geometry(b, h, 1) == geom:
         assert torch.equal(one_f, got_f) and torch.equal(one_b, got_b), "fused != single"
     else:
         np.testing.assert_allclose(one_f.cpu().numpy(), got_f.cpu().numpy(), atol=1e-5, rtol=0)
         np.testing.assert_allclose(one_b.cpu().numpy(), got_b.cpu().numpy(), atol=1e-5, rtol=0)
     zero = tbn.bnlstm_layer(xw_f, *w_f, torch.zeros_like(lens))
     assert not zero.any()
+
+
+# both instances at shapes that either can take: each against the plain
+# version, bit-stable, fused == single, exact zeros for a zero-length batch, and
+# its own launch counter
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance", ["cluster", "cooperative"])
+@pytest.mark.parametrize("h,t,b", [(128, 40, 400), (100, 30, 64), (128, 30, 11)])
+def test_bnlstm_each_instance_matches_plain(cuda, instance, h, t, b):
+    rng = np.random.RandomState(500 + h + b)
+    to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    xw_f, xw_b = (to(rng.randn(t, b, 4 * h).astype(np.float32)) for _ in range(2))
+    w_f, w_b = _bn_weights(rng, h, to), _bn_weights(rng, h, to)
+    lens = to(_lengths(rng, t, b, full=min(8, b)))
+    geom = tbn.geometry(b, h, 2)
+    if instance == "cooperative":
+        rows = 8
+        geom = tbn.Geometry("cooperative", 1, -(-b // rows), 1, rows, 1,
+                            min(-(-4 * h // 32) * 32, 1024), tbn.coop_smem_bytes(h, rows))
+    assert geom.instance == instance
+
+    def fused(lengths):
+        return tbn._launch("bibnlstm", (xw_f, xw_b), (w_f, w_b), lengths, geom)
+
+    before = dict(tbn.instance_launches)
+    got = fused(lens)
+    assert tbn.instance_launches[instance] == before[instance] + 1
+    again = fused(lens)
+    one = [tbn._launch("bnlstm", (x,), (w,), lens, geom)[0] for x, w in ((xw_f, w_f), (xw_b, w_b))]
+    want = tbn.bibnlstm_layer_plain(xw_f, xw_b, w_f, w_b, lens)
+    zero = fused(torch.zeros_like(lens))
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=1e-4, rtol=0)
+    assert all(torch.equal(a, g) for a, g in zip(again, got)), "differs between runs"
+    assert all(torch.equal(a, g) for a, g in zip(one, got)), "fused != single"
+    assert not any(z.any() for z in zero)
 
 
 @pytest.mark.cuda
