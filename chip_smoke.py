@@ -23,7 +23,12 @@ Phases (any failure exits non-zero and prints no result line):
      (ops/bnlstm.py:geometry: the cluster kernel at dna-pre's width, the
      cooperative kernel where no cluster holds the shape, both driven);
      every recurrent kernel at H = 384 and 512 (T = 100, B = 1 / 64 / 301),
-     where the LSTM kernels read wh from device memory; the beam search at
+     where the LSTM kernels read wh from device memory; the GRU at H = 16,
+     100, 128, 256, 384 and 512 and B = 1, 64, 301 and 400 (T = 30), at the
+     instance ops/gru.py chooses and with each instance forced (resident:
+     the weights in shared memory, where they fit; streamed: from device
+     memory), equal bit for bit across runs, to two single launches and to
+     each other, both instances driven; the beam search at
      W = 30 (the warp kernel; random, peaky and tied scores) and at W = 65,
      100, 256 and C = 10 (the block kernel), exact and bit-identical across
      two runs;
@@ -50,8 +55,10 @@ Phases (any failure exits non-zero and prints no result line):
      with CUDA events after a warm-up (conv_bn at each dna_model1 shape,
      cuDNN with TF32 off and, as a second yardstick, on); no kernel may
      read below its bound; the BNLSTM's cooperative instance re-timed at the
-     main path's shape beside its cluster instance; the LSTM backward split into its recurrence and
-     its dwh pass; the recurrent kernels at H = 384 / 512 and the beam search
+     main path's shape beside its cluster instance; the GRU's two instances
+     timed in turns at the main path's shape, with cuDNN's nn.GRU as a
+     same-FLOP note; the "w" rows' bounds; the LSTM backward split into its
+     recurrence and its dwh pass; the recurrent kernels at H = 384 / 512 and the beam search
      at W = 65 / 100; the whole call in bases/s, and a warm train step split
      into forward / loss / backward / update;
   6. print the per-kernel JSON line, then {"ok": true, "device": ...}.
@@ -121,6 +128,50 @@ def conv_bound(terms, w, stride, on_tensor_cores):
     if on_tensor_cores:
         return bound_ms(3 * flops, nbytes, PEAK_TF32) + ("3 x FLOP / 495 TFLOP/s TF32",)
     return bound_ms(flops, nbytes) + ("FLOP / 67 TFLOP/s float32",)
+
+
+def recurrent_bound(kind, act, t, b, h, dirs=1):
+    """A recurrent inference kernel's bound from its inputs: per active (row,
+    step) of a direction, LSTM h @ wh + ~12H gate ops, BNLSTM the LSTM's +
+    ~40H for its three normalisations (CUDA cores); GRU h @ whg and (r * h) @
+    whc as three TF32 products on the tensor cores (3xTF32) beside ~10H gate
+    ops on the CUDA cores, whichever takes longer; bytes: the input
+    projections in, the weights and vectors, lengths (and starts), h out.
+    ``act``: active (row, step) pairs of one direction."""
+    cells = t * b
+    if kind == "gru":
+        nbytes = dirs * 4.0 * (cells * 3 * h + h * 3 * h + 2 * b + cells * h)
+        t_ops = max(dirs * act * 3 * 2 * h * 3 * h / PEAK_TF32, dirs * act * 10 * h / PEAK_F32)
+        t_bytes = nbytes / PEAK_BYTES
+        return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+    one = {"lstm": (act * (2 * h * 4 * h + 12 * h),
+                    4.0 * (cells * 4 * h + h * 4 * h + 2 * b + cells * h)),
+           "bnlstm": (act * (2 * h * 4 * h + 52 * h),
+                      4.0 * (cells * 4 * h + h * 4 * h + 14 * h + b + cells * h))}[kind]
+    return bound_ms(dirs * one[0], dirs * one[1])
+
+
+def train_lstm_bounds(act, t, b, h):
+    """The training LSTM's forward and backward bounds from their inputs: per
+    active (row, step), forward h @ wh + ~12H gate ops, backward da @ wh^T and
+    h^T da (dwh) + ~20H; bytes: xw, wh and lengths in, the residuals (gates,
+    cc, hc) and out (forward), dxw and dwh (backward)."""
+    rows = t * b
+    fwd = bound_ms(act * (2 * h * 4 * h + 12 * h),
+                   4.0 * (rows * 4 * h + h * 4 * h + b + 3 * rows * h + rows * 4 * h))
+    bwd = bound_ms(act * (2 * 2 * h * 4 * h + 20 * h),
+                   4.0 * (rows * 4 * h + 3 * rows * h + h * 4 * h + b + rows * 4 * h + h * 4 * h))
+    return fwd, bwd
+
+
+def beam_bound(steps, b, t, w, c=5):
+    """The beam search's bound: per active step candidate scoring (~8 ops
+    each), the [4W x W] hash merge compare and a top-W selection of ~cand *
+    log2(cand) compares (cand = W * C); bytes: lp and lengths in, the trace
+    and pb / pnb out."""
+    cand = w * c
+    return bound_ms(steps * (8 * cand + 4 * w * w + cand * np.log2(cand)),
+                    4.0 * (b * t * c + b + b * t * w + 2 * b * w))
 
 
 def time_ms(torch, fn, reps, warm=2):
@@ -201,7 +252,7 @@ def main(out_dir=OUT_DIR):
                                         "lstm_fwd_kernel", "lstm_infer_kernel",
                                         "lstm_bwd_kernel", "beam_warp_kernel",
                                         "beam_block_kernel", "beam_traceback_kernel",
-                                        "bnlstm_cluster_kernel")):
+                                        "bnlstm_cluster_kernel", "gru_kernel")):
                 if "0 bytes spill stores, 0 bytes spill loads" not in lines[i + 2]:
                     fail(f"{name}: a redesigned kernel spills registers: {lines[i + 2].strip()}")
 
@@ -472,6 +523,13 @@ def main(out_dir=OUT_DIR):
 
     bn_limits = bnlstm.card_limits(dev)
 
+    def gru_route(b, hid, dirs):
+        """The GRU instance and geometry a shape takes, as printed text."""
+        g = gru.geometry(b, hid, dirs)
+        return (f"{g.instance} instance: {g.blocks} blocks of {gru.ROWS} rows and {g.threads} "
+                f"threads, {gru.unit_tiles(g.instance == 'resident')} tile(s) of 16 units a "
+                f"warp, shared bytes {g.smem_bytes}")
+
     def bn_route(b, hid):
         """The BNLSTM instance and geometry a shape takes, as printed text."""
         g = bnlstm.geometry(b, hid, 2, sms, *bn_limits)
@@ -499,8 +557,14 @@ def main(out_dir=OUT_DIR):
         one = gru.gru_layer(gx_b, cx_b, *wh_b, ln, st)
         want = gru.bigru_layer_plain(*case["gru"], ln, st)
         torch.cuda.synchronize()
-        errs["bigru_layer"] = hold(f"bigru_layer {tag}", max_err(got, want), 1e-4)
-        errs["gru_layer"] = hold(f"gru_layer {tag} (with starts)", max_err([one], want[1:]), 1e-4)
+        hid = wh_f[0].shape[0]
+        errs["bigru_layer"] = hold(f"bigru_layer {tag} ({gru_route(ln.shape[0], hid, 2)})",
+                                   max_err(got, want), 1e-4)
+        errs["gru_layer"] = hold(f"gru_layer {tag} (with starts; "
+                                 f"{gru_route(ln.shape[0], hid, 1)})",
+                                 max_err([one], want[1:]), 1e-4)
+        if not torch.equal(one, got[1]):
+            failures.append(f"bigru_layer {tag} differs from the single direction")
         xw_f, xw_b, w_f, w_b = case["bn"]
         route = bnlstm.geometry(ln.shape[0], w_f[0].shape[0], 2, sms, *bn_limits).instance
         before = bnlstm.instance_launches[route]
@@ -526,8 +590,8 @@ def main(out_dir=OUT_DIR):
     recurrent_holds("T=30 B=11 H=100", recurrent_inputs(30, 11, 100))
 
     # every recurrent kernel past H = 256: the LSTM kernels' device-memory
-    # variant (no cluster holds wh), the GRU's 1024-thread instance, the
-    # BNLSTM's two gate columns a thread; the tolerances above, and the LSTM
+    # variant (no cluster holds wh), the GRU's streamed instance (weights from
+    # L2), the BNLSTM's two gate columns a thread; the tolerances above, and the LSTM
     # kernels bit-identical across two runs
     wide_same = True
     t_w = 100
@@ -564,6 +628,39 @@ def main(out_dir=OUT_DIR):
             recurrent_holds(f"T={t_w} B={b_x} H={h_x}", recurrent_inputs(t_w, b_x, h_x))
     log(f"  bilstm, lstm_fwd_residuals and lstm_bwd at H = 384 / 512 bit-identical across two "
         f"runs: {wide_same}")
+    # the GRU at every width and batch edge: the instance chosen, fused (1e-4
+    # against plain) and single with starts, equal bit for bit, across runs and
+    # to each instance forced (the resident one where it fits a block); a
+    # zero-length batch exactly zero
+    gru_same = True
+    for h_x in (16, 100, 128, 256, 384, 512):
+        for b_x in (1, 64, 301, 400):
+            c_x = recurrent_inputs(30, b_x, h_x)
+            ln_x, st_x = c_x["lens"], c_x["starts"]
+            args_x = c_x["gru"]
+            got_x = gru.bigru_layer(*args_x, ln_x, st_x)
+            again_x = gru.bigru_layer(*args_x, ln_x, st_x)
+            one_x = [gru.gru_layer(args_x[0], args_x[1], *args_x[4], ln_x),
+                     gru.gru_layer(args_x[2], args_x[3], *args_x[5], ln_x, st_x)]
+            forced = [gru.geometry(b_x, h_x, 2, i) for i in gru.instances(h_x)]
+            other_x = [gru._launch("bigru", args_x[0:4:2], args_x[1:4:2], args_x[4:], ln_x, st_x,
+                                   g) for g in forced]
+            zero_x = gru.bigru_layer(*args_x, torch.zeros_like(ln_x), st_x)
+            want_x = gru.bigru_layer_plain(*args_x, ln_x, st_x)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, g) for o in [again_x, one_x, *other_x]
+                       for a, g in zip(o, got_x))
+            gru_same = gru_same and same and not any(z.any() for z in zero_x)
+            hold(f"bigru_layer T=30 B={b_x} H={h_x} ({gru_route(b_x, h_x, 2)}; single "
+                 f"{gru.geometry(b_x, h_x, 1).instance}; {len(other_x)} instances forced)",
+                 max_err(got_x, want_x), 1e-4)
+    log(f"  bigru_layer equal bit for bit across runs, to two single launches and to each "
+        f"instance forced, zero-length batches exactly zero, at every shape: {gru_same}")
+    log(f"  GRU launches by instance over the holds above: {json.dumps(gru.instance_launches)}")
+    if not gru_same:
+        failures.append("a GRU launch differs between runs, directions or instances")
+    if not all(gru.instance_launches.values()):
+        failures.append("a GRU instance was not driven: " + json.dumps(gru.instance_launches))
     log(f"  BNLSTM launches by instance over the holds above: {json.dumps(bnlstm.instance_launches)}")
     if not all(bnlstm.instance_launches.values()):
         failures.append("a BNLSTM instance was not driven: " + json.dumps(bnlstm.instance_launches))
@@ -586,7 +683,8 @@ def main(out_dir=OUT_DIR):
 
     def reset():
         conv_bn.launches = bilstm.launches = lstm.launches = 0
-        for counter in (beam.launches, gru.launches, bnlstm.launches, bnlstm.instance_launches):
+        for counter in (beam.launches, gru.launches, gru.instance_launches, bnlstm.launches,
+                        bnlstm.instance_launches):
             for k in counter:
                 counter[k] = 0
 
@@ -594,7 +692,8 @@ def main(out_dir=OUT_DIR):
         return {"conv_bn": conv_bn.launches, "bilstm": bilstm.launches, **beam.launches,
                 "lstm_layer": lstm.launches,
                 **{f"{k}_layer": n for k, n in {**gru.launches, **bnlstm.launches}.items()},
-                **{f"bnlstm_{k}": n for k, n in bnlstm.instance_launches.items()}}
+                **{f"bnlstm_{k}": n for k, n in bnlstm.instance_launches.items()},
+                **{f"gru_{k}": n for k, n in gru.instance_launches.items()}}
 
     def call(out, beam_width, model=None):
         args = ["call", "-i", sig_dir, "-o", out, "-p", "dna-pre", "--sig_norm", "1",
@@ -631,9 +730,9 @@ def main(out_dir=OUT_DIR):
     def check_counts(label, cnt, want):
         """Every count of the run must be the expected one, 0 where none is named.
         Every BNLSTM layer of these runs (B = 400, H = 128) takes the cluster
-        instance."""
+        instance, every GRU layer the resident one."""
         want = {"bnlstm_cluster": want.get("bibnlstm_layer", 0) + want.get("bnlstm_layer", 0),
-                **want}
+                "gru_resident": want.get("bigru_layer", 0) + want.get("gru_layer", 0), **want}
         bad = {k: (n, want.get(k, 0)) for k, n in cnt.items() if n != want.get(k, 0)}
         if bad:
             fail(f"{label} run: launches (got, expected) {bad}")
@@ -1094,6 +1193,30 @@ def main(out_dir=OUT_DIR):
             time_ms(torch, lambda: gru.gru_layer(gx_b, cx_b, *wh_gru_b, rl, rs), 5),
             time_ms(torch, lambda: gru.gru_layer_plain(gx_b, cx_b, *wh_gru_b, rl, rs), 2, 1),
             None)
+        # each GRU instance at the same shape, in turns (resident, streamed,
+        # streamed, resident)
+        gru_side = {"bigru_layer": {}, "gru_layer": {}}
+        gru_in = {"bigru_layer": ("bigru", rec_case["gru"][0:4:2], rec_case["gru"][1:4:2],
+                                  rec_case["gru"][4:]),
+                  "gru_layer": ("gru", (gx_b,), (cx_b,), (wh_gru_b,))}
+        gru_runs = {
+            name: {i: (lambda a, g: lambda: gru._launch(*a, rl, rs, g))(
+                gru_in[name], gru.geometry(BATCH, h, len(gru_in[name][1]), i))
+                for i in gru.INSTANCES}
+            for name in gru_in}
+        for name, runs in gru_runs.items():
+            for which in ("resident", "streamed", "streamed", "resident"):
+                gru_side[name].setdefault(which, []).append(time_ms(torch, runs[which], 5))
+        # cuDNN's bidirectional GRU at the same width (input projection included):
+        # the same FLOP of recurrence, another function (r after the product)
+        gru_lib = torch.nn.GRU(256, h, bidirectional=True).to(dev)
+        gru_cudnn_ms = time_ms(torch, lambda: gru_lib(x_lib), 5)
+    log(f"GRU at T = B = 400, H = 128, ms in turns (resident, streamed, streamed, resident): "
+        f"{json.dumps(gru_side)}; the chosen geometry fused ({gru_route(BATCH, h, 2)}) and "
+        f"single ({gru_route(BATCH, h, 1)}); cuDNN nn.GRU(256, 128, bidirectional) "
+        f"{gru_cudnn_ms:.4f} ms (r applied after the recurrent product: another function, not "
+        f"a library yardstick)")
+    with torch.no_grad():
         timing["bibnlstm_layer"] = (
             time_ms(torch, lambda: bnlstm.bibnlstm_layer(*rec_case["bn"], rl), 5),
             time_ms(torch, lambda: bnlstm.bibnlstm_layer_plain(*rec_case["bn"], rl), 2, 1), None)
@@ -1119,7 +1242,7 @@ def main(out_dir=OUT_DIR):
     for h_x in (384, 512):
         c_x = recurrent_inputs(t_len, BATCH, h_x)
         ln_x, st_x = c_x["lens"], c_x["starts"]
-        wide_act[h_x] = float(ln_x.sum())
+        wide_act[h_x] = (float(ln_x.sum()), float(ln_x[:tb].sum()))
         xw_x, wh_x = c_x["lstm"]
         gx_x, cx_x, whg_x = c_x["gru"][2], c_x["gru"][3], c_x["gru"][5]
         xt_x, lt_x = xw_x[:, :tb].contiguous(), ln_x[:tb].contiguous()
@@ -1146,19 +1269,29 @@ def main(out_dir=OUT_DIR):
         + json.dumps(wide_ms))
     # the BNLSTM "w" rows' bounds, counted as rows 10 / 11's below (the timed
     # inputs' lengths, T = B = 400)
-    wide_bn_bounds = {}
+    # the "w" rows' bounds, from the timed inputs' lengths as rows 2-11's below
+    wide_bounds = {}
     for h_x in (384, 512):
-        act_x = wide_act[h_x]
-        one_x = (act_x * (2 * h_x * 4 * h_x + 52 * h_x),
-                 4.0 * (t_len * BATCH * 4 * h_x + h_x * 4 * h_x + 14 * h_x + BATCH
-                        + t_len * BATCH * h_x))
-        wide_bn_bounds[f"H={h_x}"] = {"bnlstm_layer": bound_ms(*one_x),
-                                      "bibnlstm_layer": bound_ms(2 * one_x[0], 2 * one_x[1]),
-                                      "route": bn_route(BATCH, h_x)}
-    log("BNLSTM at H = 384 / 512 (T = B = 400), bound ms (by): " + json.dumps(wide_bn_bounds))
-    log("beam_search past one warp (block kernel, B = T = 400, C = 5), ms: " + json.dumps(
-        {f"W={w_x}": time_ms(torch, lambda: beam.beam_search(lp, beam_lens, w_x, bonus), 3, 1)
-         for w_x in (65, 100)}))
+        act_x, act_t = wide_act[h_x]
+        fwd_x, bwd_x = train_lstm_bounds(act_t, t_len, tb, h_x)
+        wide_bounds[f"H={h_x}"] = {
+            "bilstm": recurrent_bound("lstm", act_x, t_len, BATCH, h_x, 2),
+            "lstm_layer": recurrent_bound("lstm", act_x, t_len, BATCH, h_x),
+            "lstm_fwd_residuals": fwd_x, "lstm_bwd": bwd_x,
+            "bigru_layer": recurrent_bound("gru", act_x, t_len, BATCH, h_x, 2),
+            "gru_layer": recurrent_bound("gru", act_x, t_len, BATCH, h_x),
+            "bibnlstm_layer": recurrent_bound("bnlstm", act_x, t_len, BATCH, h_x, 2),
+            "bnlstm_layer": recurrent_bound("bnlstm", act_x, t_len, BATCH, h_x),
+            "gru_route": gru_route(BATCH, h_x, 2), "bnlstm_route": bn_route(BATCH, h_x)}
+    log("recurrent kernels at H = 384 / 512 (T = B = 400; the training LSTM at B = 300), "
+        "bound ms (by): " + json.dumps(wide_bounds))
+    wide_beam = {}
+    for w_x in (65, 100):
+        b_ms, b_by = beam_bound(float(beam_lens.sum()), BATCH, t_len, w_x)
+        wide_beam[f"W={w_x}"] = {
+            "ms": time_ms(torch, lambda: beam.beam_search(lp, beam_lens, w_x, bonus), 3, 1),
+            "bound_ms": b_ms, "bound_by": b_by}
+    log("beam_search past one warp (block kernel, B = T = 400, C = 5): " + json.dumps(wide_beam))
 
     res_t = lstm_grad.lstm_fwd_residuals(xw_t, wh_t, lens_t)
     lib_lstm = torch.nn.LSTM(2 * h, h).to(dev)
@@ -1193,49 +1326,20 @@ def main(out_dir=OUT_DIR):
 
     # bounds from this run's inputs (bytes: each input read once, each output
     # written once; operations: what these inputs need)
-    active = float(lens.sum())  # active (row, step) pairs per direction
-    lstm_flops = 2 * active * (2 * h * 4 * h + 12 * h)
-    lstm_bytes = 4.0 * (2 * t_len * BATCH * 4 * h + 2 * h * 4 * h + 2 * BATCH
-                        + 2 * t_len * BATCH * h)
-    steps = float(beam_lens.sum())
-    cand = BEAM * 5
-    # per active step: candidate scoring (~8 ops each), the [4W x W] hash
-    # merge compare, and a top-W selection of ~cand * log2(cand) compares
-    beam_ops = steps * (8 * cand + 4 * BEAM * BEAM + cand * np.log2(cand))
-    beam_bytes = 4.0 * (BATCH * t_len * 5 + BATCH + BATCH * t_len * BEAM + 2 * BATCH * BEAM)
-    tb_bytes = 4.0 * (BATCH + BATCH * t_len + BATCH * t_len)  # best, path reads, chars
-    # training LSTM, per active (row, step): forward h @ wh plus ~12H gate ops;
-    # backward da @ wh^T and h^T da (dwh) plus ~20H gate-gradient ops
-    active_t = float(lens_t.sum())
-    rows_t = t_len * tb
-    fwd_flops = active_t * (2 * h * 4 * h + 12 * h)
-    fwd_bytes = 4.0 * (rows_t * 4 * h + h * 4 * h + tb + 3 * rows_t * h + rows_t * 4 * h)
-    bwd_flops = active_t * (2 * 2 * h * 4 * h + 20 * h)
-    bwd_bytes = 4.0 * (rows_t * 4 * h + 3 * rows_t * h + h * 4 * h + tb + rows_t * 4 * h
-                       + h * 4 * h)
-    # the other recurrent kernels, per active (row, step) of one direction:
-    # LSTM h @ wh + ~12H gate ops; GRU h @ whg and (r * h) @ whc + ~10H; BNLSTM
-    # the LSTM's plus ~40H for the three normalisations. Bytes: the input
-    # projections in, the weights and vectors, lengths (and starts), h out.
-    act = float(rl.sum())
-    cells_tb = t_len * BATCH
-    one_lstm = (act * (2 * h * 4 * h + 12 * h),
-                4.0 * (cells_tb * 4 * h + h * 4 * h + 2 * BATCH + cells_tb * h))
-    one_gru = (act * (2 * h * 3 * h + 10 * h),
-               4.0 * (cells_tb * 3 * h + h * 3 * h + 2 * BATCH + cells_tb * h))
-    one_bn = (act * (2 * h * 4 * h + 52 * h),
-              4.0 * (cells_tb * 4 * h + h * 4 * h + 14 * h + BATCH + cells_tb * h))
-    bounds = {"lstm_layer": bound_ms(*one_lstm),
-              "bigru_layer": bound_ms(2 * one_gru[0], 2 * one_gru[1]),
-              "gru_layer": bound_ms(*one_gru),
-              "bnlstm_layer": bound_ms(*one_bn),
-              "bibnlstm_layer": bound_ms(2 * one_bn[0], 2 * one_bn[1]),
-              "lstm_fwd_residuals": bound_ms(fwd_flops, fwd_bytes),
-              "lstm_bwd": bound_ms(bwd_flops, bwd_bytes),
+    act = float(rl.sum())  # active (row, step) pairs per direction
+    bounds_fwd, bounds_bwd = train_lstm_bounds(float(lens_t.sum()), t_len, tb, h)
+    bounds = {"lstm_layer": recurrent_bound("lstm", act, t_len, BATCH, h),
+              "bigru_layer": recurrent_bound("gru", act, t_len, BATCH, h, 2),
+              "gru_layer": recurrent_bound("gru", act, t_len, BATCH, h),
+              "bnlstm_layer": recurrent_bound("bnlstm", act, t_len, BATCH, h),
+              "bibnlstm_layer": recurrent_bound("bnlstm", act, t_len, BATCH, h, 2),
+              "lstm_fwd_residuals": bounds_fwd,
+              "lstm_bwd": bounds_bwd,
               "conv_bn": (main_conv["bound_ms"], main_conv["bound_by"]),
-              "bilstm": bound_ms(lstm_flops, lstm_bytes),
-              "beam_search": bound_ms(beam_ops, beam_bytes),
-              "beam_traceback": bound_ms(BATCH * t_len, tb_bytes)}
+              "bilstm": recurrent_bound("lstm", float(lens.sum()), t_len, BATCH, h, 2),
+              "beam_search": beam_bound(float(beam_lens.sum()), BATCH, t_len, BEAM),
+              # best, path reads, chars
+              "beam_traceback": bound_ms(BATCH * t_len, 4.0 * (BATCH + 2 * BATCH * t_len))}
     meta = {
         "conv_bn": ("chiron_tpu_torch/csrc/conv_bn.cu", "chiron_tpu/ops/pallas/convbn.py:188",
                     conv_err),
@@ -1273,8 +1377,9 @@ def main(out_dir=OUT_DIR):
                         "launches": path_launches[name], "max_abs_err": err, "ms": ms,
                         "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": lib_ms})
-    log(f"  bounds: conv_bn's operations are {main_conv['bound_unit']} (tensor cores); every "
-        "other kernel's are FLOP / 67 TFLOP/s float32 (CUDA cores); bytes / 3.35 TB/s")
+    log(f"  bounds: conv_bn's operations are {main_conv['bound_unit']} (tensor cores); the "
+        "GRU's products 3 x FLOP / 495 TFLOP/s TF32 (tensor cores); every other kernel's "
+        "FLOP / 67 TFLOP/s float32 (CUDA cores); bytes / 3.35 TB/s")
     for k in kernels:
         log(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f}, bound "
             f"{k['bound_ms']:.4f} by {k['bound_by']}, library {k['library_ms']})")

@@ -1,10 +1,12 @@
 """Where the kernels redesigned for Hopper spend their time, on one NVIDIA GPU.
 
-    python -m chiron_tpu_torch.tools.kernel_probe [mma] [conv] [lstm] [beam] [bnlstm]
+    python -m chiron_tpu_torch.tools.kernel_probe [mma] [conv] [lstm] [beam] [bnlstm] [gru]
+        [gru_baseline]
 
 Builds ``csrc/conv_bn.cu``, ``csrc/lstm_grad.cu``, ``csrc/bilstm.cu``,
-``csrc/beam.cu`` and ``csrc/bnlstm.cu`` again with probe macros (the libraries the package uses are
-left alone) and prints, as JSON lines, for the parts named on the command line
+``csrc/beam.cu``, ``csrc/bnlstm.cu``, ``csrc/gru.cu`` and ``tools/gru_baseline.cu``
+again with probe macros (the libraries the package uses are left alone) and
+prints, as JSON lines, for the parts named on the command line
 (all of them when none is named):
 
 - the start rate of ``mma.sync.m16n8k8`` TF32 (``tools/mma_rate.cu``: 20
@@ -51,7 +53,20 @@ left alone) and prints, as JSON lines, for the parts named on the command line
   exchanges through device memory apart), with the device time of the
   xw-moments pre-pass and of the recurrence (torch.profiler); then every
   cluster geometry that fits the shape, fused, beside the cost model's
-  clocks and the card's count of co-resident clusters.
+  clocks and the card's count of co-resident clusters;
+- the GRU recurrence (``-DGRU_PROBE``) at T = B = 400 on seeded inputs with
+  chip_smoke's lengths, fused (bigru_layer) and one direction (gru_layer):
+  for ``gru_baseline``, the first port of the GRU kernel
+  (``tools/gru_baseline.cu``, the yardstick the package no longer launches)
+  at H = 128, the clocks per step that thread 0 of block 0 spends loading gx,
+  in the gate product, storing r * h and u, in barrier 1, loading cx, in the
+  candidate product, in the update and stores, and in barrier 2; then, built
+  without the probe slots, its time beside the package's kernel (each
+  instance) in turns; for ``gru``, ``csrc/gru.cu`` at H = 128 / 100 / 16 /
+  200 / 256 / 384 / 512 with each instance that fits (the one
+  ``ops/gru.py:geometry`` chooses marked): the gate product, the gates and
+  r * h stores, barrier 1, the issue of the next step's loads, the candidate
+  product, the update and stores, barrier 2.
 
 Times are CUDA events over 10 launches after 2 warm-ups. The numbers on the
 design choices in the sources' notes and in PERF.md come from this script.
@@ -67,9 +82,10 @@ import sys
 
 import torch
 
-from chiron_tpu_torch.ops import beam, bilstm, bnlstm, conv_bn, cuda_build, lstm, lstm_grad
+from chiron_tpu_torch.ops import beam, bilstm, bnlstm, conv_bn, cuda_build, gru, lstm, lstm_grad
 
 SEED = 0
+TOOLS = os.path.dirname(os.path.abspath(__file__))
 CONV_VARIANTS = {"shipped": [], "mma_loop_alone": ["-DCONV_PROBE_NO_STAGING"],
                  "staging_alone": ["-DCONV_PROBE_NO_MMA"],
                  "one_chain_over_k": ["-DCONV_PROBE_LONG_CHAINS"]}
@@ -80,7 +96,7 @@ INFER_PHASES = ("product", "prefetch_start_and_block_barrier", "gate_stage_and_h
 # slots 8-14 of lstm_grad.cu's clocks
 BEAM_PHASES = ("lp_fetch", "stay_and_extend", "hash_match", "merge_and_keys", "top_w",
                "state_update_and_trace_store")
-PARTS = ("mma", "conv", "lstm", "beam", "bnlstm")
+PARTS = ("mma", "conv", "lstm", "beam", "bnlstm", "gru", "gru_baseline")
 COOP_PHASES = ("product", "bn_h_tile_moments", "barrier_1", "bn_h_combine_and_gates",
                "c_and_tile_moments", "barrier_2", "bn_c_combine_h_and_stores")
 # slots 8-15 of bnlstm.cu's clocks
@@ -138,9 +154,15 @@ def main(argv=None):
         builds[("beam", "phases")] = _start_build("beam", "phases", ["-DBEAM_PROBE"])
     if "bnlstm" in parts:
         builds[("bnlstm", "phases")] = _start_build("bnlstm", "phases", ["-DBNLSTM_PROBE"])
+    if "gru" in parts:
+        builds[("gru", "phases")] = _start_build("gru", "phases", ["-DGRU_PROBE"])
+
+    if "gru_baseline" in parts:
+        builds[("gru_baseline", "phases")] = _start_build("gru_baseline", "phases",
+                                                          ["-DGRU_PROBE"], TOOLS)
+        builds[("gru_baseline", "timing")] = _start_build("gru_baseline", "timing", [], TOOLS)
     if "mma" in parts:
-        builds[("mma_rate", "")] = _start_build("mma_rate", "", [],
-                                                os.path.dirname(os.path.abspath(__file__)))
+        builds[("mma_rate", "")] = _start_build("mma_rate", "", [], TOOLS)
     libs = {}
     for key, (out, proc) in builds.items():
         text = proc.communicate()[0]
@@ -301,6 +323,11 @@ def main(argv=None):
 
     if "bnlstm" in parts:
         _probe_bnlstm(libs[("bnlstm", "phases")], rnd, dev)
+    if "gru_baseline" in parts:
+        _probe_gru_baseline(libs[("gru_baseline", "phases")], libs[("gru_baseline", "timing")],
+                            rnd, dev)
+    if "gru" in parts:
+        _probe_gru(libs[("gru", "phases")], rnd, dev)
 
 
 def _device_ms(fn, names, reps=3):
@@ -385,6 +412,138 @@ def _probe_bnlstm(lib, rnd, dev):
                                 for i, n in enumerate(CLUSTER_PHASES + SPLIT_PHASES)},
             "ms_with_probe": _time_ms(lambda: bnlstm._launch("bibnlstm", xws, ws_, lens, geom),
                                       3)}), flush=True)
+
+
+GRU_BASELINE_PHASES = ("gx_load", "gate_product", "rh_and_u_stores", "barrier_1", "cx_load",
+                  "candidate_product", "update_and_stores", "barrier_2")
+# slots 8-14 of csrc/gru.cu's clocks
+GRU_PHASES = ("gate_product", "gates_and_rh_stores", "barrier_1", "next_loads_issue",
+              "candidate_product", "update_and_stores", "barrier_2")
+
+
+class GruBaseline:
+    """The first port of the GRU kernel (``tools/gru_baseline.cu``), the
+    yardstick of ``csrc/gru.cu``: ``bigru`` and ``gru`` take the arguments of
+    ``ops/gru.py:bigru_layer`` and ``gru_layer``; ``lib`` is its built
+    library."""
+
+    def __init__(self, lib):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.baseline_bigru_launch.argtypes = [vp] * 12 + [ci] * 3 + [vp]
+        lib.baseline_bigru_launch.restype = ci
+        lib.baseline_gru_launch.argtypes = [vp] * 7 + [ci] * 3 + [vp]
+        lib.baseline_gru_launch.restype = ci
+        self.lib = lib
+
+    def bigru(self, gx_f, cx_f, gx_b, cx_b, wh_f, wh_b, lengths, starts_bw):
+        t_max, bsz, h = cx_f.shape
+        outs = [torch.empty_like(cx_f) for _ in range(2)]
+        args = [gx_f, cx_f, gx_b, cx_b, *wh_f, *wh_b, lengths, starts_bw, *outs]
+        cuda_build.check(self.lib.baseline_bigru_launch(
+            *[a.contiguous().data_ptr() for a in args], t_max, bsz, h,
+            torch.cuda.current_stream().cuda_stream), "baseline_bigru_launch")
+        return outs
+
+    def gru(self, gx, cx, whg, whc, lengths, starts=None):
+        t_max, bsz, h = cx.shape
+        out = torch.empty_like(cx)
+        args = [gx, cx, whg, whc, lengths]
+        cuda_build.check(self.lib.baseline_gru_launch(
+            *[a.contiguous().data_ptr() for a in args],
+            None if starts is None else starts.data_ptr(), out.data_ptr(), t_max, bsz, h,
+            torch.cuda.current_stream().cuda_stream), "baseline_gru_launch")
+        return out
+
+
+def _gru_case(rnd, dev, bsz, h, t_max=400):
+    """chip_smoke's GRU inputs at one shape: seeded lengths with an empty row
+    and eight full ones, starts = T - lengths."""
+    gen = torch.Generator().manual_seed(SEED + 2)
+    lens = torch.randint(0, t_max + 1, (bsz,), generator=gen).to(torch.int32)
+    lens[0], lens[1:9] = 0, t_max
+    lens = lens.to(dev)
+    ws = (6 / (5 * h)) ** 0.5 / 2
+    gx_f, cx_f, gx_b, cx_b = (rnd(t_max, bsz, n) for n in (2 * h, h, 2 * h, h))
+    wh_f, wh_b = ((rnd(h, 2 * h, scale=ws), rnd(h, h, scale=ws)) for _ in range(2))
+    return (gx_f, cx_f, gx_b, cx_b, wh_f, wh_b), lens, (t_max - lens).to(torch.int32)
+
+
+def _clock_row(lib, fn, clocks, t_max, slots, phases):
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    cuda_build.check(lib.gru_probe_read(clocks), "gru_probe_read")
+    fn()
+    torch.cuda.synchronize()
+    cuda_build.check(lib.gru_probe_read(clocks), "gru_probe_read")
+    per = {n: round(clocks[slots + i] / t_max) for i, n in enumerate(phases)}
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                                "--format=csv,noheader,nounits"], capture_output=True,
+                               text=True).stdout.split()[0])
+    return {"ms_with_probe": _time_ms(fn, 5), "sm_clock_mhz_after": mhz, "clocks_per_step": per,
+            "clocks_per_step_total": sum(per.values())}
+
+
+def _probe_gru_baseline(lib, timing_lib, rnd, dev):
+    """The baseline kernel at T = B = 400, H = 128: clocks per phase of a
+    step; then its time (built without the probe slots) beside the package's
+    kernel, each instance, in turns (baseline, resident, streamed, streamed,
+    resident, baseline), with the largest difference of each from the plain
+    version."""
+    lib.gru_probe_read.argtypes = [ctypes.c_void_p]
+    lib.gru_probe_read.restype = ctypes.c_int
+    base = GruBaseline(lib)
+    args, lens, starts = _gru_case(rnd, dev, 400, 128)
+    clocks = (ctypes.c_longlong * 16)()
+    cases = {"bigru_layer": lambda: base.bigru(*args, lens, starts),
+             "gru_layer": lambda: base.gru(args[2], args[3], *args[5], lens, starts)}
+    for name, fn in cases.items():
+        print(json.dumps({"kernel": f"{name} (the baseline kernel)", "shape": "T=400 B=400 H=128",
+                          **_clock_row(lib, fn, clocks, 400, 0, GRU_BASELINE_PHASES)}), flush=True)
+    timed = GruBaseline(timing_lib)
+    layers = {"bigru_layer": ("bigru", args[0:4:2], args[1:4:2], args[4:]),
+              "gru_layer": ("gru", (args[2],), (args[3],), (args[5],))}
+    for name, (entry, gxs, cxs, whs) in layers.items():
+        runs = {i: (lambda g: lambda: gru._launch(entry, gxs, cxs, whs, lens, starts, g))(
+            gru.geometry(400, 128, len(cxs), i)) for i in gru.INSTANCES}
+        if entry == "bigru":
+            runs["baseline"] = lambda: timed.bigru(*args, lens, starts)
+            want = gru.bigru_layer_plain(*args, lens, starts)
+        else:
+            runs["baseline"] = lambda: [timed.gru(args[2], args[3], *args[5], lens, starts)]
+            want = [gru.gru_layer_plain(args[2], args[3], *args[5], lens, starts)]
+        err = {k: max(float((a - b).abs().max()) for a, b in zip(fn(), want))
+               for k, fn in runs.items()}
+        ms = {}
+        for which in ("baseline", "resident", "streamed", "streamed", "resident", "baseline"):
+            ms.setdefault(which, []).append(_time_ms(runs[which], 5))
+        print(json.dumps({"kernel": name, "shape": "T=400 B=400 H=128",
+                          "ms_in_turns": ms, "max_abs_err_vs_plain": err}), flush=True)
+
+
+def _probe_gru(lib, rnd, dev):
+    """csrc/gru.cu at T = B = 400 and H = 128 / 100 / 16 / 200 / 256 / 384 /
+    512, fused and one direction: clocks per phase of a step with each
+    instance that fits (the chosen one marked)."""
+    gru._declare(lib)
+    lib.gru_probe_read.argtypes = [ctypes.c_void_p]
+    lib.gru_probe_read.restype = ctypes.c_int
+    cuda_build._LIBS["gru"] = lib
+    clocks = (ctypes.c_longlong * 16)()
+    for h in (128, 100, 16, 200, 256, 384, 512):
+        args, lens, starts = _gru_case(rnd, dev, 400, h)
+        for name, dirs in (("bigru_layer", 2), ("gru_layer", 1)):
+            chosen = gru.geometry(400, h, dirs)
+            for geom in (gru.geometry(400, h, dirs, i) for i in gru.instances(h)):
+                def fn():
+                    if dirs == 2:
+                        return gru._launch("bigru", args[0:4:2], args[1:4:2], args[4:], lens,
+                                           starts, geom)
+                    return gru._launch("gru", (args[2],), (args[3],), (args[5],), lens, starts,
+                                       geom)
+                print(json.dumps({"kernel": name, "shape": f"T=400 B=400 H={h}",
+                                  "geometry": geom._asdict(), "chosen": geom == chosen,
+                                  **_clock_row(lib, fn, clocks, 400, 8, GRU_PHASES)}), flush=True)
+        del args
 
 
 if __name__ == "__main__":

@@ -13,7 +13,9 @@ LSTM forward (plus 1e-4 relative: its carried c grows without bound and
 carries the sum-order residue of every step), 1e-4 for its dxw and 1e-4 of max |dwh| for dwh, a sum over
 T*B rows); the beam search is exact (trace, decodes) with log masses within
 1e-4. The training LSTM's dwh must be bit-identical from run to run. The
-single LSTM direction and the GRU kernels 1e-5; the BNLSTM kernels 1e-4 (each
+single LSTM direction and the GRU kernels 1e-5 (the GRU at every width
+and batch edge, each of its two instances forced, every geometry
+bit-identical to the others, fused == single); the BNLSTM kernels 1e-4 (each
 step's rsqrt(var + 1e-5) amplifies the sum-order residue), each of its two
 instances (the cluster kernel and the cooperative one) at shapes that take
 it, bit-identical from run to run. The LSTM kernels (inference, fused and single, and the
@@ -21,7 +23,7 @@ training forward and backward) are also held at dna-pre's batch edges
 (B = 1, 300, 301, 400) and must be bit-identical from run to run. Every
 recurrent kernel is also held at H = 384 and 512, where no cluster holds the
 recurrent weights (the LSTM kernels' device-memory variant; the GRU's
-1024-thread instance; the BNLSTM walking two gate columns a thread), and the
+streamed instance; the BNLSTM walking two gate columns a thread), and the
 beam search at widths past one warp (65, 100, 256) and at 10 classes (the
 block kernel), each bit-identical from run to run.
 """
@@ -150,33 +152,84 @@ def test_lstm_layer_kernel_matches_plain(cuda, h, b):
     assert not zero.any()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("h", [16, 100, 128, 256, 384, 512])
-def test_gru_kernels_match_plain(cuda, h):
-    rng = np.random.RandomState(300 + h)
-    t, b = 30, 11
-    to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+def _gru_inputs(rng, t, b, h, to):
     gx_f, gx_b = (to(rng.randn(t, b, 2 * h).astype(np.float32)) for _ in range(2))
     cx_f, cx_b = (to(rng.randn(t, b, h).astype(np.float32)) for _ in range(2))
     # row norm ~1 (see the LSTM test above)
     wh_f, wh_b = ((to((rng.randn(h, 2 * h) / np.sqrt(h)).astype(np.float32)),
                    to((rng.randn(h, h) / np.sqrt(h)).astype(np.float32))) for _ in range(2))
-    lengths = _lengths(rng, t, b)
+    return gx_f, cx_f, gx_b, cx_b, wh_f, wh_b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [16, 100, 128, 256, 384, 512])
+@pytest.mark.parametrize("b", [1, 11, 64, 301, 400])
+def test_gru_kernels_match_plain(cuda, h, b):
+    # the geometry ops/gru.py chooses, at every width and dna-pre's batch edges
+    rng = np.random.RandomState(300 + h + b)
+    t = 30 if b <= 64 else 12
+    to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    gx_f, cx_f, gx_b, cx_b, wh_f, wh_b = _gru_inputs(rng, t, b, h, to)
+    lengths = _lengths(rng, t, b, full=min(4, b))
     lens, starts = to(lengths), to((t - lengths).astype(np.int32))
-    before = dict(tgru.launches)
+    before, inst = dict(tgru.launches), dict(tgru.instance_launches)
+    route = tgru.geometry(b, h, 2).instance
     got_f, got_b = tgru.bigru_layer(gx_f, cx_f, gx_b, cx_b, wh_f, wh_b, lens, starts)
     assert tgru.launches["bigru"] == before["bigru"] + 1
+    assert tgru.instance_launches[route] == inst[route] + 1
     want_f, want_b = tgru.bigru_layer_plain(gx_f, cx_f, gx_b, cx_b, wh_f, wh_b, lens, starts)
     torch.cuda.synchronize()
     np.testing.assert_allclose(got_f.cpu().numpy(), want_f.cpu().numpy(), atol=1e-5, rtol=0)
     np.testing.assert_allclose(got_b.cpu().numpy(), want_b.cpu().numpy(), atol=1e-5, rtol=0)
-    # the fused layer is two single-direction launches, bit for bit
+    # the fused layer is two single-direction launches, bit for bit (each
+    # output's k sum is one thread's, in order, whatever the geometry)
     one_f = tgru.gru_layer(gx_f, cx_f, *wh_f, lens)
     one_b = tgru.gru_layer(gx_b, cx_b, *wh_b, lens, starts)
     assert tgru.launches["gru"] == before["gru"] + 2
     assert torch.equal(one_f, got_f) and torch.equal(one_b, got_b)
+    again = tgru.bigru_layer(gx_f, cx_f, gx_b, cx_b, wh_f, wh_b, lens, starts)
+    assert torch.equal(again[0], got_f) and torch.equal(again[1], got_b), "differs between runs"
     zero = tgru.gru_layer(gx_f, cx_f, *wh_f, torch.zeros_like(lens))
     assert not zero.any()
+
+
+# each instance forced where it fits a block (the resident one up to H = 128,
+# the streamed one at any width; odd widths store unit by unit, even ones a
+# thread's two units at once): against the plain version, bit-identical to
+# the streamed instance and across runs, exact zeros for a zero-length batch,
+# its own launch counter
+@pytest.mark.cuda
+@pytest.mark.parametrize("instance,h,t,b", [
+    (i, h, t, b) for h, t, b in [(128, 40, 400), (100, 30, 64), (16, 30, 1), (128, 20, 301),
+                                 (384, 12, 64), (7, 20, 5), (101, 20, 33), (263, 12, 17)]
+    for i in tgru.instances(h)])
+def test_gru_each_instance_matches_plain(cuda, instance, h, t, b):
+    geom = tgru.geometry(b, h, 2, instance)
+    rng = np.random.RandomState(600 + h + b)
+    to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    gx_f, cx_f, gx_b, cx_b, wh_f, wh_b = _gru_inputs(rng, t, b, h, to)
+    lengths = _lengths(rng, t, b, full=min(4, b))
+    lens, starts = to(lengths), to((t - lengths).astype(np.int32))
+
+    def fused(g, lengths):
+        return tgru._launch("bigru", (gx_f, gx_b), (cx_f, cx_b), (wh_f, wh_b), lengths, starts, g)
+
+    before = dict(tgru.instance_launches)
+    got = fused(geom, lens)
+    assert tgru.instance_launches[geom.instance] == before[geom.instance] + 1
+    again = fused(geom, lens)
+    other = fused(tgru.geometry(b, h, 2, "streamed"), lens)
+    one = [tgru._launch("gru", (gx,), (cx,), (wh,), lens, st, geom)[0]
+           for gx, cx, wh, st in ((gx_f, cx_f, wh_f, None), (gx_b, cx_b, wh_b, starts))]
+    want = tgru.bigru_layer_plain(gx_f, cx_f, gx_b, cx_b, wh_f, wh_b, lens, starts)
+    zero = fused(geom, torch.zeros_like(lens))
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=1e-5, rtol=0)
+    assert all(torch.equal(a, g) for a, g in zip(again, got)), "differs between runs"
+    assert all(torch.equal(a, g) for a, g in zip(other, got)), "resident != streamed"
+    assert all(torch.equal(a, g) for a, g in zip(one, got)), "fused != single"
+    assert not any(z.any() for z in zero)
 
 
 def _bn_weights(rng, h, to):
