@@ -8,7 +8,9 @@ windows of a call step that decode differently on the card and on the CPU.
 
 Phases (any failure exits non-zero and prints no result line):
   1. print the card's name and power limit; build every CUDA kernel from
-     chiron_tpu_torch/csrc (one nvcc per source, all started together);
+     chiron_tpu_torch/csrc (one nvcc per library, all started together; the
+     LSTM inference kernel's bf16 instance is a library of its own), with
+     each library's nvcc time;
   2. hold each kernel against its plain PyTorch version ON THE CARD at the
      main path's shapes (dna-pre: batch 400, window 400, DNA_default), with
      TF32 off for every float32 matmul and convolution; conv_bn at every
@@ -31,20 +33,33 @@ Phases (any failure exits non-zero and prints no result line):
      each other, both instances driven; the beam search at
      W = 30 (the warp kernel; random, peaky and tied scores) and at W = 65,
      100, 256 and C = 10 (the block kernel), exact and bit-identical across
-     two runs;
+     two runs; the bf16 instances (bf16 inference mode) of conv_bn at every
+     distinct shape of the fronts with one and two terms, and of the LSTM
+     inference kernel, fused and one direction with and without starts, at
+     T = 400, B = 400 / 1 / 301, H = 128 and B = 400, H = 100, each held in
+     the working type (outputs equal or one bf16 ulp apart, identical on >=
+     99.9%; moments 1e-4), bit-identical across two runs and to the float32
+     instance on the upcast input with its output rounded;
   3. drive the port's `call` entry point with -p dna-pre and the bundled
      DNA_default weights on seeded .signal reads (2-3 full batches), at beam
-     30 and at beam 0, with every launch count set to 0 just before each run
-     and read just after; check the fastq output, and check one full batch's
-     step outputs on the card against the same step on the CPU, at beam 30
-     and at beam 80 (the beam kernel and its plain version on one lp tensor
-     exact; a window that decodes differently end to end printed with its
-     first divergence, the near-tie's margin beside the rounding); then the
-     same `call` at beam 30 with a GRU and with a BNLSTM model (DNA_default's
-     model.json with cell_type changed, fresh seeded weights written as a
-     checkpoint), the forward-only stack `unirnn_layers` at full width for
-     each cell type, and one `rna`-layer-type LSTM batch, each card vs CPU
-     with its launch counts;
+     30 and at beam 0, and at beam 30 with --bf16, with every launch count
+     (per dtype instance for conv_bn and the LSTM inference kernel) set to 0
+     just before each run and read just after; check the fastq output, and
+     check one full batch's step outputs on the card against the same step on
+     the CPU in both modes (float32: logits 5e-4 of max |logit|, >= 99% of
+     the decodes; bf16: each side held to the CPU's float32 step, see
+     BF16_RMS_RATIO), and at beam 80 (the beam kernel and
+     its plain version on one lp tensor exact; a window that decodes
+     differently end to end printed with its first divergence, the
+     near-tie's margin beside the rounding); the same for DNA_slow
+     (-p dna-slow-pre) and RNA_default (--mode rna -p rna-pre) in both modes,
+     and bf16 against float32 on the card for each model (max logit
+     difference, identical decodes); then the same `call` at beam 30 with a
+     GRU and with a BNLSTM model (DNA_default's model.json with cell_type
+     changed, fresh seeded weights written as a checkpoint), in both modes,
+     the forward-only stack `unirnn_layers` at full width for each cell type
+     (the LSTM also in bf16), and one `rna`-layer-type LSTM batch in both
+     modes, each card vs CPU with its launch counts;
   4. drive the port's `train` entry point (DNA_default config, -s 400 -b 300,
      30 steps, fresh seeded weights) on seeded .signal/.label reads, with the
      training LSTM's launch counts set to 0 just before and read just after
@@ -60,7 +75,10 @@ Phases (any failure exits non-zero and prints no result line):
      same-FLOP note; the "w" rows' bounds; the LSTM backward split into its
      recurrence and its dwh pass; the recurrent kernels at H = 384 / 512 and the beam search
      at W = 65 / 100; the whole call in bases/s, and a warm train step split
-     into forward / loss / backward / update;
+     into forward / loss / backward / update; the bf16 instances beside the
+     float32 ones in turns, their plain versions, bounds at bf16 bytes and
+     library calls; each bundled model's step split by stage in both modes,
+     and the device's idle share over a warm call in both modes;
   6. print the per-kernel JSON line, then {"ok": true, "device": ...}.
 """
 
@@ -93,6 +111,26 @@ TRAIN_RATE = 1e-3
 LEVELS = np.array([100.0, 200.0, 300.0, 400.0])  # a learnable level per base (A, C, G, T)
 # card vs CPU logits of one full batch, relative to max |logit|, every cell type
 LOGIT_TOL = 5e-4
+# bf16 inference mode. A float32 sum-order residue flips a bfloat16 rounding
+# (2^-8 relative) here and there, and the flips propagate through the convs
+# and the stack; the bundled DNA_default on these synthetic squiggles moves
+# its logits by ~0.1 of max |logit| (and a quarter of its decodes) when 1% of
+# the window's samples move one bf16 ulp (on the CPU, in either mode), so
+# card and CPU are not held to each other there but each to the float32
+# reference: the card's bf16 logits no further from the CPU's float32 logits
+# (RMS) than the CPU's bf16 logits are, within BF16_RMS_RATIO (two bf16 runs
+# with other residues land within ~1% of each other), and as many windows
+# decoding as in float32, within BF16_DECODE_SLACK of the windows. 1e-2 of
+# max |logit| and 97% of the decodes card vs CPU are printed beside them
+BF16_RMS_RATIO = 1.1
+BF16_DECODE_SLACK = 0.05
+BF16_LOGIT_TOL = 1e-2
+BF16_MIN_SAME = 0.97
+# the JAX package's own bound on bf16 against float32 logits (tests/test_model.py:107)
+JAX_BF16_BOUND = 0.15
+# the bundled models, their presets and their conv_bn launches per batch
+MODELS = {"DNA_default": ("dna-pre", "dna", 12), "DNA_slow": ("dna-slow-pre", "dna", 13),
+          "RNA_default": ("rna-pre", "rna", 13)}
 # where the run saves the windows that decode differently (``--out``)
 OUT_DIR = os.path.join(REPO, "chiron_tpu_torch", "_build", "chip_smoke")
 
@@ -117,27 +155,30 @@ def bound_ms(flops, nbytes, peak=PEAK_F32):
 def conv_bound(terms, w, stride, on_tensor_cores):
     """conv_bn's bound from its inputs. On the tensor cores the product is
     three TF32 products (3 x the FLOP over the TF32 peak); the narrow-input
-    kernel runs on the CUDA cores. Bytes: every term and its affine read
-    once, w read once, y and the moments written once."""
+    kernel runs on the CUDA cores. Bytes: every term (at its element size:
+    2 for the bf16 instance, whose y is bf16 too) and its affine read once,
+    w read once, y and the moments written once."""
     bsz, t, cin = terms[0][0].shape
     k, _, cout = w.shape
+    el = terms[0][0].element_size()
     rows_out = bsz * (-(-t // stride))
     flops = 2.0 * rows_out * k * cin * cout
-    nbytes = 4.0 * (len(terms) * (bsz * t * cin + 2 * cin) + k * cin * cout
-                    + rows_out * cout + 2 * cout)
+    nbytes = (el * len(terms) * bsz * t * cin + 4.0 * (len(terms) * 2 * cin + k * cin * cout)
+              + el * rows_out * cout + 4.0 * 2 * cout)
     if on_tensor_cores:
         return bound_ms(3 * flops, nbytes, PEAK_TF32) + ("3 x FLOP / 495 TFLOP/s TF32",)
     return bound_ms(flops, nbytes) + ("FLOP / 67 TFLOP/s float32",)
 
 
-def recurrent_bound(kind, act, t, b, h, dirs=1):
+def recurrent_bound(kind, act, t, b, h, dirs=1, xw_bytes=4):
     """A recurrent inference kernel's bound from its inputs: per active (row,
     step) of a direction, LSTM h @ wh + ~12H gate ops, BNLSTM the LSTM's +
     ~40H for its three normalisations (CUDA cores); GRU h @ whg and (r * h) @
     whc as three TF32 products on the tensor cores (3xTF32) beside ~10H gate
     ops on the CUDA cores, whichever takes longer; bytes: the input
     projections in, the weights and vectors, lengths (and starts), h out.
-    ``act``: active (row, step) pairs of one direction."""
+    ``act``: active (row, step) pairs of one direction. ``xw_bytes``: the
+    LSTM's xw and h element size (2 for its bf16 instance)."""
     cells = t * b
     if kind == "gru":
         nbytes = dirs * 4.0 * (cells * 3 * h + h * 3 * h + 2 * b + cells * h)
@@ -145,7 +186,7 @@ def recurrent_bound(kind, act, t, b, h, dirs=1):
         t_bytes = nbytes / PEAK_BYTES
         return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
     one = {"lstm": (act * (2 * h * 4 * h + 12 * h),
-                    4.0 * (cells * 4 * h + h * 4 * h + 2 * b + cells * h)),
+                    xw_bytes * (cells * 4 * h + cells * h) + 4.0 * (h * 4 * h + 2 * b)),
            "bnlstm": (act * (2 * h * 4 * h + 52 * h),
                       4.0 * (cells * 4 * h + h * 4 * h + 14 * h + b + cells * h))}[kind]
     return bound_ms(dirs * one[0], dirs * one[1])
@@ -187,13 +228,14 @@ def time_ms(torch, fn, reps, warm=2):
     return start.elapsed_time(end) / reps
 
 
-def write_reads(sig_dir, n_reads, samples, rng):
+def write_reads(sig_dir, n_reads, samples, rng, dwell_mean=9.0):
     """Seeded synthetic squiggles: piecewise-constant levels (mean dwell ~9
-    samples, the DNA_default regime) plus noise, as integer raw counts."""
+    samples, the DNA_default regime; ~25 for slow translocation) plus noise,
+    as integer raw counts."""
     os.makedirs(sig_dir)
     for i in range(n_reads):
         n_events = samples // 5
-        dwell = np.maximum(rng.geometric(1 / 9.0, n_events), 2)
+        dwell = np.maximum(rng.geometric(1 / dwell_mean, n_events), 2)
         levels = rng.normal(500, 60, n_events)
         sig = np.repeat(levels, dwell)[:samples] + rng.normal(0, 12, samples)
         np.savetxt(os.path.join(sig_dir, f"read{i:02d}.signal"), sig.astype(np.int64), fmt="%d")
@@ -237,9 +279,14 @@ def main(out_dir=OUT_DIR):
     log(sys.version.split()[0], "torch", torch.__version__, "cuda", torch.version.cuda)
 
     # ---- 1. build ---------------------------------------------------------
-    t0 = time.time()
-    logs = cuda_build.build_all()
-    log(f"built {sorted(logs)} in {time.time() - t0:.1f} s")
+    t_start = t0 = time.time()
+
+    def phase(name):
+        log(f"[{time.time() - t_start:.0f} s] {name}")
+
+    logs, build_seconds = cuda_build.build_all()
+    log(f"built {sorted(logs)} in {time.time() - t0:.1f} s; nvcc seconds by library (all "
+        f"started together): " + json.dumps({k: round(v, 1) for k, v in build_seconds.items()}))
     for name, text in sorted(logs.items()):
         lines = text.splitlines()
         for i, line in enumerate(lines):
@@ -257,6 +304,7 @@ def main(out_dir=OUT_DIR):
                     fail(f"{name}: a redesigned kernel spills registers: {lines[i + 2].strip()}")
 
     # ---- 2. each kernel against its plain version on the card -------------
+    phase("2. kernels against their plain versions")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
@@ -273,9 +321,9 @@ def main(out_dir=OUT_DIR):
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
-    def geometry(kind, b, hid, dirs=1):
+    def geometry(kind, b, hid, dirs=1, xw_bytes=4):
         """The cluster geometry a recurrent kernel takes, as printed text."""
-        cl, rows, smem = lstm_grad.cluster_geometry(kind, b, hid, dirs, sms)
+        cl, rows, smem = lstm_grad.cluster_geometry(kind, b, hid, dirs, sms, xw_bytes)
         waves = -(-(-(-b // rows) * dirs) // (sms // cl))
         return f"cluster {cl}, rows {rows}, shared bytes {smem}, waves {waves}"
 
@@ -286,6 +334,26 @@ def main(out_dir=OUT_DIR):
         if not ok:
             failures.append(name)
         return err
+
+    def bf16_hold(name, got, want, atol, min_same=0.999):
+        """bfloat16 outputs in the working type: every element equal or one
+        bf16 ulp apart (or, near zero, within the float32 gate atol), and
+        identical on >= min_same of them. Returns the max abs difference."""
+        def ordered(t):
+            b = t.contiguous().view(torch.int16).to(torch.int32)
+            return torch.where(b < 0, -(b & 0x7FFF), b)
+
+        ulps = (ordered(got) - ordered(want)).abs()
+        diff = (got.float() - want.float()).abs()
+        off = int(((ulps > 1) & (diff > atol)).sum())
+        same = float((ulps == 0).float().mean())
+        ok = off == 0 and same >= min_same
+        log(f"  {name}: identical {same:.6f} (>= {min_same}), max ulps {int(ulps.max())}, "
+            f"elements more than 1 ulp and {atol:.0e} apart {off} (must be 0), max_abs_err "
+            f"{float(diff.max()):.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(name)
+        return float(diff.max())
 
     # conv_bn at every distinct shape of the three bundled fronts. dna_model1:
     # the k=3 convs (two deferred terms, relu), the k=1 256 -> 256 convs (7 of
@@ -309,7 +377,7 @@ def main(out_dir=OUT_DIR):
     }
     conv_lib = cuda_build.load("conv_bn")
     conv_route = {case: conv_lib.conv_bn_route(w.shape[1], w.shape[2], w.shape[0], stride,
-                                               int(len(terms) == 2))
+                                               int(len(terms) == 2), 0)
                   for case, (terms, w, _, stride) in conv_cases.items()}
     log(f"  conv_bn routes (2 tensor cores, 1 narrow-input CUDA cores): {conv_route}")
     conv_err = 0.0
@@ -325,6 +393,42 @@ def main(out_dir=OUT_DIR):
         hold(f"conv_bn {case} y", float((y - py).abs().max()), 1e-4)
         conv_err = max(conv_err, float((y - py).abs().max()))
         hold(f"conv_bn {case} moments (relative)", mom, 1e-4)
+
+    # the bf16 instances at the same shapes and at the one-term shapes of the
+    # residual blocks (conv2b k=3, conv2c k=1 read one term): raws rounded to
+    # bf16; held in the working type against the plain version, moments 1e-4,
+    # bit-identical across two runs and to the float32 instance on the upcast
+    # raws with y rounded (the bf16 instance is that function)
+    conv_cases_bf16 = {
+        **{case: ([(r.to(torch.bfloat16), a, b) for r, a, b in terms], w, relu, stride)
+           for case, (terms, w, relu, stride) in conv_cases.items()},
+        "k3_one_term_relu": ([(rnd(BATCH, SEG, c).to(torch.bfloat16), rnd(c).abs() + 0.5,
+                               rnd(c, scale=0.2))], rnd(3, c, c, scale=(2 / (4 * c)) ** 0.5),
+                             True, 1),
+        "k1_one_term_relu": ([(rnd(BATCH, SEG, c).to(torch.bfloat16), rnd(c).abs() + 0.5,
+                               rnd(c, scale=0.2))], rnd(1, c, c, scale=(2 / (2 * c)) ** 0.5),
+                             True, 1)}
+    conv_route_bf16 = {case: conv_lib.conv_bn_route(w.shape[1], w.shape[2], w.shape[0], stride,
+                                                    int(len(terms) == 2), 1)
+                       for case, (terms, w, _, stride) in conv_cases_bf16.items()}
+    log(f"  conv_bn bf16 instance routes: {conv_route_bf16}")
+    conv_err_bf16 = 0.0
+    bf16 = torch.bfloat16
+    for case, (terms, w, relu, stride) in conv_cases_bf16.items():
+        y, s, q = conv_bn.conv_bn(terms, w, relu, stride, out_dtype=bf16)
+        again = conv_bn.conv_bn(terms, w, relu, stride, out_dtype=bf16)
+        f32 = conv_bn.conv_bn([(r.float(), a, b) for r, a, b in terms], w, relu, stride)
+        py, ps, pq = conv_bn.conv_bn_plain(terms, w, relu, stride, out_dtype=bf16)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, g) for a, g in zip(again, (y, s, q))):
+            failures.append(f"conv_bn bf16 {case} differs between two runs")
+        if not (torch.equal(y, f32[0].to(bf16)) and torch.equal(s, f32[1])
+                and torch.equal(q, f32[2])):
+            failures.append(f"conv_bn bf16 {case} is not the float32 instance's function")
+        mom = max(float(((s - ps).abs() / ps.abs().clamp(min=1.0)).max()),
+                  float(((q - pq).abs() / pq.abs().clamp(min=1.0)).max()))
+        conv_err_bf16 = max(conv_err_bf16, bf16_hold(f"conv_bn bf16 {case} y", y, py, 1e-4))
+        hold(f"conv_bn bf16 {case} moments (relative)", mom, 1e-4)
 
     # bilstm at one DNA_default layer: T = B = 400, H = 128, lengths with 0 and T
     t_len, h = SEG, 128
@@ -368,6 +472,48 @@ def main(out_dir=OUT_DIR):
     log(f"  bilstm and lstm_layer bit-identical across two runs at every shape: {infer_same}")
     if not infer_same:
         failures.append("the inference LSTM kernel differs between two runs")
+
+    # the LSTM inference kernel's bf16 instance (rows 2 and 5) on bf16 xw: the
+    # fused layer and one direction with and without starts, at T = 400 and B =
+    # 400 (H = 128, DNA_default; H = 100, RNA_default), 1 and 301; held in the
+    # working type against the plain versions (near zero within the float32
+    # gate 1e-4), bit-identical across two runs and to the float32 instance on
+    # the upcast xw with h rounded
+    lstm_err_bf16 = {"bilstm": 0.0, "lstm_layer": 0.0}
+    bf16_same = True
+    bf16_lstm_args = None
+    for b_x, h_x in ((BATCH, h), (BATCH, 100), (1, h), (BATCH - 99, h)):
+        ws_x = (6 / (5 * h_x)) ** 0.5 / 2
+        ln_x = torch.randint(0, t_len + 1, (b_x,), generator=gen).to(torch.int32)
+        ln_x[-1] = t_len
+        ln_x = ln_x.to(dev)
+        args_x = (rnd(t_len, b_x, 4 * h_x).to(bf16), rnd(t_len, b_x, 4 * h_x).to(bf16),
+                  rnd(h_x, 4 * h_x, scale=ws_x), rnd(h_x, 4 * h_x, scale=ws_x), ln_x,
+                  (t_len - ln_x).to(torch.int32))
+        if (b_x, h_x) == (BATCH, h):
+            bf16_lstm_args = args_x
+        one_args = [(args_x[1], args_x[3], ln_x, s) for s in (None, args_x[5])]
+        got_x = [*bilstm.bilstm_layer(*args_x), *[lstm.lstm_layer(*a) for a in one_args]]
+        again_x = [*bilstm.bilstm_layer(*args_x), *[lstm.lstm_layer(*a) for a in one_args]]
+        f32_x = [*bilstm.bilstm_layer(args_x[0].float(), args_x[1].float(), *args_x[2:]),
+                 *[lstm.lstm_layer(a[0].float(), *a[1:]) for a in one_args]]
+        want_x = [*bilstm.bilstm_layer_plain(*args_x),
+                  *[lstm.lstm_layer_plain(*a) for a in one_args]]
+        torch.cuda.synchronize()
+        geo = (f"{geometry('infer', b_x, h_x, 2, 2)}; one direction "
+               f"{geometry('infer', b_x, h_x, 1, 2)}")
+        for i, name in enumerate(("bilstm fw", "bilstm bw", "lstm_layer", "lstm_layer starts")):
+            err = bf16_hold(f"{name} bf16 T=400 B={b_x} H={h_x}" + (f" ({geo})" if i == 0 else ""),
+                            got_x[i], want_x[i], 1e-4)
+            key = "bilstm" if i < 2 else "lstm_layer"
+            lstm_err_bf16[key] = max(lstm_err_bf16[key], err)
+        bf16_same = bf16_same and all(torch.equal(a, g) for a, g in zip(again_x, got_x)) \
+            and all(torch.equal(g, f.to(bf16)) for g, f in zip(got_x, f32_x))
+    log(f"  bf16 bilstm and lstm_layer bit-identical across two runs and to the float32 "
+        f"instance's function at every shape: {bf16_same}")
+    if not bf16_same:
+        failures.append("the inference LSTM kernel's bf16 instance differs between runs or from "
+                        "the float32 instance's function")
 
     # beam W=30 at B = T = 400 with length_bonus 0.6: random and peaky logits
     bonus = 0.6
@@ -669,7 +815,8 @@ def main(out_dir=OUT_DIR):
     if failures:
         fail(f"kernels disagree with their plain versions: {failures}")
 
-    # ---- 3. the main path: `call -p dna-pre`, beam 30 and beam 0 ----------
+    # ---- 3. the main path: `call -p dna-pre`, beam 30 and beam 0, both modes
+    phase("3. call paths")
     rng = np.random.RandomState(SEED)
     os.makedirs(cuda_build.BUILD, exist_ok=True)
     work = tempfile.mkdtemp(dir=cuda_build.BUILD)
@@ -678,57 +825,77 @@ def main(out_dir=OUT_DIR):
     write_reads(sig_dir, n_reads, samples, rng)
     n_windows = n_reads * (-(-samples // JUMP))
     n_batches = -(-n_windows // BATCH)
-    expect = {"conv_bn": 12 * n_batches, "bilstm": 3 * n_batches,
-              "beam_search": n_batches, "beam_traceback": n_batches}
+
+    def expected(n, conv=12, rnn="bilstm", dtype="float32"):
+        """A call's launches over n batches: conv_bn and the LSTM kernel per
+        dtype instance, the GRU / BNLSTM kernels (float32 in both modes)."""
+        rnn_key = f"{rnn}_{dtype}" if rnn == "bilstm" else rnn
+        return {f"conv_bn_{dtype}": conv * n, rnn_key: 3 * n, "beam_search": n,
+                "beam_traceback": n}
+
+    expect = expected(n_batches)
 
     def reset():
         conv_bn.launches = bilstm.launches = lstm.launches = 0
-        for counter in (beam.launches, gru.launches, gru.instance_launches, bnlstm.launches,
-                        bnlstm.instance_launches):
+        for counter in (conv_bn.launches_by_dtype, bilstm.launches_by_dtype,
+                        lstm.launches_by_dtype, beam.launches, gru.launches,
+                        gru.instance_launches, bnlstm.launches, bnlstm.instance_launches):
             for k in counter:
                 counter[k] = 0
 
     def counts():
-        return {"conv_bn": conv_bn.launches, "bilstm": bilstm.launches, **beam.launches,
-                "lstm_layer": lstm.launches,
+        """Every launch counter; conv_bn and the LSTM inference kernel by the
+        instance's element type (the per-dtype counters: a bf16 run that took
+        a float32 instance shows here)."""
+        return {**{f"conv_bn_{k}": n for k, n in conv_bn.launches_by_dtype.items()},
+                **{f"bilstm_{k}": n for k, n in bilstm.launches_by_dtype.items()},
+                **{f"lstm_layer_{k}": n for k, n in lstm.launches_by_dtype.items()},
+                **beam.launches,
                 **{f"{k}_layer": n for k, n in {**gru.launches, **bnlstm.launches}.items()},
                 **{f"bnlstm_{k}": n for k, n in bnlstm.instance_launches.items()},
                 **{f"gru_{k}": n for k, n in gru.instance_launches.items()}}
 
-    def call(out, beam_width, model=None):
-        args = ["call", "-i", sig_dir, "-o", out, "-p", "dna-pre", "--sig_norm", "1",
-                "--beam", str(beam_width), "--device", "cuda"]
+    def call(out, beam_width, model=None, preset="dna-pre", mode="dna", bf16_mode=False,
+             inp=None):
+        args = ["call", "-i", inp or sig_dir, "-o", out, "-p", preset, "--mode", mode,
+                "--sig_norm", "1", "--beam", str(beam_width), "--device", "cuda"]
         if model is not None:
             args += ["-m", model]
+        if bf16_mode:
+            args += ["--bf16"]
         t = time.time()
         res = cli.main(args)
         torch.cuda.synchronize()
         return res, time.time() - t
 
-    def counted_call(label, width, model=None):
+    def counted_call(label, width, model=None, preset="dna-pre", mode="dna", bf16_mode=False,
+                     inp=None, reads=n_reads, windows=n_windows):
         """One `call` with every count set to 0 just before and read just
         after; checks the run's summary and its fastq files."""
         reset()
-        res, wall = call(os.path.join(work, f"out_{label}"), width, model)
+        res, wall = call(os.path.join(work, f"out_{label}"), width, model, preset, mode,
+                         bf16_mode, inp)
         cnt = counts()
-        log(f"call -p dna-pre --beam {width} ({label}): {res['total_windows']} windows, "
-            f"{res['total_bases']} bases in {wall:.3f} s; launches {cnt}")
-        if res["n_files"] != n_reads or res["total_windows"] != n_windows:
-            fail(f"{label}: expected {n_reads} files / {n_windows} windows, got {res}")
+        log(f"call -p {preset} --beam {width}{' --bf16' if bf16_mode else ''} ({label}): "
+            f"{res['total_windows']} windows, {res['total_bases']} bases in {wall:.3f} s; "
+            f"launches {cnt}")
+        if res["n_files"] != reads or res["total_windows"] != windows:
+            fail(f"{label}: expected {reads} files / {windows} windows, got {res}")
         result_dir = os.path.join(work, f"out_{label}", "result")
         fastqs = sorted(os.listdir(result_dir))
-        if len(fastqs) != n_reads:
-            fail(f"{label}: {len(fastqs)} fastq files written, expected {n_reads}")
+        if len(fastqs) != reads:
+            fail(f"{label}: {len(fastqs)} fastq files written, expected {reads}")
         for f in fastqs:
             with open(os.path.join(result_dir, f)) as fh:
                 lines = fh.read().splitlines()
             if len(lines) != 4 or not lines[1] or len(lines[1]) != len(lines[3]) \
-                    or set(lines[1]) - set("ACGT"):
+                    or set(lines[1]) - set("ACGU" if mode == "rna" else "ACGT"):
                 fail(f"{label}: malformed fastq {f}")
         return cnt
 
     def check_counts(label, cnt, want):
-        """Every count of the run must be the expected one, 0 where none is named.
+        """Every count of the run must be the expected one, 0 where none is named
+        (so a bf16 run that launched a float32 instance fails, and the reverse).
         Every BNLSTM layer of these runs (B = 400, H = 128) takes the cluster
         instance, every GRU layer the resident one."""
         want = {"bnlstm_cluster": want.get("bibnlstm_layer", 0) + want.get("bnlstm_layer", 0),
@@ -740,66 +907,95 @@ def main(out_dir=OUT_DIR):
     beam_counts = counted_call("beam30", BEAM)
     check_counts("beam-30", beam_counts, expect)
     check_counts("beam-0", counted_call("beam0", 0),
-                 {"conv_bn": expect["conv_bn"], "bilstm": expect["bilstm"]})
+                 {"conv_bn_float32": expect["conv_bn_float32"],
+                  "bilstm_float32": expect["bilstm_float32"]})
+    bf16_counts = counted_call("beam30_bf16", BEAM, bf16_mode=True)
+    check_counts("beam-30 --bf16", bf16_counts, expected(n_batches, dtype="bfloat16"))
 
-    # warm repeat of the beam-30 call for the end-to-end rate
-    res, wall = call(os.path.join(work, "out_warm"), BEAM)
-    call_rate = {"windows": n_windows, "bases": res["total_bases"], "seconds": wall,
-                 "bases_per_s": res["total_bases"] / wall, "windows_per_s": n_windows / wall}
-    log(f"warm call -p dna-pre --beam 30: {json.dumps(call_rate)}")
+    # warm repeats of the beam-30 call for the end-to-end rate, both modes
+    call_rates = {}
+    for tag, b16 in (("dna_pre_beam30", False), ("dna_pre_beam30_bf16", True)):
+        res, wall = call(os.path.join(work, f"out_warm_{tag}"), BEAM, bf16_mode=b16)
+        call_rates[tag] = {"windows": n_windows, "bases": res["total_bases"], "seconds": wall,
+                           "bases_per_s": res["total_bases"] / wall,
+                           "windows_per_s": n_windows / wall}
+        log(f"warm call {tag}: {json.dumps(call_rates[tag])}")
 
-    # one full batch: the step on the card against the same step on the CPU
-    config = C.read_config(os.path.join(MODEL_DIR, "model.json"))
-    tree, _ = restore_latest(MODEL_DIR)
-    gpu_model = from_jax_params(tree, config, "cuda")
-    cpu_model = from_jax_params(tree, config, "cpu")
-    flags = type("F", (), dict(batch_size=BATCH, segment_len=SEG, jump=JUMP, start=0,
-                               sig_norm=1, reverse_fast5=False))()
-    file_dir, files = pipeline.list_input_files(sig_dir)
-    ratio = gpu_model.ratio(SEG)
-    x, sl, _, _, _ = next(iter(pipeline._batch_stream(file_dir, files, flags, ratio)))
-    xg, slg = torch.from_numpy(x).to(dev), torch.from_numpy(sl).to(dev)
-    xc, slc = torch.from_numpy(x), torch.from_numpy(sl)
-    lb = float(config["length_bonus"])
-
-    def same_decodes(a, b):
+    def same_decodes(a, b, n):
         """How many windows decode to the same bases in (tokens, lengths) a and b."""
         return sum(bool(a[1][i] == b[1][i] and (a[0][i, :a[1][i]] == b[0][i, :b[1][i]]).all())
-                   for i in range(BATCH))
+                   for i in range(n))
 
-    def step_card_vs_cpu(label, on_card, on_cpu, logit_tol, min_same=0.99, width=BEAM,
-                         rnn_kernel="bilstm"):
-        """One full batch, card against CPU: logits within logit_tol of max
-        |logit|; the beam kernel and beam_search_plain on ONE lp tensor (the
-        card's log_softmax of the card's logits, both searches on the card)
-        with identical traces on every window; the card's decode_step (its
-        launches counted: 12 conv_bn, 3 of rnn_kernel, 1 search, 1 traceback)
-        decoding as the CPU's on at least min_same of the windows. Where a
-        window decodes differently end to end, the two searches' first
-        divergence is printed: the two candidates' margin beside what the two
-        sides' roundings moved the scores."""
-        logits_c = on_cpu(xc, slc)
-        logits_g = on_card(xg, slg)
+    def load_batch(model, inp, preset):
+        """The first full batch of a preset's stream over inp: (card, CPU) pairs
+        of the float32 windows, their bf16 upload, and the lengths."""
+        p = C.PRESETS[preset]
+        fl = type("F", (), dict(batch_size=p["batch_size"], segment_len=p["segment_len"],
+                                jump=p["jump"], start=0, sig_norm=1, reverse_fast5=False))()
+        file_dir, files = pipeline.list_input_files(inp)
+        x, sl, _, _, _ = next(iter(pipeline._batch_stream(file_dir, files, fl,
+                                                          model.ratio(p["segment_len"]))))
+        xc, slc = torch.from_numpy(x), torch.from_numpy(sl)
+        return {"float32": (xc.to(dev), slc.to(dev), xc, slc),
+                "bfloat16": (xc.to(torch.bfloat16).to(dev), slc.to(dev),
+                             xc.to(torch.bfloat16), slc)}
+
+    def rms(a):
+        return float(a.double().pow(2).mean().sqrt())
+
+    def step_card_vs_cpu(label, on_card, on_cpu, batch, logit_tol=LOGIT_TOL, min_same=0.99,
+                         width=BEAM, rnn_kernel="bilstm", n_conv=12, f32_ref=None, lb=0.0):
+        """One full batch, card against CPU. Float32 (``f32_ref`` None):
+        logits within logit_tol of max |logit|, the card's decodes as the
+        CPU's on at least min_same of the windows. bf16 (``f32_ref``: this
+        function's result for the float32 step of the same batch): each side
+        held to the CPU's float32 step (see BF16_RMS_RATIO), card vs CPU
+        printed. Both: the beam kernel and beam_search_plain on ONE lp tensor
+        (the card's log_softmax of the card's logits, both searches on the
+        card) with identical traces on every window; the card's decode_step
+        launches counted (n_conv conv_bn and 3 of rnn_kernel of the mode's
+        instances, 1 search, 1 traceback). Where a window decodes differently
+        card vs CPU, the two searches' first divergence is printed: the two
+        candidates' margin beside what the two sides' roundings moved the
+        scores. Returns the logits and step outputs of both sides."""
+        bf16_mode = f32_ref is not None
+        xg, slg, xc, slc = batch
+        bsz = xc.shape[0]
+        logits_c = on_cpu(xc, slc, bf16=bf16_mode)
+        logits_g = on_card(xg, slg, bf16=bf16_mode)
         logit_err = float((logits_g.cpu() - logits_c).abs().max())
         scale = float(logits_c.abs().max())
-        hold(f"{label} step logits card vs CPU (relative to max |logit|)", logit_err / scale,
-             logit_tol, f"(max |logit| {scale:.2f}) ")
+        if bf16_mode:
+            ref = f32_ref["logits_c"]
+            rms_g, rms_c = rms(logits_g.cpu() - ref), rms(logits_c - ref)
+            hold(f"{label} step logits: RMS from the CPU's float32 logits, card / CPU (both "
+                 f"bf16)", rms_g / rms_c, BF16_RMS_RATIO,
+                 f"(card {rms_g:.4e}, CPU {rms_c:.4e}; card vs CPU max |diff| "
+                 f"{logit_err / scale:.3e} of max |logit| {scale:.2f}, "
+                 f"{'within' if logit_err <= BF16_LOGIT_TOL * scale else 'past'} "
+                 f"{BF16_LOGIT_TOL:.0e}) ")
+        else:
+            hold(f"{label} step logits card vs CPU (relative to max |logit|)",
+                 logit_err / scale, logit_tol, f"(max |logit| {scale:.2f}) ")
         lp_g = torch.log_softmax(logits_g, -1)
         sl32 = slg.to(torch.int32)
         k_trace = beam.beam_search(lp_g, sl32, width, lb)[0]
         p_trace = beam.beam_search_plain(lp_g, sl32, width, lb)[0]
         torch.cuda.synchronize()
-        on_same = BATCH - int((k_trace != p_trace).any(dim=(1, 2)).sum())
+        on_same = bsz - int((k_trace != p_trace).any(dim=(1, 2)).sum())
         reset()
         step_g = pipeline.unpack_step_outputs(
-            pipeline.decode_step(on_card, xg, slg, width, lb).cpu().numpy())
+            pipeline.decode_step(on_card, xg, slg, width, lb, bf16_mode).cpu().numpy())
         torch.cuda.synchronize()
+        dt = "bfloat16" if bf16_mode else "float32"
         check_counts(f"{label} decode_step", counts(),
-                     {"conv_bn": 12, rnn_kernel: 3, "beam_search": 1, "beam_traceback": 1})
+                     {f"conv_bn_{dt}": n_conv,
+                      f"bilstm_{dt}" if rnn_kernel == "bilstm" else rnn_kernel: 3,
+                      "beam_search": 1, "beam_traceback": 1})
         step_c = pipeline.unpack_step_outputs(
-            pipeline.decode_step(on_cpu, xc, slc, width, lb).numpy())
-        same = same_decodes(step_g, step_c)
-        differ = [i for i in range(BATCH) if not (
+            pipeline.decode_step(on_cpu, xc, slc, width, lb, bf16_mode).numpy())
+        same = same_decodes(step_g, step_c, bsz)
+        differ = [i for i in range(bsz) if not (
             step_g[1][i] == step_c[1][i]
             and (step_g[0][i, :step_g[1][i]] == step_c[0][i, :step_c[1][i]]).all())]
         if differ:
@@ -817,21 +1013,102 @@ def main(out_dir=OUT_DIR):
                 log(f"  {label}: window {i} decodes differently end to end; first divergence "
                     f"{json.dumps(div)} (a near-tie when the margin is within the rounding)")
             log(f"  {label}: saved the {len(differ)} windows that differ to {path}")
-        log(f"  {label} step decodes (beam {width}): {on_same}/{BATCH} windows with identical "
-            f"traces, kernel vs plain on one lp tensor on the card (must be all); {same}/{BATCH} "
-            f"identical card vs CPU end to end (must be >= {min_same:.0%}: float32 rounding of "
-            f"the logits and of log_softmax may flip a near-tie beam)")
-        if failures or on_same < BATCH or same < min_same * BATCH:
+        log(f"  {label} step decodes (beam {width}): {on_same}/{bsz} windows with identical "
+            f"traces, kernel vs plain on one lp tensor on the card (must be all); {same}/{bsz} "
+            f"identical card vs CPU end to end"
+            + (f" (must be >= {min_same:.0%}: rounding of the logits and of log_softmax may "
+               f"flip a near-tie beam)" if not bf16_mode else
+               f" ({'at or above' if same >= BF16_MIN_SAME * bsz else 'below'} "
+               f"{BF16_MIN_SAME:.0%})"))
+        ok = on_same == bsz
+        if bf16_mode:
+            as_f32_g = same_decodes(step_g, f32_ref["step_c"], bsz)
+            as_f32_c = same_decodes(step_c, f32_ref["step_c"], bsz)
+            log(f"  {label} decodes as the CPU's float32 step: card {as_f32_g}/{bsz}, CPU "
+                f"{as_f32_c}/{bsz} (the card must be within {BF16_DECODE_SLACK:.0%} of the "
+                f"windows of the CPU)")
+            ok = ok and as_f32_g >= as_f32_c - BF16_DECODE_SLACK * bsz
+        else:
+            ok = ok and same >= min_same * bsz
+        if failures or not ok:
             fail(f"{label}: card step disagrees with the CPU step: {failures}, identical "
-                 f"{on_same} on the same lp, {same} end to end, of {BATCH}")
+                 f"{on_same} on the same lp, {same} end to end, of {bsz}")
+        return {"logits_g": logits_g, "step_g": step_g, "logits_c": logits_c,
+                "step_c": step_c}
 
-    # relative to the logits' scale: 12 batch-stat convs and 3 BiLSTM layers
-    # whose float32 sums run in another order on the card than on the CPU.
-    # Two correct CPU implementations (the JAX package and the port) differ
-    # by 2.6e-4 of max |logit| on this batch, so 5e-4 is the float32 floor.
-    step_card_vs_cpu("DNA_default", gpu_model, cpu_model, LOGIT_TOL)
+    def bf16_vs_f32(label, f32_step, bf16_step, bsz):
+        """bf16 against float32 mode on the card, one batch: max logit difference
+        (beside the JAX package's own 0.15) and the share of identical decodes."""
+        diff = float((bf16_step["logits_g"] - f32_step["logits_g"]).abs().max())
+        scale = float(f32_step["logits_g"].abs().max())
+        same = same_decodes(f32_step["step_g"], bf16_step["step_g"], bsz)
+        log(f"  {label} bf16 vs float32 on the card: max |logit difference| {diff:.4f} "
+            f"({diff / scale:.2e} of max |logit| {scale:.2f}; the JAX package's own bound "
+            f"{JAX_BF16_BOUND}), identical decodes {same}/{bsz} ({same / bsz:.1%})")
+        return {"max_logit_diff": diff, "relative": diff / scale, "identical_decodes": same,
+                "windows": bsz}
+
+    # one full batch per bundled model and mode: the step on the card against the
+    # same step on the CPU. f32: 12-13 batch-stat convs and 3 BiLSTM layers whose
+    # float32 sums run in another order on the card than on the CPU; two
+    # correct CPU implementations (the JAX package and the port) differ by
+    # 2.6e-4 of max |logit| on a dna-pre batch, so 5e-4 is the float32 floor.
+    # bf16: see BF16_RMS_RATIO.
+    config = C.read_config(os.path.join(MODEL_DIR, "model.json"))
+    tree, _ = restore_latest(MODEL_DIR)
+    gpu_model = from_jax_params(tree, config, "cuda")
+    cpu_model = from_jax_params(tree, config, "cpu")
+    dna_batch = load_batch(gpu_model, sig_dir, "dna-pre")
+    xg, slg, xc, slc = dna_batch["float32"]
+    lb = float(config["length_bonus"])
+    mode_cmp, model_steps, model_rates = {}, {}, {}
+    steps = {"float32": step_card_vs_cpu("DNA_default float32", gpu_model, cpu_model,
+                                         dna_batch["float32"], lb=lb)}
+    steps["bfloat16"] = step_card_vs_cpu("DNA_default bfloat16", gpu_model, cpu_model,
+                                         dna_batch["bfloat16"], f32_ref=steps["float32"], lb=lb)
+    mode_cmp["DNA_default"] = bf16_vs_f32("DNA_default", steps["float32"], steps["bfloat16"],
+                                          BATCH)
     # a beam wider than a warp on the main path (the block kernel)
-    step_card_vs_cpu("DNA_default beam 80", gpu_model, cpu_model, LOGIT_TOL, width=80)
+    step_card_vs_cpu("DNA_default beam 80", gpu_model, cpu_model, dna_batch["float32"],
+                     width=80, lb=lb)
+    model_steps["DNA_default"] = (gpu_model, dna_batch, lb)
+
+    # ---- 3a. the other bundled models, DNA_slow and RNA_default, both modes -----
+    # seeded reads for the 2000-sample presets: 8 reads of 38 windows (304 = 1
+    # full batch of 300 + 4 wrap-padded); slow translocation at ~25 samples a level
+    for name in ("DNA_slow", "RNA_default"):
+        preset, mode, n_conv = MODELS[name]
+        p = C.PRESETS[preset]
+        in_dir = os.path.join(work, f"signal_{name}")
+        m_reads, m_samples = 8, 37 * p["jump"] + 10
+        write_reads(in_dir, m_reads, m_samples, rng, 25.0 if name == "DNA_slow" else 9.0)
+        m_windows = m_reads * (-(-m_samples // p["jump"]))
+        m_batches = -(-m_windows // p["batch_size"])
+        mdir = os.path.join(REPO, "chiron_tpu", "model", name)
+        m_config = C.read_config(os.path.join(mdir, "model.json"))
+        m_tree, _ = restore_latest(mdir)
+        m_gpu = from_jax_params(m_tree, m_config, "cuda")
+        m_cpu = from_jax_params(m_tree, m_config, "cpu")
+        m_lb = float(m_config.get("length_bonus", 0.0) or 0.0)
+        m_batch = load_batch(m_gpu, in_dir, preset)
+        m_steps = {}
+        for tag, b16 in (("float32", False), ("bfloat16", True)):
+            label = f"{name}{'_bf16' if b16 else ''}"
+            cnt = counted_call(label, BEAM, mdir, preset, mode, b16, in_dir, m_reads, m_windows)
+            check_counts(label, cnt, expected(m_batches, n_conv, dtype=tag))
+            res, wall = call(os.path.join(work, f"out_{label}_warm"), BEAM, mdir, preset, mode,
+                             b16, in_dir)
+            model_rates[label] = {"windows": m_windows, "bases": res["total_bases"],
+                                  "seconds": wall, "bases_per_s": res["total_bases"] / wall,
+                                  "windows_per_s": m_windows / wall}
+            log(f"warm call {label}: {json.dumps(model_rates[label])}")
+            m_steps[tag] = step_card_vs_cpu(
+                f"{name} {tag}", m_gpu, m_cpu, m_batch[tag], n_conv=n_conv,
+                f32_ref=m_steps["float32"] if b16 else None, lb=m_lb)
+        mode_cmp[name] = bf16_vs_f32(name, m_steps["float32"], m_steps["bfloat16"],
+                                     p["batch_size"])
+        model_steps[name] = (m_gpu, m_batch, m_lb)
+        del m_cpu
 
     # ---- 3b. `call` with a GRU and with a BNLSTM model ----------------------
     # DNA_default's model.json with cell_type changed (length_bonus kept) and
@@ -859,7 +1136,11 @@ def main(out_dir=OUT_DIR):
         save_checkpoint(mdir, fresh_tree, 0)
         cell_counts[cell] = counted_call(cell, BEAM, mdir)
         check_counts(cell, cell_counts[cell],
-                     {**expect, "bilstm": 0, fused_name[cell]: 3 * n_batches})
+                     expected(n_batches, rnn=fused_name[cell]))
+        # --bf16: only the projections change (the GRU / BNLSTM kernels run
+        # float32 in both modes), the convs take their bf16 instances
+        check_counts(f"{cell} --bf16", counted_call(f"{cell}_bf16", BEAM, mdir, bf16_mode=True),
+                     expected(n_batches, rnn=fused_name[cell], dtype="bfloat16"))
         res, wall = call(os.path.join(work, f"out_{cell}_warm"), BEAM, mdir)
         cell_rates[cell] = {"windows": n_windows, "bases": res["total_bases"], "seconds": wall,
                             "bases_per_s": res["total_bases"] / wall,
@@ -867,20 +1148,24 @@ def main(out_dir=OUT_DIR):
         log(f"warm call -p dna-pre --beam 30 ({cell}): {json.dumps(cell_rates[cell])}")
         cell_tree, _ = restore_latest(mdir)
         cell_models[cell] = from_jax_params(cell_tree, cfg, "cuda")
+        cell_cpu = from_jax_params(cell_tree, cfg, "cpu")
         # a model with random weights emits ~200 bases a window from posteriors
         # with no structure: many hypotheses score within float32 rounding of
         # each other, and on an H100 97.5-99.5% of the windows decode as on
         # the CPU although the logits agree to 4e-6 of max |logit| (a window
         # replayed on the CPU: two candidates 1.9e-6 apart, where the two
         # log_softmax roundings moved the scores by up to 3.8e-6). So the
-        # end-to-end share is held at 95% here; the decoder itself is exact
-        # on one lp tensor.
-        step_card_vs_cpu(cell, cell_models[cell], from_jax_params(cell_tree, cfg, "cpu"),
-                         LOGIT_TOL, min_same=0.95, rnn_kernel=fused_name[cell])
+        # end-to-end share is held at 95% here in float32; the decoder itself
+        # is exact on one lp tensor. In bf16 mode the bf16 step gates.
+        cell_f32 = step_card_vs_cpu(cell, cell_models[cell], cell_cpu, dna_batch["float32"],
+                                    min_same=0.95, rnn_kernel=fused_name[cell], lb=lb)
+        step_card_vs_cpu(f"{cell} bfloat16", cell_models[cell], cell_cpu, dna_batch["bfloat16"],
+                         rnn_kernel=fused_name[cell], f32_ref=cell_f32, lb=lb)
+        del cell_cpu
 
     # ---- 3c. the forward-only stack at full width, each cell type -----------
     uni_x = rnd(BATCH, SEG, 256)
-    uni_name = {"LSTM": "lstm_layer", "GRU": "gru_layer", "BNLSTM": "bnlstm_layer"}
+    uni_name = {"LSTM": "lstm_layer_float32", "GRU": "gru_layer", "BNLSTM": "bnlstm_layer"}
     uni_counts = {}
     for cell, kernel in uni_name.items():
         uni = R.init_unirnn_layers(torch.Generator().manual_seed(SEED), 256, 128, 3, 5, cell)
@@ -894,28 +1179,61 @@ def main(out_dir=OUT_DIR):
             out_c = R.unirnn_layers(uni, uni_x.cpu(), slc, cell)
         check_counts(f"unirnn_layers {cell}", cnt, {kernel: 3})
         uni_counts[kernel] = cnt[kernel]
+        out_f32 = out_c
         scale = float(out_c.abs().max())
         hold(f"unirnn_layers {cell} [400, 400, 256] card vs CPU (relative to max |logit|)",
              float((out_g.cpu() - out_c).abs().max()) / scale, LOGIT_TOL,
              f"(max |logit| {scale:.3f}; launches {kernel}: {cnt[kernel]}) ")
+        if cell == "LSTM":  # bf16 mode: the single direction's bf16 instance (row 5)
+            with torch.no_grad():
+                reset()
+                out_g = R.unirnn_layers(uni_g, uni_x.to(torch.bfloat16), slg, cell, bf16=True)
+                torch.cuda.synchronize()
+                cnt = counts()
+                out_c = R.unirnn_layers(uni, uni_x.cpu().to(torch.bfloat16), slc, cell,
+                                        bf16=True)
+            check_counts("unirnn_layers LSTM bf16", cnt, {"lstm_layer_bfloat16": 3})
+            uni_counts["lstm_layer_bfloat16"] = cnt["lstm_layer_bfloat16"]
+            rms_g, rms_c = rms(out_g.cpu() - out_f32), rms(out_c - out_f32)
+            hold("unirnn_layers LSTM bf16 [400, 400, 256]: RMS from the CPU's float32 output, "
+                 "card / CPU", rms_g / rms_c, BF16_RMS_RATIO,
+                 f"(card {rms_g:.3e}, CPU {rms_c:.3e}; card vs CPU max |diff| "
+                 f"{float((out_g.cpu() - out_c).abs().max()) / float(out_c.abs().max()):.3e} of "
+                 f"max |logit|; launches lstm_layer_bfloat16: 3) ")
 
-    # ---- 3d. one `rna`-layer-type LSTM batch through apply_model ------------
+    # ---- 3d. one `rna`-layer-type LSTM batch through apply_model, both modes -
     rna_cfg = {**config, "rnn": {**config["rnn"], "layer_type": "rna"}}
     rna_tree = to_numpy_tree(from_jax_params(
         M.init_model(torch.Generator().manual_seed(SEED), rna_cfg), rna_cfg, "cpu"))
-    reset()
-    rna_g = from_jax_params(rna_tree, rna_cfg, "cuda")(xg, slg)
-    torch.cuda.synchronize()
-    check_counts("rna-type LSTM batch", counts(), {"conv_bn": 12, "bilstm": 3})
-    rna_c = from_jax_params(rna_tree, rna_cfg, "cpu")(xc, slc)
-    scale = float(rna_c.abs().max())
-    hold("rna-type LSTM stack, one batch, logits card vs CPU (relative to max |logit|)",
-         float((rna_g.cpu() - rna_c).abs().max()) / scale, LOGIT_TOL,
-         f"(max |logit| {scale:.3f}) ")
+    rna_gpu = from_jax_params(rna_tree, rna_cfg, "cuda")
+    rna_cpu = from_jax_params(rna_tree, rna_cfg, "cpu")
+    rna_f32 = None
+    for tag, b16 in (("float32", False), ("bfloat16", True)):
+        xg_t, slg_t, xc_t, slc_t = dna_batch[tag]
+        reset()
+        rna_g = rna_gpu(xg_t, slg_t, bf16=b16)
+        torch.cuda.synchronize()
+        check_counts(f"rna-type LSTM batch {tag}", counts(),
+                     {f"conv_bn_{tag}": 12, f"bilstm_{tag}": 3})
+        rna_c = rna_cpu(xc_t, slc_t, bf16=b16)
+        scale = float(rna_c.abs().max())
+        err = float((rna_g.cpu() - rna_c).abs().max()) / scale
+        if not b16:
+            rna_f32 = rna_c
+            hold("rna-type LSTM stack float32, one batch, logits card vs CPU (relative to max "
+                 "|logit|)", err, LOGIT_TOL, f"(max |logit| {scale:.3f}) ")
+        else:
+            rms_g, rms_c = rms(rna_g.cpu() - rna_f32), rms(rna_c - rna_f32)
+            hold("rna-type LSTM stack bf16, one batch: RMS from the CPU's float32 logits, card / "
+                 "CPU", rms_g / rms_c, BF16_RMS_RATIO,
+                 f"(card {rms_g:.3e}, CPU {rms_c:.3e}; card vs CPU max |diff| {err:.3e} of max "
+                 f"|logit| {scale:.3f}) ")
+    del rna_cpu
     if failures:
         fail(f"card disagrees with the CPU: {failures}")
 
     # ---- 4. the training path: `train` at DNA_default width ----------------
+    phase("4. train")
     from chiron_tpu_torch.ops.ctc_loss import ctc_focal_loss
     from chiron_tpu_torch.train import loop
 
@@ -1004,56 +1322,62 @@ def main(out_dir=OUT_DIR):
         fail(f"card train step disagrees with the CPU step: {failures}")
 
     # ---- 5. timing ----------------------------------------------------------
-    # where one warm full-batch step's device time goes (CUDA events)
-    front = M.CNN_ZOO[config["cnn"]["model"]][1]
+    phase("5. timing")
 
-    def step_parts(model=gpu_model):
+    # where one warm full-batch step's device time goes (CUDA events)
+    def step_parts(model, batch, lb_m, bf16_mode=False):
+        xg_m, slg_m = batch[:2]
+        front = M.CNN_ZOO[model.config["cnn"]["model"]][1]
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         rnn_cfg = model.config["rnn"]
         with torch.no_grad():
             ev[0].record()
-            fea = L.materialize(front(model.params["cnn"], xg[..., None]))
+            fea = L.materialize(front(model.params["cnn"], xg_m[..., None], bf16=bf16_mode),
+                                bf16_mode)
             ev[1].record()
-            logits = R.rnn_layers(model.params["rnn"], fea, slg, rnn_cfg["cell_type"],
-                                  rnn_cfg["layer_type"])
+            logits = R.rnn_layers(model.params["rnn"], fea, slg_m, rnn_cfg["cell_type"],
+                                  rnn_cfg["layer_type"], bf16=bf16_mode)
             ev[2].record()
             prob = pipeline.path_prob(logits)
-            dec = beam.beam_search_decode(logits, slg, BEAM, lb)
+            dec = beam.beam_search_decode(logits, slg_m, BEAM, lb_m)
             ev[3].record()
             pipeline.pack_step_outputs(*dec, prob)
             ev[4].record()
         ev[4].synchronize()
         return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
 
-    step_parts()
-    parts = np.mean([step_parts() for _ in range(3)], axis=0)
-    log("one dna-pre beam-30 step, device ms: " + json.dumps(dict(zip(
-        ("cnn_front", "bilstm_stack_and_head", "path_prob_and_beam_decode", "pack"),
-        [float(v) for v in parts]))))
-    for cell, cell_model in cell_models.items():
-        step_parts(cell_model)
-        cparts = np.mean([step_parts(cell_model) for _ in range(3)], axis=0)
-        log(f"one dna-pre beam-30 step with the {cell} model, device ms: " + json.dumps(dict(zip(
+    def log_step_parts(label, *args):
+        step_parts(*args)
+        parts = np.mean([step_parts(*args) for _ in range(3)], axis=0)
+        log(f"one {label} beam-30 step, device ms: " + json.dumps(dict(zip(
             ("cnn_front", "rnn_stack_and_head", "path_prob_and_beam_decode", "pack"),
-            [float(v) for v in cparts]))))
-    # the device's busy share over one warm call (torch.profiler kernel time)
+            [float(v) for v in parts]))))
+
+    for name, (m_gpu, m_batch, m_lb) in model_steps.items():
+        for tag, b16 in (("float32", False), ("bfloat16", True)):
+            log_step_parts(f"{MODELS[name][0]} {name} {tag}", m_gpu, m_batch[tag], m_lb, b16)
+    for cell, cell_model in cell_models.items():
+        log_step_parts(f"dna-pre {cell} float32", cell_model, dna_batch["float32"], lb)
+    # the device's busy share over one warm call of each mode (torch.profiler
+    # kernel time)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall_p = call(os.path.join(work, "out_prof"), BEAM)
-    kern = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            kern[e.name] = kern.get(e.name, 0.0) + e.time_range.elapsed_us()
-    busy_s = sum(kern.values()) / 1e6
-    if busy_s > 0:
-        top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
-        log(f"profiled warm call: wall {wall_p:.3f} s, device busy {busy_s:.3f} s, idle share "
-            f"{1 - busy_s / wall_p:.3f}; top device time (ms): "
-            + json.dumps({k[:60]: round(v / 1e3, 3) for k, v in top}))
-    else:
-        log("profiled warm call: device busy share not measured (no device events)")
+    for tag, b16 in (("float32", False), ("bfloat16", True)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall_p = call(os.path.join(work, f"out_prof_{tag}"), BEAM, bf16_mode=b16)
+        kern = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                kern[e.name] = kern.get(e.name, 0.0) + e.time_range.elapsed_us()
+        busy_s = sum(kern.values()) / 1e6
+        if busy_s > 0:
+            top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
+            log(f"profiled warm call -p dna-pre --beam 30 {tag}: wall {wall_p:.3f} s, device "
+                f"busy {busy_s:.3f} s, idle share {1 - busy_s / wall_p:.3f}; top device time "
+                f"(ms): " + json.dumps({k[:60]: round(v / 1e3, 3) for k, v in top}))
+        else:
+            log(f"profiled warm call {tag}: device busy share not measured (no device events)")
 
     # a warm train step at -s 400 -b 300 (fresh seeded weights), split with
     # CUDA events, then steps/s over warm steps and the idle share of a
@@ -1155,14 +1479,78 @@ def main(out_dir=OUT_DIR):
     log("conv_bn at dna_model1's shapes, [400, 400] batch (3 / 7 / 2 of the 12 launches a "
         "batch; library = F.conv1d + F.batch_norm, cuDNN TF32 off / on): "
         + json.dumps(conv_shapes))
+    # the bf16 instances at the same shapes, beside the float32 instance on the
+    # same raws upcast (in turns: f32, bf16, bf16, f32). Library: the same
+    # function, F.conv1d + F.batch_norm on the upcast normalised input (TF32
+    # off); a cuDNN bf16 conv (bf16 products: another function) as a note only
+    conv_shapes_bf16 = {}
+    for case in ("k3_two_terms_relu", "k1_two_terms_relu", "k1_cin1"):
+        terms, w, relu, stride = conv_cases_bf16[case]
+        terms32 = [(r.float(), a, b) for r, a, b in terms]
+        z = sum(r.float() * a + b for r, a, b in terms)
+        z_ncw = (torch.relu(z) if relu else z).transpose(1, 2).contiguous()
+        w_oik = w.permute(2, 1, 0).contiguous()
+        z16, w16 = z_ncw.to(bf16), w_oik.to(bf16)
+        pad = (w.shape[0] - 1) // 2
+
+        def run_bf16():
+            return conv_bn.conv_bn(terms, w, relu, stride, out_dtype=bf16)
+
+        def run_f32():
+            return conv_bn.conv_bn(terms32, w, relu, stride)
+
+        turns = [time_ms(torch, fn, 10) for fn in (run_f32, run_bf16, run_bf16, run_f32)]
+        b_ms, b_by, b_unit = conv_bound(terms, w, stride, conv_route_bf16[case] == 2)
+        conv_shapes_bf16[case] = {
+            "ms": (turns[1] + turns[2]) / 2, "f32_instance_ms": (turns[0] + turns[3]) / 2,
+            "turns_f32_bf16_bf16_f32": turns,
+            "plain_ms": time_ms(torch, lambda: conv_bn.conv_bn_plain(terms, w, relu, stride,
+                                                                     out_dtype=bf16), 5),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_unit": b_unit,
+            "library_ms": time_ms(torch, lambda: F.batch_norm(
+                F.conv1d(z_ncw, w_oik, padding=pad), None, None, training=True), 10),
+            "note_cudnn_bf16_conv_ms": time_ms(torch, lambda: F.batch_norm(
+                F.conv1d(z16, w16, padding=pad), None, None, training=True), 10),
+            "route": conv_route_bf16[case]}
+        if conv_shapes_bf16[case]["ms"] < b_ms:
+            fail(f"conv_bn bf16 {case}: reads below its bound {b_ms:.4f} ms")
+    log("conv_bn bf16 instances at dna_model1's shapes (bound at bf16 bytes; library = "
+        "F.conv1d + F.batch_norm on the upcast input, TF32 off; cuDNN's bf16 conv, another "
+        "function, as a note): " + json.dumps(conv_shapes_bf16))
     main_conv = conv_shapes["k3_two_terms_relu"]
     timing = {"conv_bn": (main_conv["ms"], main_conv["plain_ms"], main_conv["library_ms"])}
+    main_bf16 = conv_shapes_bf16["k3_two_terms_relu"]
+    timing["conv_bn_bf16"] = (main_bf16["ms"], main_bf16["plain_ms"], main_bf16["library_ms"])
     lstm_lib = torch.nn.LSTM(256, h, batch_first=False, bidirectional=True).to(dev)
     x_lib = rnd(t_len, BATCH, 256)
     with torch.no_grad():
         timing["bilstm"] = (time_ms(torch, lambda: bilstm.bilstm_layer(*lstm_args), 5),
                             time_ms(torch, lambda: bilstm.bilstm_layer_plain(*lstm_args), 2, 1),
                             time_ms(torch, lambda: lstm_lib(x_lib), 5))
+        # the bf16 instance (rows 2 and 5) at T = B = 400, H = 128, beside the
+        # float32 instance on the same xw upcast, in turns (f32, bf16, bf16, f32);
+        # library: cuDNN's float32 LSTM, as for the float32 rows
+        a16 = bf16_lstm_args
+        a32 = (a16[0].float(), a16[1].float(), *a16[2:])
+        one16 = (a16[1], a16[3], a16[4], a16[5])
+        one32 = (a32[1], a32[3], a32[4], a32[5])
+        lstm_lib_one = torch.nn.LSTM(256, h).to(dev)
+        lstm_turns = {
+            "bilstm": [time_ms(torch, lambda: bilstm.bilstm_layer(*a), 5)
+                       for a in (a32, a16, a16, a32)],
+            "lstm_layer": [time_ms(torch, lambda: lstm.lstm_layer(*a), 5)
+                           for a in (one32, one16, one16, one32)]}
+        timing["bilstm_bf16"] = (
+            sum(lstm_turns["bilstm"][1:3]) / 2,
+            time_ms(torch, lambda: bilstm.bilstm_layer_plain(*a16), 2, 1), timing["bilstm"][2])
+        timing["lstm_layer_bf16"] = (
+            sum(lstm_turns["lstm_layer"][1:3]) / 2,
+            time_ms(torch, lambda: lstm.lstm_layer_plain(*one16), 2, 1),
+            time_ms(torch, lambda: lstm_lib_one(x_lib), 5))
+    log("LSTM inference kernel at T = B = 400, H = 128, ms in turns (float32 instance on the "
+        f"upcast xw, bf16, bf16, float32): {json.dumps(lstm_turns)}; bf16 geometry "
+        f"{bilstm.inference_geometry(BATCH, h, 2, dev, bf16)} fused, "
+        f"{bilstm.inference_geometry(BATCH, h, 1, dev, bf16)} one direction")
     lp = beam_inputs["random"]
     trace, pb, pnb = beam.beam_search(lp, beam_lens, BEAM, bonus)
     best = torch.argmax(beam._lae(pb, pnb), dim=1).to(torch.int32)
@@ -1337,6 +1725,11 @@ def main(out_dir=OUT_DIR):
               "lstm_bwd": bounds_bwd,
               "conv_bn": (main_conv["bound_ms"], main_conv["bound_by"]),
               "bilstm": recurrent_bound("lstm", float(lens.sum()), t_len, BATCH, h, 2),
+              "conv_bn_bf16": (main_bf16["bound_ms"], main_bf16["bound_by"]),
+              "bilstm_bf16": recurrent_bound("lstm", float(bf16_lstm_args[4].sum()), t_len,
+                                             BATCH, h, 2, xw_bytes=2),
+              "lstm_layer_bf16": recurrent_bound("lstm", float(bf16_lstm_args[4].sum()), t_len,
+                                                 BATCH, h, xw_bytes=2),
               "beam_search": beam_bound(float(beam_lens.sum()), BATCH, t_len, BEAM),
               # best, path reads, chars
               "beam_traceback": bound_ms(BATCH * t_len, 4.0 * (BATCH + 2 * BATCH * t_len))}
@@ -1355,6 +1748,12 @@ def main(out_dir=OUT_DIR):
                                "chiron_tpu/ops/pallas/lstm_grad.py:120", fwd_err),
         "lstm_bwd": ("chiron_tpu_torch/csrc/lstm_grad.cu",
                      "chiron_tpu/ops/pallas/lstm_grad.py:174", bwd_err),
+        "conv_bn_bf16": ("chiron_tpu_torch/csrc/conv_bn.cu",
+                         "chiron_tpu/ops/pallas/convbn.py:188", conv_err_bf16),
+        "bilstm_bf16": ("chiron_tpu_torch/csrc/bilstm.cu", "chiron_tpu/ops/pallas/lstm.py:254",
+                        lstm_err_bf16["bilstm"]),
+        "lstm_layer_bf16": ("chiron_tpu_torch/csrc/bilstm.cu",
+                            "chiron_tpu/ops/pallas/lstm.py:141", lstm_err_bf16["lstm_layer"]),
         "bigru_layer": ("chiron_tpu_torch/csrc/gru.cu", "chiron_tpu/ops/pallas/gru.py:161",
                         rec_err["bigru_layer"]),
         "gru_layer": ("chiron_tpu_torch/csrc/gru.cu", "chiron_tpu/ops/pallas/gru.py:230",
@@ -1365,8 +1764,15 @@ def main(out_dir=OUT_DIR):
                            "chiron_tpu/ops/pallas/bnlstm.py:261", rec_err["bibnlstm_layer"]),
     }
     # each count is from the run that drives its kernel: the DNA_default beam-30
-    # call, the train run, the GRU and BNLSTM calls, the forward-only stacks
+    # call (float32; --bf16 for the bf16 instances), the train run, the GRU and
+    # BNLSTM calls, the forward-only stacks
     path_launches = {**beam_counts, **train_counts, **uni_counts,
+                     "conv_bn": beam_counts["conv_bn_float32"],
+                     "bilstm": beam_counts["bilstm_float32"],
+                     "lstm_layer": uni_counts["lstm_layer_float32"],
+                     "conv_bn_bf16": bf16_counts["conv_bn_bfloat16"],
+                     "bilstm_bf16": bf16_counts["bilstm_bfloat16"],
+                     "lstm_layer_bf16": uni_counts["lstm_layer_bfloat16"],
                      "bigru_layer": cell_counts["GRU"]["bigru_layer"],
                      "bibnlstm_layer": cell_counts["BNLSTM"]["bibnlstm_layer"]}
     kernels = []
@@ -1389,8 +1795,12 @@ def main(out_dir=OUT_DIR):
     log("  kernel no slower than its library call: " + json.dumps(
         {k["name"]: k["ms"] <= k["library_ms"] for k in kernels if k["library_ms"]}))
     shutil.rmtree(work, ignore_errors=True)
-    log(json.dumps({"call_dna_pre_beam30": call_rate, "train_s400_b300": train_rate,
-                    **{f"call_dna_pre_beam30_{c}": r for c, r in cell_rates.items()}}))
+    log(json.dumps({**{f"call_{k}": r for k, r in call_rates.items()},
+                    "train_s400_b300": train_rate,
+                    **{f"call_dna_pre_beam30_{c}": r for c, r in cell_rates.items()},
+                    **{f"call_{k}_beam30": r for k, r in model_rates.items()},
+                    "bf16_vs_float32_on_the_card": mode_cmp}))
+    phase("done")
     log(smi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

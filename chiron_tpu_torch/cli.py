@@ -161,7 +161,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--test_number", default=None, type=int,
                    help="Extract test_number reads, default is None, extract all reads.")
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 inference (not supported by this port yet).")
+                   help="bfloat16 inference mode: bf16 activations and matmul inputs, "
+                        "float32 accumulation, state and logits.")
     p.add_argument("-p", "--preset", default=None,
                    help="Preset evaluation parameters: dna-pre, dna-slow-pre, rna-pre")
     p.add_argument("--n_devices", type=int, default=0,

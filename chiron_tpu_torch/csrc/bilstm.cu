@@ -44,8 +44,26 @@
 // shared memory ([cluster][HP][LC]), so the product's addresses, its order of
 // sums and its bits are those of the resident kernel. H <= 512: a block holds
 // at most 64 hidden units (4 * HS <= 256 threads) and a cluster 8 blocks.
+//
+// bf16 inference mode (the JAX kernels stream bf16 xw and write bf16 h): the
+// kernel is a template on XT, the element type of xw and out, with a float32
+// and a bfloat16 instance. The bf16 instance keeps the xw tiles in shared memory
+// as bf16 (half the bytes) and converts each element to float32 where it starts a
+// column's k sum; c, h, the shared h broadcast, wh and the product stay float32,
+// and only the out store rounds, to nearest even. So on bf16 xw it equals the
+// float32 instance on the same xw upcast, with out rounded afterwards, bit for
+// bit. The two instances are built into two libraries, in parallel (this file
+// with -DLSTM_XW_BF16 is the bf16 one: ops/cuda_build.py), which halves the
+// build's wall time against one file with both (63 s measured on an H100's
+// host). The prefetch copies xw in one of three ways (the launcher picks by shape and
+// alignment): 16-byte chunks (4 float32 or 8 bf16 elements of one gate's run of
+// the block's units), 4-byte chunks (one float32 or two bf16 elements; a thread
+// a column, or a pair of columns), or, for bf16 where H or the slice is odd or
+// xw is only 2-byte aligned, one element at a time through registers (a plain
+// load that the thread waits for before the block barrier).
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,6 +74,11 @@ namespace {
 constexpr int THREADS = 256;   // one per gate column of a block's slice: 4 * HS <= 256
 constexpr int MAX_ROWS = 16;   // batch rows of a tile, a template parameter 1..16
 constexpr int EPT = 4;         // (row, unit) elements and 16-byte xw chunks a thread: R * HS <= 4 * THREADS
+
+// how the prefetch copies a step's xw tile (see the head of the file)
+constexpr int COPY_ELEMENTS = 0;  // one element at a time, through registers (bf16 only)
+constexpr int COPY_4B = 1;        // 4-byte cp.async: one float32 or two bf16 a copy
+constexpr int COPY_16B = 2;       // 16-byte cp.async: four float32 or eight bf16 a copy
 constexpr int K_UNROLL = 4;    // k loop of the product: 16 weights and 4R h reads in flight
 
 __device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
@@ -67,6 +90,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename XT>
+__device__ __forceinline__ XT from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -81,12 +114,14 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
-// Floats of dynamic shared memory of one block (plus 2R ints of windows): wh
-// slice [HP][LC] (not with wh_global), h [2][R][HP], gate pre-activations
-// [R][LC], xw tiles [2][R][LC]; HP = H rounded up to 4, LC = 4 * HS.
-inline int infer_smem_floats(int H, int HS, int R, bool wh_global) {
+// Bytes of dynamic shared memory of one block: wh slice [HP][LC] (not with
+// wh_global), h [2][R][HP] and gate pre-activations [R][LC] in float32, xw tiles
+// [2][R][LC] of xw_bytes each, and 2R ints of windows; HP = H rounded up to 4,
+// LC = 4 * HS.
+inline int infer_smem_bytes(int H, int HS, int R, bool wh_global, int xw_bytes) {
   const int HP = (H + 3) & ~3, LC = 4 * HS;
-  return (wh_global ? 0 : HP * LC) + 2 * R * HP + 3 * R * LC;
+  return (int)sizeof(float) * ((wh_global ? 0 : HP * LC) + 2 * R * HP + R * LC) +
+         xw_bytes * 2 * R * LC + 2 * (int)sizeof(int) * R;
 }
 
 // tools/kernel_probe.py builds this file with -DLSTM_PROBE: thread 0 of block
@@ -105,22 +140,22 @@ __device__ long long infer_probe_clocks[8];
 #define PROBE(i)
 #endif
 
-template <int R, bool WG>
+template <typename XT, int R, bool WG>
 __global__ void __launch_bounds__(THREADS, 1)
-    lstm_infer_kernel(const float* __restrict__ xw_f, const float* __restrict__ xw_b,
+    lstm_infer_kernel(const XT* __restrict__ xw_f, const XT* __restrict__ xw_b,
                       const float* __restrict__ wh_f, const float* __restrict__ wh_b,
                       const int* __restrict__ lens, const int* __restrict__ starts_f,
-                      const int* __restrict__ starts_b, float* __restrict__ out_f,
-                      float* __restrict__ out_b, int T, int B, int H, int HS, int vec) {
+                      const int* __restrict__ starts_b, XT* __restrict__ out_f,
+                      XT* __restrict__ out_b, int T, int B, int H, int HS, int copy) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int CS = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int dir = blockIdx.y;  // 0 forward, 1 backward (flipped input)
-  const float* xw = dir == 0 ? xw_f : xw_b;
+  const XT* xw = dir == 0 ? xw_f : xw_b;
   const float* wh = dir == 0 ? wh_f : wh_b;
   const int* starts = dir == 0 ? starts_f : starts_b;  // null: every row starts at 0
-  float* out = dir == 0 ? out_f : out_b;
+  XT* out = dir == 0 ? out_f : out_b;
   const int b0 = (blockIdx.x / CS) * R;
   const int HP = (H + 3) & ~3;
   const int LC = 4 * HS;
@@ -132,7 +167,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* ws = smem;                 // [HP][LC] wh[:, gate * H + u0 + u] at column gate * HS + u
   float* h_s = ws + (WG ? 0 : HP * LC);  // [2][R][HP] the whole h of the tile, by step parity
   float* g_s = h_s + 2 * R * HP;    // [R][LC] gate pre-activations
-  float* xs = g_s + R * LC;         // [2][R][LC] xw tiles, by step parity
+  XT* xs = reinterpret_cast<XT*>(g_s + R * LC);  // [2][R][LC] xw tiles, by step parity
   int* lo_s = reinterpret_cast<int*>(xs + 2 * R * LC);  // [R] window start
   int* hi_s = lo_s + R;                                 // [R] window end
 
@@ -144,7 +179,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   }
   for (int i = tid; i < 2 * R * HP; i += THREADS) h_s[i] = 0.f;
-  for (int i = tid; i < 2 * R * LC; i += THREADS) xs[i] = 0.f;  // padding rows and units stay 0
+  for (int i = tid; i < 2 * R * LC; i += THREADS) xs[i] = from_float<XT>(0.f);  // padding stays 0
   if (tid < R) {
     const int b = b0 + tid;
     const int len = b < B ? lens[b] : 0;
@@ -153,22 +188,26 @@ __global__ void __launch_bounds__(THREADS, 1)
     hi_s[tid] = st + len;
   }
 
-  // This thread's share of one xw tile, the same at every step. With vec, 16-byte
-  // chunks (runs of HS / 4 per row and gate) spread over all threads: offsets in the
-  // tile and in xw[t], -1 for none. Without, 4-byte copies of the thread's own
-  // column, row by row: xw_col is the column's offset in xw[t] for row b0, -1 for none.
+  // This thread's share of one xw tile, the same at every step. COPY_16B: 16-byte
+  // chunks of CE elements (runs of HS / CE per row and gate) spread over all
+  // threads: offsets in the tile and in xw[t], -1 for none. Otherwise the thread's
+  // own group of PE columns (PE elements in 4 bytes: COPY_4B; one column:
+  // COPY_ELEMENTS), row by row: xw_col is the group's offset in xw[t] for row b0,
+  // -1 for none.
+  constexpr int CE = 16 / (int)sizeof(XT);
+  const int PE = copy == COPY_4B ? 4 / (int)sizeof(XT) : 1;
   int xw_dst[EPT], xw_src[EPT], xw_col;
 #pragma unroll
   for (int i = 0; i < EPT; ++i) {
     xw_dst[i] = -1;
     xw_src[i] = 0;
-    if (vec) {
-      const int q = HS / 4;
+    if (copy == COPY_16B) {
+      const int q = HS / CE;
       const int e = tid + i * THREADS;
       const int r = e / (4 * q);
       const int rem = e - r * 4 * q;
       const int gate = rem / q;
-      const int u = (rem - gate * q) * 4;
+      const int u = (rem - gate * q) * CE;
       if (r < R && b0 + r < B && u < hs) {
         xw_dst[i] = r * LC + gate * HS + u;
         xw_src[i] = (b0 + r) * G + gate * H + u0 + u;
@@ -176,20 +215,27 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   }
   {
-    const int gate = tid / HS, u = tid - gate * HS;
-    xw_col = (!vec && tid < LC && u < hs) ? b0 * G + gate * H + u0 + u : -1;
+    const int lc = tid * PE;
+    const int gate = lc / HS, u = lc - gate * HS;
+    xw_col = (copy != COPY_16B && lc < LC && u < hs) ? b0 * G + gate * H + u0 + u : -1;
   }
   auto prefetch = [&](int t) {
-    float* dst = xs + (t & 1) * R * LC;
-    const float* src = xw + (size_t)t * B * G;
-    if (vec) {
+    XT* dst = xs + (t & 1) * R * LC;
+    const XT* src = xw + (size_t)t * B * G;
+    if (copy == COPY_16B) {
 #pragma unroll
       for (int i = 0; i < EPT; ++i)
         if (xw_dst[i] >= 0) cp_async16(dst + xw_dst[i], src + xw_src[i]);
     } else if (xw_col >= 0) {
+      const int lc = tid * PE;
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        if (b0 + r < B) cp_async4(dst + r * LC + tid, src + xw_col + r * G);
+      for (int r = 0; r < R; ++r) {
+        if (b0 + r >= B) continue;
+        if (copy == COPY_4B)
+          cp_async4(dst + r * LC + lc, src + xw_col + r * G);
+        else
+          dst[r * LC + lc] = src[xw_col + r * G];
+      }
     }
     cp_async_commit();
   };
@@ -222,10 +268,10 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     // pre-activations of this thread's column: xw[t] + h @ wh, k in order
     if (tid < LC) {
-      const float* xt = xs + (t & 1) * R * LC + tid;
+      const XT* xt = xs + (t & 1) * R * LC + tid;
       float acc[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = xt[r * LC];
+      for (int r = 0; r < R; ++r) acc[r] = to_float(xt[r * LC]);
       const float4* h4 = reinterpret_cast<const float4*>(h_cur);
       const float* wp = ws + tid;
       if constexpr (WG) wp = wh + (size_t)rank * HP * LC + tid;
@@ -280,7 +326,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int i = 0; i < EPT; ++i) {
       if (el_r[i] < 0 || b0 + el_r[i] >= B) continue;
-      out[((size_t)t * B + b0 + el_r[i]) * H + u0 + el_u[i]] = v_out[i];
+      out[((size_t)t * B + b0 + el_r[i]) * H + u0 + el_u[i]] = from_float<XT>(v_out[i]);
     }
     PROBE(3)  // the wait for xw[t + 1], the barrier's arrive and the out stores
     cluster_wait();
@@ -288,34 +334,48 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-using InferKernel = void (*)(const float*, const float*, const float*, const float*, const int*,
-                             const int*, const int*, float*, float*, int, int, int, int, int);
+// the element type of xw and out that this library's instance streams
+#ifdef LSTM_XW_BF16
+using XW = __nv_bfloat16;
+#else
+using XW = float;
+#endif
 
-// lstm_infer_kernel<rows, wh_global> for rows in 1..R, nullptr otherwise
-template <int R>
-InferKernel kernel_for_rows(int rows, bool wh_global) {
-  if (rows == R) return wh_global ? lstm_infer_kernel<R, true> : lstm_infer_kernel<R, false>;
-  if constexpr (R > 1) return kernel_for_rows<R - 1>(rows, wh_global);
+template <typename XT>
+using InferKernel = void (*)(const XT*, const XT*, const float*, const float*, const int*,
+                             const int*, const int*, XT*, XT*, int, int, int, int, int);
+
+// lstm_infer_kernel<XT, rows, wh_global> for rows in 1..R, nullptr otherwise
+template <typename XT, int R>
+InferKernel<XT> kernel_for_rows(int rows, bool wh_global) {
+  if (rows == R)
+    return wh_global ? lstm_infer_kernel<XT, R, true> : lstm_infer_kernel<XT, R, false>;
+  if constexpr (R > 1) return kernel_for_rows<XT, R - 1>(rows, wh_global);
   return nullptr;
 }
 
-int launch(int dirs, const float* xw_f, const float* xw_b, const float* wh_f, const float* wh_b,
-           const int* lens, const int* starts_f, const int* starts_b, float* out_f, float* out_b,
+template <typename XT>
+int launch(int dirs, const XT* xw_f, const XT* xw_b, const float* wh_f, const float* wh_b,
+           const int* lens, const int* starts_f, const int* starts_b, XT* out_f, XT* out_b,
            int T, int B, int H, int rows, int cluster, int smem_bytes, int wh_global,
            void* stream) {
   if (cluster < 1 || cluster > 8 || (cluster & (cluster - 1)) || H < 1 || T < 1 || B < 1)
     return (int)cudaErrorInvalidValue;
-  const InferKernel kernel = kernel_for_rows<MAX_ROWS>(rows, wh_global != 0);
+  const InferKernel<XT> kernel = kernel_for_rows<XT, MAX_ROWS>(rows, wh_global != 0);
   const int HS = (H + cluster - 1) / cluster;
-  const int need = (int)sizeof(float) * infer_smem_floats(H, HS, rows, wh_global != 0) +
-                   2 * (int)sizeof(int) * rows;
+  const int need = infer_smem_bytes(H, HS, rows, wh_global != 0, (int)sizeof(XT));
   if (kernel == nullptr || 4 * HS > THREADS || rows * HS > EPT * THREADS || smem_bytes < need)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute((const void*)kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
+  // the widest copy that the shape and the pointers allow (see the head of the file);
+  // xw_b is null for one direction
   const uintptr_t align = reinterpret_cast<uintptr_t>(xw_f) | reinterpret_cast<uintptr_t>(xw_b);
-  const int vec = (H % 4 == 0 && HS % 4 == 0 && (align & 15) == 0);
+  constexpr int CE = 16 / (int)sizeof(XT), PE = 4 / (int)sizeof(XT);
+  const int copy = (H % CE == 0 && HS % CE == 0 && (align & 15) == 0) ? COPY_16B
+                   : (H % PE == 0 && HS % PE == 0 && (align & 3) == 0) ? COPY_4B
+                                                                        : COPY_ELEMENTS;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(((B + rows - 1) / rows) * cluster, dirs);
   cfg.blockDim = dim3(THREADS);
@@ -329,7 +389,7 @@ int launch(int dirs, const float* xw_f, const float* xw_b, const float* wh_f, co
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, xw_f, xw_b, wh_f, wh_b, lens, starts_f, starts_b, out_f,
-                           out_b, T, B, H, HS, vec);
+                           out_b, T, B, H, HS, copy);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -348,25 +408,33 @@ int infer_probe_read(long long* dst) {
 }
 #endif
 
-// xw_*: [T, B, 4H] float32, wh_*: [H, 4H], lens/starts: [B] int32,
-// out_*: [T, B, H]. 1 <= H <= 512. The geometry comes from the caller: rows of a
-// batch tile (1..16), blocks of a cluster (1, 2, 4 or 8, each holding
-// ceil(H / cluster) <= 64 hidden units), the dynamic shared memory of a block,
-// and wh_global: wh_* are then [cluster][HP][4 * HS] slices read from device
-// memory (HP = H rounded up to 4, HS = ceil(H / cluster), zero padded).
-int bilstm_launch(const float* xw_f, const float* xw_b, const float* wh_f, const float* wh_b,
-                  const int* lens, const int* starts, float* out_f, float* out_b, int T, int B,
-                  int H, int rows, int cluster, int smem_bytes, int wh_global, void* stream) {
-  return launch(2, xw_f, xw_b, wh_f, wh_b, lens, nullptr, starts, out_f, out_b, T, B, H, rows,
+// xw_*: [T, B, 4H], out_*: [T, B, H], both float32, or bfloat16 in the
+// library built with -DLSTM_XW_BF16 (bf16 must say which: a call for the other
+// element type returns cudaErrorInvalidValue); wh_*: [H, 4H] float32,
+// lens/starts: [B] int32. 1 <= H <= 512. The geometry
+// comes from the caller: rows of a batch tile (1..16), blocks of a cluster (1, 2,
+// 4 or 8, each holding ceil(H / cluster) <= 64 hidden units), the dynamic shared
+// memory of a block, and wh_global: wh_* are then [cluster][HP][4 * HS] slices
+// read from device memory (HP = H rounded up to 4, HS = ceil(H / cluster), zero
+// padded).
+int bilstm_launch(const void* xw_f, const void* xw_b, const float* wh_f, const float* wh_b,
+                  const int* lens, const int* starts, void* out_f, void* out_b, int T, int B,
+                  int H, int rows, int cluster, int smem_bytes, int wh_global, int bf16,
+                  void* stream) {
+  if ((bf16 != 0) != (sizeof(XW) == 2)) return (int)cudaErrorInvalidValue;
+  return launch(2, static_cast<const XW*>(xw_f), static_cast<const XW*>(xw_b), wh_f, wh_b, lens,
+                nullptr, starts, static_cast<XW*>(out_f), static_cast<XW*>(out_b), T, B, H, rows,
                 cluster, smem_bytes, wh_global, stream);
 }
 
 // One direction; starts may be null (every row's window is [0, len)).
-int lstm_launch(const float* xw, const float* wh, const int* lens, const int* starts, float* out,
+int lstm_launch(const void* xw, const float* wh, const int* lens, const int* starts, void* out,
                 int T, int B, int H, int rows, int cluster, int smem_bytes, int wh_global,
-                void* stream) {
-  return launch(1, xw, nullptr, wh, nullptr, lens, starts, nullptr, out, nullptr, T, B, H, rows,
-                cluster, smem_bytes, wh_global, stream);
+                int bf16, void* stream) {
+  if ((bf16 != 0) != (sizeof(XW) == 2)) return (int)cudaErrorInvalidValue;
+  return launch(1, static_cast<const XW*>(xw), static_cast<const XW*>(nullptr), wh, nullptr,
+                lens, starts, nullptr, static_cast<XW*>(out), static_cast<XW*>(nullptr), T, B, H,
+                rows, cluster, smem_bytes, wh_global, stream);
 }
 
 }  // extern "C"

@@ -80,7 +80,22 @@
 // a channel sum that nearly cancels. So that kernel takes sum(y) from the
 // conv's linearity instead: per-tile column sums of the normalised input per
 // (tap, channel), reduced over the tiles and multiplied by w in float64.
+//
+// bf16 inference mode: both kernels are templates on the element type T of
+// the raw terms and of y, with a float32 and a bfloat16 instance (the JAX
+// kernel's bf16 raw inputs and out_dtype=bf16). The bf16 instance is the same
+// function on the same float32 arithmetic: raw elements are converted to float32
+// before the prologue's affine, the product runs on float32 z and float32 w
+// (3xTF32, as in the float32 instance: a bf16 MMA would be another function, z
+// is not bf16-representable and w stays float32), the moments are taken from the
+// float32 accumulators, and only the store of y rounds, to nearest even
+// (__floats2bfloat162_rn). Its raw slab holds bf16, so a thread's four channels
+// arrive by an 8-byte cp.async instead of 16 bytes. So the bf16 instance on bf16
+// raws equals, bit for bit, the float32 instance on the same raws upcast, with y
+// rounded afterwards (where both take the same route). Its tensor-core kernel
+// runs two blocks an SM, not three (registers: see the kernel).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -105,10 +120,49 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
+}
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+
+// Four consecutive elements of type T: an async copy (16 bytes of float32, 8 of
+// bfloat16), a load as float32, a store rounded from float32 (to nearest even
+// for bfloat16); and one or two elements.
+__device__ __forceinline__ void cp_async_4el(float* dst, const float* src) { cp_async16(dst, src); }
+__device__ __forceinline__ void cp_async_4el(__nv_bfloat16* dst, const __nv_bfloat16* src) {
+  cp_async8(dst, src);
+}
+__device__ __forceinline__ float4 load_4el(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load_4el(const __nv_bfloat16* p) {
+  // one 8-byte load; a bfloat16 is the high half of its float32
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ void store_4el(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store_4el(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  q[0] = __floats2bfloat162_rn(v.x, v.y);
+  q[1] = __floats2bfloat162_rn(v.z, v.w);
+}
+__device__ __forceinline__ void store_2el(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_2el(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store_el(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_el(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 // The nearest TF32 value (ties away from zero, as cvt.rna.tf32.f32 rounds), in two
 // integer operations: nvcc expands the cvt into five with its NaN handling, and
@@ -144,12 +198,16 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__global__ void __launch_bounds__(NT, 3)
-conv_bn_mma_kernel(const float* __restrict__ raw0, const float* __restrict__ raw1,
+// Three blocks an SM for the float32 instance (168 registers, no spill); the
+// bfloat16 instance spills at that cap (12 bytes, measured with -Xptxas -v) and
+// takes two blocks an SM instead (218 registers, no spill).
+template <typename T>
+__global__ void __launch_bounds__(NT, sizeof(T) == 4 ? 3 : 2)
+conv_bn_mma_kernel(const T* __restrict__ raw0, const T* __restrict__ raw1,
                    const float* __restrict__ a0, const float* __restrict__ b0,
                    const float* __restrict__ a1, const float* __restrict__ b1,
-                   const float* __restrict__ w, float* __restrict__ y,
-                   float* __restrict__ partial, float* __restrict__ xpart, int T, int cin,
+                   const float* __restrict__ w, T* __restrict__ y,
+                   float* __restrict__ partial, float* __restrict__ xpart, int T_, int cin,
                    int cout, int k, int stride, int lpad, int out_t, int relu_in) {
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
@@ -161,13 +219,13 @@ conv_bn_mma_kernel(const float* __restrict__ raw0, const float* __restrict__ raw
   const bool two = raw1 != nullptr;
   const int slab_rows = (BM - 1) * stride + k;
   const int tin0 = t0 * stride - lpad;  // input row of slab row 0
-  const int raw_buf = slab_rows * KC;   // floats of one term of the raw slab
+  const int raw_buf = slab_rows * KC;   // elements of one term of the raw slab
   float* Xs = smem;                     // [slab_rows][PX] normalised input slice
   float* Ws = Xs + slab_rows * PX;      // [NS][KC][PW] weight ring
-  float* Rs = Ws + NS * KC * PW;        // [terms][slab_rows][KC] raw slab
+  T* Rs = reinterpret_cast<T*>(Ws + NS * KC * PW);  // [terms][slab_rows][KC] raw slab
   const int n_slices = (cin + KC - 1) / KC;
   const int nq = n_slices * k;          // weight tiles: (slice, tap) in order
-  const size_t in_base = (size_t)b * T * cin;
+  const size_t in_base = (size_t)b * T_ * cin;
 
   // weight tile q = (slice, tap) -> ring stage q % NS; zeros outside w
   auto fetch_w = [&](int q) {
@@ -198,10 +256,10 @@ conv_bn_mma_kernel(const float* __restrict__ raw0, const float* __restrict__ raw
     if (c >= cin) return;
     for (int j = j0; j < slab_rows; j += JS) {
       const int tin = tin0 + j;
-      if (tin >= 0 && tin < T) {
+      if (tin >= 0 && tin < T_) {
         const size_t off = in_base + (size_t)tin * cin + c;
-        cp_async16(Rs + j * KC + c4, raw0 + off);
-        if (two) cp_async16(Rs + raw_buf + j * KC + c4, raw1 + off);
+        cp_async_4el(Rs + j * KC + c4, raw0 + off);
+        if (two) cp_async_4el(Rs + raw_buf + j * KC + c4, raw1 + off);
       }
     }
   };
@@ -225,14 +283,14 @@ conv_bn_mma_kernel(const float* __restrict__ raw0, const float* __restrict__ raw
     for (int j = j0; j < slab_rows; j += JS) {
       const int tin = tin0 + j;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (has_c && tin >= 0 && tin < T) {
-        const float4 r = *reinterpret_cast<const float4*>(Rs + j * KC + c4);
+      if (has_c && tin >= 0 && tin < T_) {
+        const float4 r = load_4el(Rs + j * KC + c4);
         v.x = fmaf(r.x, sa.x, sb.x);
         v.y = fmaf(r.y, sa.y, sb.y);
         v.z = fmaf(r.z, sa.z, sb.z);
         v.w = fmaf(r.w, sa.w, sb.w);
         if (two) {
-          const float4 r1 = *reinterpret_cast<const float4*>(Rs + raw_buf + j * KC + c4);
+          const float4 r1 = load_4el(Rs + raw_buf + j * KC + c4);
           v.x += fmaf(r1.x, ta.x, tb.x);
           v.y += fmaf(r1.y, ta.y, tb.y);
           v.z += fmaf(r1.z, ta.z, tb.z);
@@ -369,7 +427,8 @@ conv_bn_mma_kernel(const float* __restrict__ raw0, const float* __restrict__ raw
   cp_async_wait<0>();
 
   // epilogue: raw output and this tile's per-channel partial sums of y^2 over
-  // its rows < out_t. A warp owns its 32 channels for all 80 rows: thread
+  // its rows < out_t, from the float32 accumulators (a bf16 y is rounded only as
+  // it is stored). A warp owns its 32 channels for all 80 rows: thread
   // (g, tig) holds rows mt * 16 + g (+ 8) of channels nt * 8 + 2 * tig (+ 1).
   const size_t tile = (size_t)b * gridDim.x + blockIdx.x;
   const size_t n_tiles = (size_t)gridDim.x * gridDim.z;
@@ -385,8 +444,7 @@ conv_bn_mma_kernel(const float* __restrict__ raw0, const float* __restrict__ raw
         const float v0 = acc[mt][nt][2 * half], v1 = acc[mt][nt][2 * half + 1];
         if (to < out_t) {
           if (n < cout)  // cout is even here, so n + 1 < cout too
-            *reinterpret_cast<float2*>(y + ((size_t)b * out_t + to) * cout + n) =
-                make_float2(v0, v1);
+            store_2el(y + ((size_t)b * out_t + to) * cout + n, v0, v1);
           q0 = fmaf(v0, v0, q0);
           q1 = fmaf(v1, v1, q1);
         }
@@ -410,14 +468,16 @@ conv_bn_mma_kernel(const float* __restrict__ raw0, const float* __restrict__ raw
 constexpr int NW = 16;    // k * cin up to which the weights live in registers
 constexpr int DT = 256;   // threads per block
 
+template <typename T>
 struct Prologue {
-  const float *raw0, *raw1, *a0, *b0, *a1, *b1;
-  int T, cin, relu_in;
+  const T *raw0, *raw1;
+  const float *a0, *b0, *a1, *b1;
+  int T_, cin, relu_in;
   __device__ __forceinline__ float at(size_t row_base, int tin, int c) const {
-    if (tin < 0 || tin >= T) return 0.f;
+    if (tin < 0 || tin >= T_) return 0.f;
     const size_t off = (row_base + tin) * cin + c;
-    float v = fmaf(raw0[off], a0[c], b0[c]);
-    if (raw1 != nullptr) v += fmaf(raw1[off], a1[c], b1[c]);
+    float v = fmaf(to_float(raw0[off]), a0[c], b0[c]);
+    if (raw1 != nullptr) v += fmaf(to_float(raw1[off]), a1[c], b1[c]);
     return relu_in ? fmaxf(v, 0.f) : v;
   }
 };
@@ -446,9 +506,9 @@ __device__ __forceinline__ void fma4(float4& acc, float x, const float4& wv) {
 // 4 * (ng0 + tx) .. + 3 and the rows ty, ty + TY, ... of the block's 80.
 // NARROW: k * cin <= NW, the normalised slab [(BM - 1) * stride + k][cin] in
 // shared memory and the thread's weights in registers.
-template <bool NARROW>
+template <typename T, bool NARROW>
 __global__ void __launch_bounds__(DT)
-conv_bn_direct_kernel(Prologue pro, const float* __restrict__ w, float* __restrict__ y,
+conv_bn_direct_kernel(Prologue<T> pro, const float* __restrict__ w, T* __restrict__ y,
                       float* __restrict__ partial, int cout, int k, int stride, int lpad,
                       int out_t, int slab_floats, int vec) {
   extern __shared__ __align__(16) float smem[];
@@ -462,7 +522,7 @@ conv_bn_direct_kernel(Prologue pro, const float* __restrict__ w, float* __restri
   const int b = blockIdx.z;
   const int cin = pro.cin;
   const int kc = k * cin;
-  const size_t row_base = (size_t)b * pro.T;
+  const size_t row_base = (size_t)b * pro.T_;
   const int tin0 = t0 * stride - lpad;
 
   if (NARROW) {
@@ -501,14 +561,14 @@ conv_bn_direct_kernel(Prologue pro, const float* __restrict__ w, float* __restri
               fma4(acc, pro.at(row_base, tin0 + r * stride + tap, c),
                    load_w4(w, (size_t)tap * cin + c, n, cout, vec));
         }
-        float* dst = y + ((size_t)b * out_t + t0 + r) * cout + n;
+        T* dst = y + ((size_t)b * out_t + t0 + r) * cout + n;
         if (vec) {
-          *reinterpret_cast<float4*>(dst) = acc;
+          store_4el(dst, acc);
         } else {
-          dst[0] = acc.x;
-          if (n + 1 < cout) dst[1] = acc.y;
-          if (n + 2 < cout) dst[2] = acc.z;
-          if (n + 3 < cout) dst[3] = acc.w;
+          store_el(dst, acc.x);
+          if (n + 1 < cout) store_el(dst + 1, acc.y);
+          if (n + 2 < cout) store_el(dst + 2, acc.z);
+          if (n + 3 < cout) store_el(dst + 3, acc.w);
         }
         s.x += acc.x; s.y += acc.y; s.z += acc.z; s.w += acc.w;
         sq.x = fmaf(acc.x, acc.x, sq.x);
@@ -599,6 +659,20 @@ sums_from_colsum_kernel(const float* __restrict__ w, const double* __restrict__ 
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+bool aligned(const void* p, int bytes) { return (reinterpret_cast<uintptr_t>(p) % bytes) == 0; }
+
+// dynamic shared memory of the tensor-core kernel: the normalised slab and the
+// weight ring in float32, the raw slab in the element type
+size_t mma_smem_bytes(int slab_rows, bool two_terms, size_t elem_bytes) {
+  return sizeof(float) * ((size_t)slab_rows * PX + NS * KC * PW) +
+         elem_bytes * (two_terms ? 2 : 1) * (size_t)slab_rows * KC;
+}
+
+template <typename T>
+int launch(const T* raw0, const T* raw1, const float* a0, const float* b0, const float* a1,
+           const float* b1, const float* w, T* y, float* partial, float* xpart, double* colsum,
+           float* sums, float* sqs, int batch, int T_, int cin, int cout, int k, int stride,
+           int lpad, int out_t, int relu_in, cudaStream_t st);
 
 }  // namespace
 
@@ -608,59 +682,82 @@ extern "C" {
 // per moment: batch * ceil(out_t / 80).
 int conv_bn_row_tiles(int batch, int out_t) { return batch * ((out_t + BM - 1) / BM); }
 
-// Which kernel a shape takes (pointers assumed 16-byte aligned): 2 the tensor-
-// core kernel, 1 the CUDA-core kernel with its slab and weights on chip
-// (narrow inputs), 0 the CUDA-core kernel reading global memory.
-int conv_bn_route(int cin, int cout, int k, int stride, int two_terms) {
+// Which kernel a shape takes (pointers assumed aligned): 2 the tensor-core
+// kernel, 1 the CUDA-core kernel with its slab and weights on chip (narrow
+// inputs), 0 the CUDA-core kernel reading global memory. bf16: the bfloat16
+// instance (its raw slab is half the bytes).
+int conv_bn_route(int cin, int cout, int k, int stride, int two_terms, int bf16) {
   const int slab_rows = (BM - 1) * stride + k;
-  const size_t mma_smem =
-      sizeof(float) * ((size_t)slab_rows * PX + NS * KC * PW +
-                       (two_terms ? 2 : 1) * (size_t)slab_rows * KC);
+  const size_t mma_smem = mma_smem_bytes(slab_rows, two_terms != 0, bf16 ? 2 : 4);
   if (cin >= 8 && cin % 4 == 0 && cout % 4 == 0 && mma_smem <= MAX_SMEM) return 2;
   const size_t narrow_smem = sizeof(float) * ((size_t)slab_rows * cin + 8 * DT);
   if (k * cin <= NW && narrow_smem <= MAX_SMEM) return 1;
   return 0;
 }
 
-// raw1/a1/b1 may be null (one term). partial: [2, row_tiles, cout] float32. xpart
-// ([row_tiles, k * cin] float32) and colsum ([k * cin] float64) are scratch of the
-// tensor-core route (conv_bn_route(...) == 2) and may be null otherwise; without them
-// the launch takes the CUDA-core kernel.
-int conv_bn_launch(const float* raw0, const float* raw1, const float* a0, const float* b0,
-                   const float* a1, const float* b1, const float* w, float* y,
+// raw0/raw1/y are float32 or, with bf16, bfloat16 (one type for all three);
+// a/b/w float32. raw1/a1/b1 may be null (one term). partial: [2, row_tiles,
+// cout] float32. xpart ([row_tiles, k * cin] float32) and colsum ([k * cin]
+// float64) are scratch of the tensor-core route (conv_bn_route(...) == 2) and
+// may be null otherwise; without them the launch takes the CUDA-core kernel.
+int conv_bn_launch(const void* raw0, const void* raw1, const float* a0, const float* b0,
+                   const float* a1, const float* b1, const float* w, void* y,
                    float* partial, float* xpart, double* colsum, float* sums, float* sqs,
                    int batch, int T, int cin,
-                   int cout, int k, int stride, int lpad, int out_t, int relu_in,
+                   int cout, int k, int stride, int lpad, int out_t, int relu_in, int bf16,
                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (bf16)
+    return launch(static_cast<const __nv_bfloat16*>(raw0),
+                  static_cast<const __nv_bfloat16*>(raw1), a0, b0, a1, b1, w,
+                  static_cast<__nv_bfloat16*>(y), partial, xpart, colsum, sums, sqs, batch, T,
+                  cin, cout, k, stride, lpad, out_t, relu_in, st);
+  return launch(static_cast<const float*>(raw0), static_cast<const float*>(raw1), a0, b0, a1,
+                b1, w, static_cast<float*>(y), partial, xpart, colsum, sums, sqs, batch, T, cin,
+                cout, k, stride, lpad, out_t, relu_in, st);
+}
+
+}  // extern "C"
+
+namespace {
+
+template <typename T>
+int launch(const T* raw0, const T* raw1, const float* a0, const float* b0, const float* a1,
+           const float* b1, const float* w, T* y, float* partial, float* xpart, double* colsum,
+           float* sums, float* sqs, int batch, int T_, int cin, int cout, int k, int stride,
+           int lpad, int out_t, int relu_in, cudaStream_t st) {
+  constexpr int EB = (int)sizeof(T);
   const int row_tiles = (out_t + BM - 1) / BM;
   const int slab_rows = (BM - 1) * stride + k;
   const bool two = raw1 != nullptr;
-  const bool aligned = aligned16(raw0) && aligned16(raw1) && aligned16(a0) && aligned16(b0) &&
-                       aligned16(a1) && aligned16(b1) && aligned16(w) && aligned16(y);
-  int route = conv_bn_route(cin, cout, k, stride, two);
-  if (route == 2 && !(aligned && xpart != nullptr && colsum != nullptr))
+  // the tensor-core kernel copies four raw elements at once (4 * EB bytes), reads
+  // the affines as float4 and w by 16-byte copies, and stores y two elements at once
+  const bool mma_aligned = aligned(raw0, 4 * EB) && aligned(raw1, 4 * EB) && aligned16(a0) &&
+                           aligned16(b0) && aligned16(a1) && aligned16(b1) && aligned16(w) &&
+                           aligned(y, 2 * EB);
+  int route = conv_bn_route(cin, cout, k, stride, two, EB == 2);
+  if (route == 2 && !(mma_aligned && xpart != nullptr && colsum != nullptr))
     route = k * cin <= NW ? 1 : 0;
   cudaError_t err;
   if (route == 2) {
-    const size_t smem = sizeof(float) * ((size_t)slab_rows * PX + NS * KC * PW +
-                                         (two ? 2 : 1) * (size_t)slab_rows * KC);
-    err = cudaFuncSetAttribute(conv_bn_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
+    const size_t smem = mma_smem_bytes(slab_rows, two, EB);
+    err = cudaFuncSetAttribute(conv_bn_mma_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     dim3 grid(row_tiles, (cout + BN - 1) / BN, batch);
-    conv_bn_mma_kernel<<<grid, NT, smem, st>>>(raw0, raw1, a0, b0, a1, b1, w, y, partial, xpart,
-                                               T, cin, cout, k, stride, lpad, out_t, relu_in);
+    conv_bn_mma_kernel<T><<<grid, NT, smem, st>>>(raw0, raw1, a0, b0, a1, b1, w, y, partial,
+                                                  xpart, T_, cin, cout, k, stride, lpad, out_t,
+                                                  relu_in);
   } else {
-    const Prologue pro{raw0, raw1, a0, b0, a1, b1, T, cin, relu_in};
-    const int vec = (cout % 4 == 0 && aligned16(w) && aligned16(y)) ? 1 : 0;
+    const Prologue<T> pro{raw0, raw1, a0, b0, a1, b1, T_, cin, relu_in};
+    const int vec = (cout % 4 == 0 && aligned16(w) && aligned(y, 4 * EB)) ? 1 : 0;
     const int groups = (cout + 3) / 4;
     int tx = 1;
     while (tx < groups && tx < 64) tx *= 2;
     dim3 block(tx, DT / tx), grid(row_tiles, 1, batch);
     const int slab_floats = route == 1 ? ((slab_rows * cin + 3) / 4) * 4 : 0;
     const size_t smem = sizeof(float) * ((size_t)slab_floats + 8 * DT);
-    auto kernel = route == 1 ? conv_bn_direct_kernel<true> : conv_bn_direct_kernel<false>;
+    auto kernel = route == 1 ? conv_bn_direct_kernel<T, true> : conv_bn_direct_kernel<T, false>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, block, smem, st>>>(pro, w, y, partial, cout, k, stride, lpad, out_t,
@@ -682,4 +779,4 @@ int conv_bn_launch(const float* raw0, const float* raw1, const float* a0, const 
   return (int)cudaGetLastError();
 }
 
-}  // extern "C"
+}  // namespace

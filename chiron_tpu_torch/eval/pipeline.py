@@ -9,6 +9,10 @@ batch's step before the readback threads block on earlier ones. Windows
 are read and uploaded by a producer thread; reads are assembled and
 written by a host writer thread.
 
+With ``--bf16`` (bf16 inference mode, the JAX package's production mode)
+windows upload as bfloat16, half the host-to-device bytes, and the step runs
+the model in that mode (models/layers.py).
+
 Batches are packed across file boundaries and regrouped per (file, window
 index) on the host. The final partial batch is wrap-padded with index -1
 sentinels (chiron_eval.py:352-367): BN statistics depend on the batch, so
@@ -98,14 +102,15 @@ def two_bit_labels(config) -> bool:
 
 
 def decode_step(model: Basecaller, x: torch.Tensor, seq_len: torch.Tensor,
-                beam: int, length_bonus: float = 0.0) -> torch.Tensor:
+                beam: int, length_bonus: float = 0.0, bf16: bool = False) -> torch.Tensor:
     """One device step: forward, path prob, CTC decode, pack.
 
     ``length_bonus`` is the beam decoder's additive log-score per emitted
-    label; greedy decode (beam 0) ignores it.
+    label; greedy decode (beam 0) ignores it. ``bf16`` runs the forward in
+    bf16 inference mode (its logits, and so the decode, stay float32).
     """
     with torch.no_grad():
-        logits = model(x, seq_len)
+        logits = model(x, seq_len, bf16=bf16)
         prob = path_prob(logits)
         if beam == 0:
             decoded, lengths, score = greedy_decode(logits, seq_len)
@@ -274,8 +279,6 @@ def load_model(model_dir: str, config, device) -> Basecaller:
 
 def evaluation(flags) -> dict:
     """Run basecalling over all input files. Returns summary stats."""
-    if getattr(flags, "bf16", False):
-        raise NotImplementedError("--bf16 is not supported by the PyTorch port yet")
     if int(getattr(flags, "n_devices", 0) or 1) > 1:
         raise NotImplementedError("multi-GPU decode is not supported by the PyTorch port yet")
     device = resolve_device(getattr(flags, "device", "cuda"))
@@ -291,6 +294,7 @@ def evaluation(flags) -> dict:
     print(f"Found {len(file_list)} files.")
 
     ratio = model.ratio(flags.segment_len)
+    bf16 = bool(getattr(flags, "bf16", False))
     alphabet = C.alphabet(config)
     two_bit = two_bit_labels(config)
     # an explicit flag wins; else the model's calibrated default from
@@ -330,10 +334,14 @@ def evaluation(flags) -> dict:
                     finalizer(_finalize_file, fn, acc.pop(fn), flags, timing[fn], alphabet)
                 )
 
+    # bf16 mode: the window is rounded to bfloat16 on the host, so the upload
+    # moves half the bytes (the first conv reads it as bfloat16 either way)
+    x_dtype = torch.bfloat16 if bf16 else torch.float32
+
     def _upload(stream):
         # host->device upload runs in the producer thread (via _prefetch)
         for x, sl, widx, fnames, meta in stream:
-            yield (torch.from_numpy(x).to(device), torch.from_numpy(sl).to(device),
+            yield (torch.from_numpy(x).to(x_dtype).to(device), torch.from_numpy(sl).to(device),
                    widx, fnames, meta)
 
     def _readback(out):
@@ -347,7 +355,7 @@ def evaluation(flags) -> dict:
             for fn, (nwin, rtime) in meta.items():
                 counts[fn] = nwin
                 timing[fn] = (time.time() - rtime, rtime)  # (start, reading)
-            out = decode_step(model, x, sl, flags.beam, length_bonus)
+            out = decode_step(model, x, sl, flags.beam, length_bonus, bf16)
             inflight.append((readback_pool.submit(_readback, out), widx, fnames))
             if len(inflight) > pipeline_depth:
                 drain_one(pool.submit)

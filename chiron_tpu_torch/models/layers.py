@@ -15,6 +15,16 @@ and cuDNN: ``utils/device.py:float32_strict``, called by
 ``train/loop.py:make_train_step``). The reference's "global batch norm" uses current-batch
 statistics even at inference (chiron/cnn.py:166-188), so outputs depend on
 the batch composition.
+
+bf16 inference mode (``chiron_tpu/models/layers.py:31-70``; the JAX
+package's production inference mode): activations are stored as bfloat16
+(``store_activation``), matmul operands are rounded to bfloat16 with float32
+products and sums (``matmul_inputs``), and the fused conv writes its raw
+output as bfloat16 while its moments stay float32. The JAX package holds the
+mode in a module global set while tracing; here ``bf16_compute`` resolves it
+once in ``apply_model`` and it travels down as an explicit ``bf16`` argument,
+so the pipeline's producer thread and a test calling the model at the same
+time cannot leak it into each other.
 """
 
 from __future__ import annotations
@@ -29,6 +39,29 @@ from chiron_tpu_torch.ops.conv_bn import bn_affine, conv_bn, conv_same
 Params = Dict[str, Any]
 
 _BN_EPS = 1e-5
+
+
+def bf16_compute(enabled: bool, training: bool = False) -> bool:
+    """Whether a forward pass asked for bf16 runs in bf16 inference mode: at
+    inference only; training ignores it (chiron_tpu/models/model.py:404)."""
+    return bool(enabled) and not training
+
+
+def matmul_inputs(*arrays, bf16: bool = False):
+    """Matmul operands in the mode's compute precision: as they are, or (bf16)
+    rounded to bfloat16 to nearest even and held as float32, so that a float32
+    product of two of them is exact and the sum runs in float32. (A matmul of
+    two bfloat16 tensors would return bfloat16, a rounding the JAX package's
+    ``preferred_element_type=float32`` does not have.)"""
+    if not bf16:
+        return arrays
+    return tuple(a.to(torch.bfloat16).float() for a in arrays)
+
+
+def store_activation(x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """An activation in the mode's storage dtype: bfloat16 (rounded to
+    nearest even) in bf16 mode, else as it is."""
+    return x.to(torch.bfloat16) if bf16 else x
 
 
 def init_conv(gen: torch.Generator, ksize: int, c_in: int, c_out: int,
@@ -80,15 +113,16 @@ class LazyBN:
         return self.terms[0][0].shape
 
 
-def materialize(x):
-    """Collapse a LazyBN into a plain tensor."""
+def materialize(x, bf16: bool = False):
+    """Collapse a LazyBN into a plain tensor: the affine and the relu in
+    float32, the result stored in the mode's dtype."""
     if not isinstance(x, LazyBN):
         return x
     y = None
     for raw, a, b in x.terms:
-        t = raw * a + b
+        t = raw.float() * a + b
         y = t if y is None else y + t
-    return torch.relu(y) if x.relu else y
+    return store_activation(torch.relu(y) if x.relu else y, bf16)
 
 
 def _as_terms(x):
@@ -113,7 +147,8 @@ def _conv_train(params: Params, x, stride: int, active: Optional[str]) -> torch.
 
 
 def conv(params: Params, x, stride: int = 1, dilation: int = 1,
-         padding: str = "SAME", active: Optional[str] = "relu", training: bool = False):
+         padding: str = "SAME", active: Optional[str] = "relu", training: bool = False,
+         bf16: bool = False):
     """1-D SAME conv [B, T, C_in] -> [B, ceil(T/stride), C_out].
 
     conv -> optional BN (batch-stat, or population stats when the params
@@ -121,7 +156,8 @@ def conv(params: Params, x, stride: int = 1, dilation: int = 1,
     inference through the fused conv+BN kernel, returning a LazyBN; with
     ``training`` as differentiable torch ops, returning a tensor. The ported
     fronts only use dilation 1, SAME padding, relu/linear activations and no
-    bias.
+    bias. ``bf16``: the raw output is stored as bfloat16 (its input must then
+    be bfloat16 too: the bf16 signal or an earlier conv's output).
     """
     if dilation != 1 or padding != "SAME" or active not in ("relu", None) or "b" in params:
         raise NotImplementedError(
@@ -129,10 +165,11 @@ def conv(params: Params, x, stride: int = 1, dilation: int = 1,
     if training:
         return _conv_train(params, x, stride, active)
     if isinstance(x, LazyBN) and len(x.terms) > 2:
-        x = materialize(x)  # the kernel prologue sums at most two terms
+        x = materialize(x, bf16)  # the kernel prologue sums at most two terms
     terms, relu_in = _as_terms(x)
     w = params["w"]
-    y_raw, sums, sqs = conv_bn(terms, w, relu_in, stride=stride)
+    out_dtype = torch.bfloat16 if bf16 else torch.float32
+    y_raw, sums, sqs = conv_bn(terms, w, relu_in, stride=stride, out_dtype=out_dtype)
     c_out = w.shape[-1]
     if "bn_mean" in params:  # pop-stats BN: affine from stored moments
         a = torch.rsqrt(params["bn_var"] + _BN_EPS) * params["bn_scale"]
@@ -147,14 +184,15 @@ def conv(params: Params, x, stride: int = 1, dilation: int = 1,
     return LazyBN([(y_raw, a, b)], relu=(active == "relu"))
 
 
-def residual(params: Params, x, stride: int = 1, training: bool = False):
+def residual(params: Params, x, stride: int = 1, training: bool = False, bf16: bool = False):
     """Residual block (chiron/cnn.py:234-262). At inference its output is
     never materialised: both branches flow to the next conv's prologue as
     terms. With ``training`` both branches are tensors, summed and relu'd."""
-    identity = conv(params["branch1"], x, stride=stride, active=None, training=training)
-    y = conv(params["conv2a"], x, training=training)
-    y = conv(params["conv2b"], y, stride=stride, training=training)
-    y = conv(params["conv2c"], y, active=None, training=training)
+    identity = conv(params["branch1"], x, stride=stride, active=None, training=training,
+                    bf16=bf16)
+    y = conv(params["conv2a"], x, training=training, bf16=bf16)
+    y = conv(params["conv2b"], y, stride=stride, training=training, bf16=bf16)
+    y = conv(params["conv2c"], y, active=None, training=training, bf16=bf16)
     if training:
         return torch.relu(identity + y)
     return LazyBN(identity.terms + y.terms, relu=True)

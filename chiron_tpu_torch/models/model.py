@@ -6,9 +6,9 @@ blocks of 256 channels), ``rna_model2`` (a k=9 stride-5 front conv + 3
 residual blocks) and ``slow_model1`` (k=8 stride 4), with an LSTM, GRU or
 BNLSTM stack of layer type ``normal`` or ``rna``. ``init_model(gen, config)``
 draws fresh weights; ``apply_model(params, config, signal, seq_len,
-training)`` returns logits [B, T_out, class_n]: at inference under
-``no_grad`` through the fused kernels, in training differentiably (see
-layers.py and rnn.py).
+training, bf16)`` returns logits [B, T_out, class_n]: at inference under
+``no_grad`` through the fused kernels (in float32 or in bf16 inference mode),
+in training differentiably (see layers.py and rnn.py).
 """
 
 from __future__ import annotations
@@ -24,10 +24,10 @@ from chiron_tpu_torch.models import rnn as R
 Params = Dict[str, Any]
 
 
-def _apply_dna_model1(params, x, training=False):
-    x = L.residual(params["res1"], x, training=training)
-    x = L.residual(params["res2"], x, training=training)
-    return L.residual(params["res3"], x, training=training)
+def _apply_dna_model1(params, x, training=False, bf16=False):
+    x = L.residual(params["res1"], x, training=training, bf16=bf16)
+    x = L.residual(params["res2"], x, training=training, bf16=bf16)
+    return L.residual(params["res3"], x, training=training, bf16=bf16)
 
 
 def _init_dna_model1(gen, c_in):
@@ -37,11 +37,11 @@ def _init_dna_model1(gen, c_in):
 
 
 def _make_rna_front(kw: int, stride: int):
-    def apply(params, x, training=False):
-        x = L.conv(params["front"], x, stride=stride, training=training)
-        x = L.residual(params["res1"], x, training=training)
-        x = L.residual(params["res2"], x, training=training)
-        return L.residual(params["res3"], x, training=training)
+    def apply(params, x, training=False, bf16=False):
+        x = L.conv(params["front"], x, stride=stride, training=training, bf16=bf16)
+        x = L.residual(params["res1"], x, training=training, bf16=bf16)
+        x = L.residual(params["res2"], x, training=training, bf16=bf16)
+        return L.residual(params["res3"], x, training=training, bf16=bf16)
 
     def init(gen, c_in):
         return {"front": L.init_conv(gen, kw, c_in, 256),
@@ -52,7 +52,7 @@ def _make_rna_front(kw: int, stride: int):
     return apply, init
 
 
-# name -> (time stride, apply(params, x, training), init(gen, c_in)); every
+# name -> (time stride, apply(params, x, training, bf16), init(gen, c_in)); every
 # front ends in 256 channels
 CNN_ZOO: Dict[str, Tuple[int, Callable, Callable]] = {
     "dna_model1": (1, _apply_dna_model1, _init_dna_model1),
@@ -97,19 +97,26 @@ def init_model(gen: torch.Generator, config: Dict[str, Any]) -> Params:
 
 
 def apply_model(params: Params, config: Dict[str, Any], signal: torch.Tensor,
-                seq_len: torch.Tensor, training: bool = False) -> torch.Tensor:
+                seq_len: torch.Tensor, training: bool = False,
+                bf16: bool = False) -> torch.Tensor:
     """Forward pass: raw signal windows [B, T] -> CTC logits [B, T_out, C].
 
     ``seq_len`` [B] is each window's valid length IN LOGIT FRAMES (already
     divided by the model ratio, chiron/chiron_eval.py:337). ``training``
     takes the differentiable path; otherwise the fused kernels under
-    ``no_grad``.
+    ``no_grad``. ``bf16`` selects bf16 inference mode (see layers.py; the
+    JAX package reads it from ``config["bf16"]``, which ``call --bf16`` sets);
+    training ignores it. In that mode the window enters as bfloat16, as the
+    pipeline uploads it (chiron_tpu/eval/pipeline.py:477-486): a float32
+    window is rounded first. The logits are float32 in both modes.
     """
     _, apply_fn, _ = _front(config)
     rnn_cfg = config["rnn"]
     if rnn_cfg["layer_num"] == 0:
         raise NotImplementedError("the CNN-only logit head is not ported")
+    bf16 = L.bf16_compute(bf16, training)
     with torch.set_grad_enabled(training and torch.is_grad_enabled()):
-        fea = L.materialize(apply_fn(params["cnn"], signal[..., None], training=training))
+        x = L.store_activation(signal, bf16)[..., None]
+        fea = L.materialize(apply_fn(params["cnn"], x, training=training, bf16=bf16), bf16)
         return R.rnn_layers(params["rnn"], fea, seq_len, rnn_cfg["cell_type"],
-                            rnn_cfg["layer_type"], training=training)
+                            rnn_cfg["layer_type"], training=training, bf16=bf16)

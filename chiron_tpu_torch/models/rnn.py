@@ -19,6 +19,12 @@ timesteps are large matmuls outside the recurrence.
   is the differentiable ``ops/lstm_grad.py:lstm_layer_ad``; GRU and BNLSTM
   directions are differentiable step loops under autograd, as the JAX
   package trains them through ``lax.scan``.
+- bf16 inference mode (``bf16=True``, chiron_tpu/models/rnn.py:36-43,
+  259, 303-304): every projection rounds its two operands to bfloat16 and
+  sums in float32 (``layers.matmul_inputs``); an LSTM layer stores ``xw`` as
+  bfloat16, and its kernel returns bfloat16 ``h``; GRU and BNLSTM layers keep
+  float32 projections and outputs, so their kernels run unchanged. The head
+  promotes a bfloat16 ``h`` to float32; the logits are float32.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from chiron_tpu_torch.models.initializers import orthogonal, truncated_normal, xavier_uniform
+from chiron_tpu_torch.models.layers import matmul_inputs, store_activation
 from chiron_tpu_torch.ops.bilstm import bilstm_layer
 from chiron_tpu_torch.ops.bnlstm import bibnlstm_layer, bnlstm_layer, bnlstm_scan
 from chiron_tpu_torch.ops.gru import bigru_layer, gru_layer, gru_scan
@@ -138,13 +145,20 @@ def init_rnn_layers(gen: torch.Generator, c_in: int, hidden: int, layer_num: int
             "head": init_rnn_head(gen, hidden, class_n)}
 
 
-def _proj(x, cell):
-    return torch.matmul(x, cell["wx"]) + cell["b"]
+def _matmul(x, w, bf16=False):
+    """The hoisted input projection: float32 out, bfloat16-rounded operands
+    in bf16 mode."""
+    return torch.matmul(*matmul_inputs(x, w, bf16=bf16))
 
 
-def _gru_proj(x, cell):
-    return (torch.matmul(x, cell["wx_g"]) + cell["b_g"],
-            torch.matmul(x, cell["wx_c"]) + cell["b_c"])
+def _proj(x, cell, bf16=False):
+    """An LSTM layer's xw = x @ wx + b, stored as bfloat16 in bf16 mode."""
+    return store_activation(_matmul(x, cell["wx"], bf16) + cell["b"], bf16)
+
+
+def _gru_proj(x, cell, bf16=False):
+    return (_matmul(x, cell["wx_g"], bf16) + cell["b_g"],
+            _matmul(x, cell["wx_c"], bf16) + cell["b_c"])
 
 
 def _bn_weights(cell):
@@ -152,21 +166,22 @@ def _bn_weights(cell):
 
 
 def _run_cell(cell_type: str, cell: Params, x: torch.Tensor, lengths: torch.Tensor,
-              training: bool = False, starts: Optional[torch.Tensor] = None) -> torch.Tensor:
+              training: bool = False, starts: Optional[torch.Tensor] = None,
+              bf16: bool = False) -> torch.Tensor:
     """One direction of one layer over time-major x [T, B, C] -> [T, B, H]:
     the single-direction kernel at inference, the differentiable version in
     training. ``starts`` (flip mode) is for LSTM/GRU inference only."""
     if starts is not None and (training or cell_type == "BNLSTM"):
         raise ValueError("starts requires the LSTM/GRU inference path")
     if cell_type == "BNLSTM":
-        xw = torch.matmul(x, cell["wx"])  # the bias is added after normalisation
+        xw = _matmul(x, cell["wx"], bf16)  # the bias is added after normalisation
         return (bnlstm_scan if training else bnlstm_layer)(xw, *_bn_weights(cell), lengths)
     if cell_type == "LSTM":
         if training:
             return lstm_layer_ad(_proj(x, cell), cell["wh"], lengths)
-        return lstm_layer(_proj(x, cell), cell["wh"], lengths, starts)
+        return lstm_layer(_proj(x, cell, bf16), cell["wh"], lengths, starts)
     if cell_type == "GRU":
-        gx, cx = _gru_proj(x, cell)
+        gx, cx = _gru_proj(x, cell, bf16)
         if training:
             return gru_scan(gx, cx, cell["wh_g"], cell["wh_c"], torch.zeros_like(lengths),
                             lengths)
@@ -174,24 +189,24 @@ def _run_cell(cell_type: str, cell: Params, x: torch.Tensor, lengths: torch.Tens
     raise ValueError(f"Cell type unrecognized: {cell_type}")
 
 
-def _fused_bilstm(layer, x_fw, x_bw, lengths, starts):
+def _fused_bilstm(layer, x_fw, x_bw, lengths, starts, bf16=False):
     """x_bw already time-flipped; the returned h_bw is still flipped."""
-    return bilstm_layer(_proj(x_fw, layer["fw"]), _proj(x_bw, layer["bw"]),
+    return bilstm_layer(_proj(x_fw, layer["fw"], bf16), _proj(x_bw, layer["bw"], bf16),
                         layer["fw"]["wh"], layer["bw"]["wh"], lengths, starts)
 
 
-def _fused_bigru(layer, x_fw, x_bw, lengths, starts):
+def _fused_bigru(layer, x_fw, x_bw, lengths, starts, bf16=False):
     """x_bw already time-flipped; the returned h_bw is still flipped."""
     fw, bw = layer["fw"], layer["bw"]
-    return bigru_layer(*_gru_proj(x_fw, fw), *_gru_proj(x_bw, bw), (fw["wh_g"], fw["wh_c"]),
-                       (bw["wh_g"], bw["wh_c"]), lengths, starts)
+    return bigru_layer(*_gru_proj(x_fw, fw, bf16), *_gru_proj(x_bw, bw, bf16),
+                       (fw["wh_g"], fw["wh_c"]), (bw["wh_g"], bw["wh_c"]), lengths, starts)
 
 
-def _fused_bibnlstm(layer, x_fw, x_bw, lengths, starts):
+def _fused_bibnlstm(layer, x_fw, x_bw, lengths, starts, bf16=False):
     """x_bw reversed within each length (no flip mode: see the module note)."""
     del starts
-    return bibnlstm_layer(torch.matmul(x_fw, layer["fw"]["wx"]),
-                          torch.matmul(x_bw, layer["bw"]["wx"]),
+    return bibnlstm_layer(_matmul(x_fw, layer["fw"]["wx"], bf16),
+                          _matmul(x_bw, layer["bw"]["wx"], bf16),
                           _bn_weights(layer["fw"]), _bn_weights(layer["bw"]), lengths)
 
 
@@ -200,8 +215,9 @@ _FUSED = {"LSTM": _fused_bilstm, "GRU": _fused_bigru, "BNLSTM": _fused_bibnlstm}
 
 def birnn_stack(params: Params, x: torch.Tensor, lengths: torch.Tensor,
                 cell_type: str = "LSTM", layer_type: str = "normal",
-                training: bool = False) -> torch.Tensor:
-    """Bidirectional stack. x: [B, T, C] -> [B, T, 2H]."""
+                training: bool = False, bf16: bool = False) -> torch.Tensor:
+    """Bidirectional stack. x: [B, T, C] -> [B, T, 2H] (bfloat16 for an LSTM
+    stack in bf16 mode, else float32)."""
     if cell_type not in _FUSED:
         raise ValueError(f"Cell type unrecognized: {cell_type}")
     if layer_type not in ("normal", "rna"):
@@ -217,7 +233,7 @@ def birnn_stack(params: Params, x: torch.Tensor, lengths: torch.Tensor,
 
     def layer_fn(layer, x_fw, x_bw):
         if not training:
-            return _FUSED[cell_type](layer, x_fw, x_bw, lengths, starts)
+            return _FUSED[cell_type](layer, x_fw, x_bw, lengths, starts, bf16)
         return (_run_cell(cell_type, layer["fw"], x_fw, lengths, training),
                 _run_cell(cell_type, layer["bw"], x_bw, lengths, training))
 
@@ -236,17 +252,18 @@ def birnn_stack(params: Params, x: torch.Tensor, lengths: torch.Tensor,
 
 def rnn_head(params: Params, lasth: torch.Tensor) -> torch.Tensor:
     """[B, T, 2H] -> [B, T, class_n] via direction-weighted sum + FC
-    (chiron/rnn.py:72-97)."""
+    (chiron/rnn.py:72-97); a bfloat16 lasth is promoted to float32 first, as
+    JAX promotes a mixed product."""
     b, t, two_h = lasth.shape
-    pair = lasth.reshape(b, t, 2, two_h // 2)
+    pair = lasth.float().reshape(b, t, 2, two_h // 2)
     merged = torch.einsum("btdh,dh->bth", pair, params["w_dir"]) + params["b_dir"]
     return merged @ params["w_class"] + params["b_class"]
 
 
 def rnn_layers(params: Params, x: torch.Tensor, lengths: torch.Tensor,
                cell_type: str = "LSTM", layer_type: str = "normal",
-               training: bool = False) -> torch.Tensor:
-    lasth = birnn_stack(params["stack"], x, lengths, cell_type, layer_type, training)
+               training: bool = False, bf16: bool = False) -> torch.Tensor:
+    lasth = birnn_stack(params["stack"], x, lengths, cell_type, layer_type, training, bf16)
     return rnn_head(params["head"], lasth)
 
 
@@ -262,10 +279,12 @@ def init_unirnn_layers(gen: torch.Generator, c_in: int, hidden: int, layer_num: 
 
 
 def unirnn_layers(params: Params, x: torch.Tensor, lengths: torch.Tensor,
-                  cell_type: str = "BNLSTM", training: bool = False) -> torch.Tensor:
-    """[B, T, C] -> [B, T, class_n] through a forward-only stack."""
+                  cell_type: str = "BNLSTM", training: bool = False,
+                  bf16: bool = False) -> torch.Tensor:
+    """[B, T, C] -> [B, T, class_n] through a forward-only stack (``bf16``:
+    bf16 inference mode, as in birnn_stack; training ignores it)."""
     h = x.transpose(0, 1)
     lengths = lengths.to(torch.int32)
     for layer in params["layers"]:
-        h = _run_cell(cell_type, layer, h, lengths, training)
-    return h.transpose(0, 1) @ params["w_class"] + params["b_class"]
+        h = _run_cell(cell_type, layer, h, lengths, training, bf16=bf16 and not training)
+    return h.transpose(0, 1).float() @ params["w_class"] + params["b_class"]

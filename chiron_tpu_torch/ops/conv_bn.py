@@ -26,6 +26,14 @@ conv's linearity (w applied to the column sums of the normalised input, in
 float64) and only sum(y^2) from y itself. Inputs with k * C_in <= 16 (the
 one-channel first convs and the strided fronts) take a CUDA-core kernel
 bound by the output it writes.
+
+bf16 inference mode (``chiron_tpu/ops/pallas/convbn.py:118,135``): the raw
+terms may be bfloat16 and y is then stored as bfloat16 (``out_dtype``), rounded
+to nearest even from the float32 value; the prologue, the product (w stays
+float32) and both moments are float32, the moments taken before y is rounded.
+Both kernels have a float32 and a bfloat16 instance, one element type for the
+raws and y; a bfloat16 input on the card goes to the bfloat16 instance, never
+upcast to the float32 one.
 """
 
 from __future__ import annotations
@@ -39,8 +47,13 @@ from chiron_tpu_torch.ops import cuda_build
 
 _BN_EPS = 1e-5
 
-# launches of the CUDA kernel (plain-version calls on the CPU are not counted)
+# launches of the CUDA kernel (plain-version calls on the CPU are not counted),
+# in all and by the instance's element type
 launches = 0
+launches_by_dtype = {"float32": 0, "bfloat16": 0}
+
+# the element types of the raw terms and of y that the kernels have instances for
+RAW_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def same_padding(t: int, k: int, stride: int) -> Tuple[int, int]:
@@ -53,7 +66,7 @@ def same_padding(t: int, k: int, stride: int) -> Tuple[int, int]:
 def _prologue(terms, relu_in: bool) -> torch.Tensor:
     x = None
     for raw, a, b in terms:
-        v = raw * a + b
+        v = raw.float() * a + b
         x = v if x is None else x + v
     return torch.relu(x) if relu_in else x
 
@@ -73,10 +86,12 @@ def conv_same(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor
     return y
 
 
-def conv_bn_plain(terms, w: torch.Tensor, relu_in: bool, stride: int = 1):
-    """Plain PyTorch version of the kernel: same inputs, same outputs."""
+def conv_bn_plain(terms, w: torch.Tensor, relu_in: bool, stride: int = 1,
+                  out_dtype: torch.dtype = torch.float32):
+    """Plain PyTorch version of the kernel: same inputs, same outputs (the
+    moments from the float32 y, then y rounded to ``out_dtype``)."""
     y = conv_same(_prologue(terms, relu_in), w, stride)
-    return y, y.sum(dim=(0, 1)), (y * y).sum(dim=(0, 1))
+    return y.to(out_dtype), y.sum(dim=(0, 1)), (y * y).sum(dim=(0, 1))
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -110,37 +125,46 @@ def conv_bn_3xtf32(terms, w: torch.Tensor, relu_in: bool, stride: int = 1, produ
     return y, sums, (y * y).sum(dim=(0, 1))
 
 
-def _check(terms, w):
+def _check(terms, w, out_dtype):
     if len(terms) not in (1, 2):
         raise ValueError("conv_bn takes one or two (raw, a, b) terms")
     raw0 = terms[0][0]
     if raw0.dim() != 3 or w.dim() != 3 or w.shape[1] != raw0.shape[2]:
         raise ValueError(f"bad shapes: raw {tuple(raw0.shape)}, w {tuple(w.shape)}")
     dev = raw0.device
+    if out_dtype not in RAW_DTYPES or any(raw.dtype != out_dtype for raw, _, _ in terms):
+        raise ValueError("conv_bn (conv_bn_mma_kernel / conv_bn_direct_kernel): the kernels "
+                         "take float32 raw terms to a float32 y or bfloat16 to bfloat16, got "
+                         f"{[str(raw.dtype) for raw, _, _ in terms]} to {out_dtype}")
     for raw, a, b in terms:
         if raw.shape != raw0.shape or a.shape != (raw0.shape[2],) or b.shape != a.shape:
             raise ValueError("all terms must share [B, T, C_in] and [C_in] affines")
         for tsr in (raw, a, b):
-            if tsr.device != dev or tsr.dtype != torch.float32:
-                raise ValueError("conv_bn: every input must be float32 on one device")
+            if tsr.device != dev:
+                raise ValueError("conv_bn: every input must be on one device")
+        if a.dtype != torch.float32 or b.dtype != torch.float32:
+            raise ValueError("conv_bn: the affines must be float32")
     if w.device != dev or w.dtype != torch.float32:
         raise ValueError("conv_bn: w must be float32 on the inputs' device")
     return dev
 
 
-def conv_bn(terms: Sequence, w: torch.Tensor, relu_in: bool, stride: int = 1):
+def conv_bn(terms: Sequence, w: torch.Tensor, relu_in: bool, stride: int = 1,
+            out_dtype: torch.dtype = torch.float32):
     """relu?(sum_i raw_i*a_i + b_i) -> SAME conv at ``stride`` -> (y, sums, sqs).
 
     Args:
-      terms: one or two (raw [B, T, C_in], a [C_in], b [C_in]).
-      w: [k, C_in, C_out] kernel (JAX WIO layout).
+      terms: one or two (raw [B, T, C_in], a [C_in], b [C_in]); raw in
+        ``out_dtype``, the affines float32.
+      w: [k, C_in, C_out] float32 kernel (JAX WIO layout).
+      out_dtype: float32, or bfloat16 (bf16 inference mode).
     Returns:
-      y [B, ceil(T/stride), C_out] float32 and the per-channel moments of y
-      over (B, T') as float32 [C_out] each.
+      y [B, ceil(T/stride), C_out] in out_dtype and the per-channel moments
+      of the float32 y over (B, T') as float32 [C_out] each.
     """
-    dev = _check(terms, w)
+    dev = _check(terms, w, out_dtype)
     if dev.type == "cpu":
-        return conv_bn_plain(terms, w, relu_in, stride)
+        return conv_bn_plain(terms, w, relu_in, stride, out_dtype)
     if dev.type != "cuda":
         raise ValueError(f"conv_bn: unsupported device {dev}")
     global launches
@@ -152,12 +176,13 @@ def conv_bn(terms: Sequence, w: torch.Tensor, relu_in: bool, stride: int = 1):
     out_t, lpad = same_padding(t, k, stride)
     lib = cuda_build.load("conv_bn")
     n_tiles = lib.conv_bn_row_tiles(bsz, out_t)
-    y = torch.empty((bsz, out_t, c_out), dtype=torch.float32, device=dev)
+    bf16 = int(out_dtype == torch.bfloat16)
+    y = torch.empty((bsz, out_t, c_out), dtype=out_dtype, device=dev)
     partial = torch.empty((2, n_tiles, c_out), dtype=torch.float32, device=dev)
     # scratch of the tensor-core route: per-tile column sums of the normalised
     # input and their float64 totals (sum(y) comes from them, see the kernel)
     xpart = colsum = None
-    if lib.conv_bn_route(c_in, c_out, k, int(stride), int(len(terms) == 2)) == 2:
+    if lib.conv_bn_route(c_in, c_out, k, int(stride), int(len(terms) == 2), bf16) == 2:
         xpart = torch.empty((n_tiles, k * c_in), dtype=torch.float32, device=dev)
         colsum = torch.empty((k * c_in,), dtype=torch.float64, device=dev)
     sums = torch.empty((c_out,), dtype=torch.float32, device=dev)
@@ -172,9 +197,11 @@ def conv_bn(terms: Sequence, w: torch.Tensor, relu_in: bool, stride: int = 1):
         None if xpart is None else xpart.data_ptr(),
         None if colsum is None else colsum.data_ptr(), sums.data_ptr(),
         sqs.data_ptr(), bsz, t, c_in, c_out, k, int(stride), lpad, out_t,
-        int(bool(relu_in)), stream)
-    cuda_build.check(rc, "conv_bn")
+        int(bool(relu_in)), bf16, stream)
+    dtype = str(out_dtype).split(".")[-1]
+    cuda_build.check(rc, f"conv_bn ({dtype} instance)")
     launches += 1
+    launches_by_dtype[dtype] += 1
     return y, sums, sqs
 
 
@@ -190,9 +217,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.conv_bn_row_tiles.argtypes = [ci, ci]
     lib.conv_bn_row_tiles.restype = ci
-    lib.conv_bn_route.argtypes = [ci] * 5
+    lib.conv_bn_route.argtypes = [ci] * 6
     lib.conv_bn_route.restype = ci
-    lib.conv_bn_launch.argtypes = [vp] * 13 + [ci] * 9 + [vp]
+    lib.conv_bn_launch.argtypes = [vp] * 13 + [ci] * 10 + [vp]
     lib.conv_bn_launch.restype = ci
 
 

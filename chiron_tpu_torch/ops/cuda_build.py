@@ -4,8 +4,11 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into ``chiron_tpu_torch/_build/lib<name>.so`` for ``sm_90a`` (Hopper), then
 loaded with ``ctypes``. Nothing is built at import time: the first launch
 of a kernel builds its library (or ``build_all`` builds every library at
-once, one ``nvcc`` process per source, all started together). A library is
-rebuilt when its source is newer than it.
+once, one ``nvcc`` process per library, all started together). A library is
+rebuilt when its source is newer than it. A source may be built into more
+than one library with other macros (``VARIANTS``): ``bilstm_bf16`` is
+``csrc/bilstm.cu`` with ``-DLSTM_XW_BF16``, the LSTM inference kernel's
+bfloat16 instance, built beside the float32 one rather than after it.
 """
 
 from __future__ import annotations
@@ -15,12 +18,16 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Callable, Dict, Iterable
+import time
+from typing import Callable, Dict, Iterable, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
-SOURCES = ("conv_bn", "bilstm", "beam", "lstm_grad", "gru", "bnlstm")
+SOURCES = ("conv_bn", "bilstm", "bilstm_bf16", "beam", "lstm_grad", "gru", "bnlstm")
+# library -> (its source in csrc/, extra nvcc flags); every other library is
+# csrc/<name>.cu with none
+VARIANTS = {"bilstm_bf16": ("bilstm", ("-DLSTM_XW_BF16",))}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _DECLARE: Dict[str, Callable[[ctypes.CDLL], None]] = {}
@@ -44,7 +51,8 @@ def nvcc_path() -> str:
 
 
 def _paths(name: str):
-    return (os.path.join(CSRC, f"{name}.cu"),
+    source = VARIANTS.get(name, (name,))[0]
+    return (os.path.join(CSRC, f"{source}.cu"),
             os.path.join(BUILD, f"lib{name}.so"),
             os.path.join(BUILD, f"{name}.log"))
 
@@ -61,7 +69,7 @@ def _start_build(name: str):
     tmp = f"{lib}.{os.getpid()}.tmp"
     cmd = [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, src]
+           *VARIANTS.get(name, (name, ()))[1], "-o", tmp, src]
     with open(log, "w") as logf:
         proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT)
     return proc, tmp
@@ -76,10 +84,18 @@ def _finish_build(name: str, started) -> None:
     os.replace(tmp, _paths(name)[1])
 
 
-def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
-    """Build every stale library in parallel; return {name: ptxas log}."""
+def build_all(names: Iterable[str] = SOURCES) -> Tuple[Dict[str, str], Dict[str, float]]:
+    """Build every stale library in parallel; return ({name: ptxas log},
+    {name: seconds from the start to its nvcc's exit})."""
+    build_seconds: Dict[str, float] = {}
     with _LOCK:
+        t0 = time.time()
         procs = {n: _start_build(n) for n in names if _stale(n)}
+        while len(build_seconds) < len(procs):
+            for n, started in procs.items():
+                if n not in build_seconds and started[0].poll() is not None:
+                    build_seconds[n] = time.time() - t0
+            time.sleep(0.05)
         for n, started in procs.items():
             _finish_build(n, started)
     logs = {}
@@ -88,7 +104,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         if os.path.exists(log):
             with open(log) as f:
                 logs[n] = f.read()
-    return logs
+    return logs, build_seconds
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -11,6 +11,9 @@ outside it the row's state is frozen and its output zero.
 CUDA tensors and runs ``lstm_layer_plain`` for CPU tensors. H is handled
 directly (no padding to 128 lanes), up to ``MAX_HIDDEN`` = 512 on the card:
 the GRU and BNLSTM wrappers share that limit through ``check_cuda_size``.
+As the fused layer (``ops/bilstm.py``), it takes float32 or bfloat16 ``xw``
+(bf16 inference mode) and returns ``h`` in xw's dtype, through the kernel's
+instance of that dtype on the card.
 """
 
 from __future__ import annotations
@@ -20,25 +23,34 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from chiron_tpu_torch.ops import cuda_build
-from chiron_tpu_torch.ops.bilstm import _lstm_direction, inference_geometry, weight_args
+from chiron_tpu_torch.ops.bilstm import (XW_DTYPES, _lstm_direction, dtype_name,
+                                         inference_geometry, library, weight_args)
 from chiron_tpu_torch.ops.lstm_grad import MAX_HIDDEN
 
-# launches of the CUDA kernel (plain-version calls on the CPU are not counted)
+# launches of the CUDA kernel (plain-version calls on the CPU are not counted),
+# in all and by the instance's element type
 launches = 0
+launches_by_dtype = {"float32": 0, "bfloat16": 0}
 
 
 def check_recurrent_inputs(name: str, floats: Sequence[torch.Tensor],
                            shapes: Sequence[Tuple[int, ...]],
-                           ints: Sequence[Optional[torch.Tensor]], bsz: int) -> torch.device:
+                           ints: Sequence[Optional[torch.Tensor]], bsz: int,
+                           first_dtypes: Sequence[torch.dtype] = (torch.float32,)
+                           ) -> torch.device:
     """Shape, dtype and device checks shared by the recurrent-layer wrappers:
-    every float input float32 of its expected shape, every given index
-    vector int32 [B], all on one CPU or CUDA device (which is returned)."""
+    every float input float32 (the first, the streamed projection, of one of
+    ``first_dtypes``) of its expected shape, every given index vector int32
+    [B], all on one CPU or CUDA device (which is returned)."""
     dev = floats[0].device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
-    for tsr, shape in zip(floats, shapes):
-        if tsr.device != dev or tsr.dtype != torch.float32:
-            raise ValueError(f"{name}: every float input must be float32 on {dev}")
+    if floats[0].dtype not in first_dtypes:
+        raise ValueError(f"{name}: the projection must be one of {list(first_dtypes)}, got "
+                         f"{floats[0].dtype}")
+    for i, (tsr, shape) in enumerate(zip(floats, shapes)):
+        if tsr.device != dev or (i > 0 and tsr.dtype != torch.float32):
+            raise ValueError(f"{name}: every other float input must be float32 on {dev}")
         if tuple(tsr.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {tuple(tsr.shape)}, expected {tuple(shape)}")
     for tsr in ints:
@@ -69,30 +81,33 @@ def lstm_layer(xw: torch.Tensor, wh: torch.Tensor, lengths: torch.Tensor,
     """One LSTM direction.
 
     Args:
-      xw: [T, B, 4H] float32; wh: [H, 4H] float32.
+      xw: [T, B, 4H] float32 or bfloat16; wh: [H, 4H] float32.
       lengths: [B] int32; starts: [B] int32 or None (every window from 0).
     Returns:
-      hs [T, B, H] float32, zero outside each row's window.
+      hs [T, B, H] in xw's dtype, zero outside each row's window.
     """
     t_max, bsz, four_h = xw.shape
     h_dim = four_h // 4
-    dev = check_recurrent_inputs("lstm_layer", (xw, wh), ((t_max, bsz, 4 * h_dim), (h_dim, four_h)),
-                                 (lengths, starts), bsz)
+    dev = check_recurrent_inputs("lstm_layer (lstm_infer_kernel)", (xw, wh),
+                                 ((t_max, bsz, 4 * h_dim), (h_dim, four_h)),
+                                 (lengths, starts), bsz, XW_DTYPES)
     if dev.type == "cpu":
         return lstm_layer_plain(xw, wh, lengths, starts)
     check_cuda_size("lstm_layer", t_max, bsz, h_dim)
     global launches
+    dtype = xw.dtype
     xw, lengths = xw.contiguous(), lengths.contiguous()
     starts = None if starts is None else starts.contiguous()
-    out = torch.empty((t_max, bsz, h_dim), dtype=torch.float32, device=dev)
-    geometry = inference_geometry(bsz, h_dim, 1, dev)
+    out = torch.empty((t_max, bsz, h_dim), dtype=dtype, device=dev)
+    geometry = inference_geometry(bsz, h_dim, 1, dev, dtype)
     cluster, rows, smem = geometry
-    (wh,), wh_global = weight_args((wh.contiguous(),), h_dim, geometry)
-    lib = cuda_build.load("bilstm")
+    (wh,), wh_global = weight_args((wh.contiguous(),), h_dim, geometry, dtype)
+    lib = cuda_build.load(library(dtype))
     rc = lib.lstm_launch(xw.data_ptr(), wh.data_ptr(), lengths.data_ptr(),
                          None if starts is None else starts.data_ptr(), out.data_ptr(),
                          t_max, bsz, h_dim, rows, cluster, smem, wh_global,
-                         torch.cuda.current_stream(dev).cuda_stream)
-    cuda_build.check(rc, "lstm_layer")
+                         int(dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, f"lstm_layer ({dtype_name(dtype)} instance)")
     launches += 1
+    launches_by_dtype[dtype_name(dtype)] += 1
     return out

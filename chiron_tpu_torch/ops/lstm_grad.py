@@ -180,15 +180,16 @@ def fwd_geometry(bsz: int, h_dim: int, sm_count: int = _H100_SMS):
                      f"{_FWD_MAX_COLUMNS} threads covers H={h_dim}")
 
 
-def infer_smem_bytes(h_dim: int, cluster: int, rows: int, resident: bool = True) -> int:
+def infer_smem_bytes(h_dim: int, cluster: int, rows: int, resident: bool = True,
+                     xw_bytes: int = 4) -> int:
     """Dynamic shared memory of one block of the inference kernel
     (``csrc/bilstm.cu``): its slice of wh [H4, 4*HS] (when resident), h of
-    the tile twice, the gate pre-activations and two xw tiles, plus each
-    row's window."""
+    the tile twice and the gate pre-activations in float32, two xw tiles of
+    ``xw_bytes`` an element (4 float32, 2 bfloat16), plus each row's window."""
     hs = -(-h_dim // cluster)
     h4 = -(-h_dim // 4) * 4
-    floats = (h4 * 4 * hs if resident else 0) + 2 * rows * h4 + 3 * rows * 4 * hs
-    return 4 * floats + 8 * rows
+    floats = (h4 * 4 * hs if resident else 0) + 2 * rows * h4 + rows * 4 * hs
+    return 4 * floats + xw_bytes * 2 * rows * 4 * hs + 8 * rows
 
 
 def bwd_smem_bytes(h_dim: int, cluster: int, rows: int, resident: bool = True) -> int:
@@ -206,8 +207,14 @@ _SMEM_BYTES = {"infer": infer_smem_bytes, "bwd": bwd_smem_bytes}
 _KERNEL_NAME = {"infer": "lstm_infer_kernel", "bwd": "lstm_bwd_kernel"}
 
 
+def _smem_fn(kind: str, xw_bytes: int):
+    if kind == "infer":
+        return lambda h, c, r, res=True: infer_smem_bytes(h, c, r, res, xw_bytes)
+    return _SMEM_BYTES[kind]
+
+
 def cluster_geometry(kind: str, bsz: int, h_dim: int, dirs: int = 1,
-                     sm_count: int = _H100_SMS):
+                     sm_count: int = _H100_SMS, xw_bytes: int = 4):
     """(cluster size, rows per tile, dynamic shared-memory bytes per block)
     of the inference (``kind="infer"``) or backward (``"bwd"``) kernel for
     ``dirs`` directions of a batch of ``bsz`` rows and ``h_dim`` hidden units
@@ -229,8 +236,10 @@ def cluster_geometry(kind: str, bsz: int, h_dim: int, dirs: int = 1,
     direction at B = 400 (116 blocks), 5 at B = 300 (120 blocks). A cluster
     of 4 would hold 32 units a block and needs 25 rows at B = 400 for two
     directions in one wave, more than 16; H = 256 takes a cluster of 8.
+    ``xw_bytes`` is the inference kernel's xw element size (2 for its bf16
+    instance, whose xw tiles take half the shared memory).
     """
-    smem_bytes = _SMEM_BYTES[kind]
+    smem_bytes = _smem_fn(kind, xw_bytes)
     best = None
     for resident in (True,) if h_dim <= _RESIDENT_ONLY_HIDDEN else (True, False):
         for cluster in (1, 2, 4, 8):
@@ -253,13 +262,14 @@ def cluster_geometry(kind: str, bsz: int, h_dim: int, dirs: int = 1,
                      f"{MAX_HIDDEN} hidden units)")
 
 
-def weights_resident(kind: str, h_dim: int, cluster: int, rows: int, smem: int) -> bool:
+def weights_resident(kind: str, h_dim: int, cluster: int, rows: int, smem: int,
+                     xw_bytes: int = 4) -> bool:
     """Whether a geometry of ``fwd_geometry`` (kind "fwd") or
     ``cluster_geometry`` keeps wh in shared memory (else the kernel's
     ``wh_global`` variant reads it from device memory)."""
     if kind == "fwd":
         return smem == fwd_smem_bytes(h_dim, cluster)
-    return smem == _SMEM_BYTES[kind](h_dim, cluster, rows)
+    return smem == _smem_fn(kind, xw_bytes)(h_dim, cluster, rows)
 
 
 def wh_slices(wh: torch.Tensor, cluster: int, transposed: bool = False) -> torch.Tensor:

@@ -62,8 +62,9 @@ class Basecaller(nn.Module):
         self.flat = nn.ParameterDict(flat)
 
     def forward(self, signal: torch.Tensor, seq_len: torch.Tensor,
-                training: bool = False) -> torch.Tensor:
-        return apply_model(self.params, self.config, signal, seq_len, training=training)
+                training: bool = False, bf16: bool = False) -> torch.Tensor:
+        return apply_model(self.params, self.config, signal, seq_len, training=training,
+                           bf16=bf16)
 
     def ratio(self, seg_len: int) -> float:
         return model_ratio(self.config, seg_len)

@@ -25,7 +25,10 @@ recurrent kernel is also held at H = 384 and 512, where no cluster holds the
 recurrent weights (the LSTM kernels' device-memory variant; the GRU's
 streamed instance; the BNLSTM walking two gate columns a thread), and the
 beam search at widths past one warp (65, 100, 256) and at 10 classes (the
-block kernel), each bit-identical from run to run.
+block kernel), each bit-identical from run to run. The bf16 instances of
+conv_bn and of the LSTM inference kernel (bf16 inference mode) are held in
+bf16 ulps and shares against their plain versions, and bit for bit against
+the float32 instance on the upcast input (see the section at the end).
 """
 
 import numpy as np
@@ -451,3 +454,145 @@ def test_wrapper_raises_on_bad_cuda_input(cuda):
         tbeam.beam_search(torch.zeros(2, 5, 5, device=cuda), torch.zeros(2, device=cuda,
                                                                           dtype=torch.int32),
                           beam_width=1639)
+
+
+# ---- bf16 inference mode: the bf16 instances of conv_bn and the LSTM inference
+# kernel. Held in the working type against the plain versions on the card: each
+# bfloat16 output equal or one ulp apart from the plain version's (or within the
+# float32 gate, 1e-4 conv / 1e-5 LSTM, where a value near zero spans several
+# ulps), identical on >= 99.9%; float32 moments 1e-4; bit-identical across runs
+# and to the float32 instance on the upcast input with its output rounded (the
+# bf16 instance is that function); the per-dtype launch counters move.
+
+BF16 = torch.bfloat16
+
+
+def _assert_bf16_close(got, want, atol, min_same=0.999):
+    def ordered(t):
+        b = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(b < 0, -(b & 0x7FFF), b)
+
+    ulps = (ordered(got) - ordered(want)).abs()
+    off = (ulps > 1) & ((got.float() - want.float()).abs() > atol)
+    assert not bool(off.any()), f"{int(off.sum())} elements more than 1 ulp and {atol} apart"
+    same = float((ulps == 0).float().mean()) if ulps.numel() else 1.0
+    assert same >= min_same, f"only {same:.5f} identical"
+
+
+def _unaligned(t):
+    """A contiguous copy of t whose data starts 2 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+BF16_CONV_CASES = [
+    # k, stride, t, c_in, c_out, n_terms, relu_in, bsz
+    (1, 1, 400, 1, 256, 1, False, 4),   # dna_model1's first convs: the bf16 window
+    (9, 5, 2000, 1, 256, 1, False, 3),  # rna_model2's front
+    (8, 4, 2000, 1, 256, 1, False, 3),  # slow_model1's front
+    (1, 1, 400, 256, 256, 2, True, 4),  # the tensor-core kernel, two terms
+    (3, 1, 400, 256, 256, 1, True, 4),
+    (3, 1, 130, 20, 72, 2, True, 3),    # ragged row and channel tiles
+    (3, 1, 40, 3, 10, 1, True, 3),      # narrow input, C_out no multiple of 4
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,stride,t,c_in,c_out,n_terms,relu_in,bsz", BF16_CONV_CASES)
+@pytest.mark.parametrize("aligned", [True, False])
+def test_conv_bn_bf16_kernel_matches_plain(cuda, k, stride, t, c_in, c_out, n_terms, relu_in,
+                                           bsz, aligned):
+    rng = np.random.RandomState(k + stride + c_in + 7)
+    terms = []
+    for _ in range(n_terms):
+        raw = torch.tensor(rng.randn(bsz, t, c_in).astype(np.float32), device=cuda).to(BF16)
+        terms.append((raw if aligned else _unaligned(raw),
+                      torch.tensor((0.5 + rng.rand(c_in)).astype(np.float32), device=cuda),
+                      torch.tensor((rng.randn(c_in) * 0.2).astype(np.float32), device=cuda)))
+    w = torch.tensor((rng.randn(k, c_in, c_out) * 0.3).astype(np.float32), device=cuda)
+    before = dict(tconv.launches_by_dtype)
+    got = tconv.conv_bn(terms, w, relu_in, stride, out_dtype=BF16)
+    assert tconv.launches_by_dtype == {**before, "bfloat16": before["bfloat16"] + 1}
+    want = tconv.conv_bn_plain(terms, w, relu_in, stride, out_dtype=BF16)
+    again = tconv.conv_bn(terms, w, relu_in, stride, out_dtype=BF16)
+    torch.cuda.synchronize()
+    assert got[0].dtype == BF16 and got[1].dtype == torch.float32
+    _assert_bf16_close(got[0], want[0], 1e-4)
+    for g, r in zip(got[1:], want[1:]):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    assert all(torch.equal(a, g) for a, g in zip(again, got)), "differs between runs"
+    if aligned:  # the same route as the float32 instance: its function, y rounded
+        y32, s32, q32 = tconv.conv_bn([(r.float(), a, b) for r, a, b in terms], w, relu_in,
+                                      stride)
+        assert torch.equal(got[0], y32.to(BF16))
+        assert torch.equal(got[1], s32) and torch.equal(got[2], q32)
+
+
+# (h, t, b): gate widths no multiple of 8 (20, 12: 4-byte copies of two bf16),
+# odd (21: element copies), RNA_default's 100 (a ragged slice of 50 a block),
+# DNA_default's 128 (16-byte copies) at dna-pre's batch, batch edges, and 384
+# (wh from device memory)
+BF16_LSTM_CASES = [(20, 30, 11), (12, 30, 11), (21, 30, 11), (100, 40, 400), (100, 30, 1),
+                   (128, 40, 400), (128, 30, 301), (128, 30, 1), (384, 20, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,t,b", BF16_LSTM_CASES)
+def test_lstm_inference_bf16_kernels_match_plain(cuda, h, t, b):
+    rng = np.random.RandomState(300 + h + b)
+    to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    xw_f, xw_b = (to(rng.randn(t, b, 4 * h).astype(np.float32)).to(BF16) for _ in range(2))
+    wh_f, wh_b = (to((rng.randn(h, 4 * h) / np.sqrt(h)).astype(np.float32)) for _ in range(2))
+    lengths = _lengths(rng, t, b)
+    lens, starts = to(lengths), to((t - lengths).astype(np.int32))
+    before = (dict(tbl.launches_by_dtype), dict(tlstm.launches_by_dtype))
+    got = tbl.bilstm_layer(xw_f, xw_b, wh_f, wh_b, lens, starts)
+    one = [tlstm.lstm_layer(xw_f, wh_f, lens), tlstm.lstm_layer(xw_b, wh_b, lens, starts)]
+    assert tbl.launches_by_dtype["bfloat16"] == before[0]["bfloat16"] + 1
+    assert tlstm.launches_by_dtype["bfloat16"] == before[1]["bfloat16"] + 2
+    assert (tbl.launches_by_dtype["float32"], tlstm.launches_by_dtype["float32"]) == (
+        before[0]["float32"], before[1]["float32"])
+    want = tbl.bilstm_layer_plain(xw_f, xw_b, wh_f, wh_b, lens, starts)
+    again = tbl.bilstm_layer(xw_f, xw_b, wh_f, wh_b, lens, starts)
+    f32 = tbl.bilstm_layer(xw_f.float(), xw_b.float(), wh_f, wh_b, lens, starts)
+    torch.cuda.synchronize()
+    for g, o, r, a, f in zip(got, one, want, again, f32):
+        assert g.dtype == o.dtype == BF16
+        _assert_bf16_close(g, r, 1e-5)
+        assert torch.equal(a, g), "differs between runs"
+        assert torch.equal(o, g), "the single direction differs from the fused layer"
+        assert torch.equal(g, f.to(BF16)), "not the float32 instance's function, rounded"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [128, 100, 21])
+def test_lstm_inference_bf16_kernels_take_2_byte_aligned_xw(cuda, h):
+    rng = np.random.RandomState(400 + h)
+    t, b = 20, 9
+    to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    xw_f, xw_b = (to(rng.randn(t, b, 4 * h).astype(np.float32)).to(BF16) for _ in range(2))
+    wh_f, wh_b = (to((rng.randn(h, 4 * h) / np.sqrt(h)).astype(np.float32)) for _ in range(2))
+    lengths = _lengths(rng, t, b)
+    lens, starts = to(lengths), to((t - lengths).astype(np.int32))
+    got = tbl.bilstm_layer(_unaligned(xw_f), _unaligned(xw_b), wh_f, wh_b, lens, starts)
+    one = tlstm.lstm_layer(_unaligned(xw_b), wh_b, lens, starts)
+    want = tbl.bilstm_layer(xw_f, xw_b, wh_f, wh_b, lens, starts)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want)) and torch.equal(one, want[1])
+
+
+@pytest.mark.cuda
+def test_bf16_wrappers_raise_on_the_card(cuda):
+    t, b, h = 3, 2, 8
+    xw = torch.zeros(t, b, 4 * h, device=cuda)
+    wh = torch.zeros(h, 4 * h, device=cuda)
+    lens = torch.ones(b, device=cuda, dtype=torch.int32)
+    with pytest.raises(ValueError):  # mixed directions
+        tbl.bilstm_layer(xw.to(BF16), xw, wh, wh, lens, lens)
+    with pytest.raises(ValueError):  # bf16 wh
+        tlstm.lstm_layer(xw.to(BF16), wh.to(BF16), lens)
+    raw, one = torch.zeros(2, 8, 4, device=cuda), torch.ones(4, device=cuda)
+    with pytest.raises(ValueError):  # bf16 raw to a float32 y: no such instance
+        tconv.conv_bn([(raw.to(BF16), one, one)], torch.zeros(3, 4, 4, device=cuda), False)
