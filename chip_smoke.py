@@ -79,7 +79,21 @@ Phases (any failure exits non-zero and prints no result line):
      float32 ones in turns, their plain versions, bounds at bf16 bytes and
      library calls; each bundled model's step split by stage in both modes,
      and the device's idle share over a warm call in both modes;
-  6. print the per-kernel JSON line, then {"ok": true, "device": ...}.
+  6. run the port's benchmark and accuracy entry points on the card:
+     `accuracy` at beam 30 on the full simulated corpora of synthetic_dna,
+     synthetic_dna_slow and synthetic_rna, float32 through its main() (each
+     axis within SKILL_TOL / KMER11_TOL of the committed ACCURACY.json row
+     and above the smoke floors) and bf16 (floors only); the `bench` line
+     (bf16 beam-30 calls on its default input, the two device axes) with
+     the call's idle share; the 2,000-window step against five 400-window
+     steps on the same windows (float32 >= 99.9% identical decodes; bf16
+     printed against the 99.9% and held to the float32 steps), the stage
+     where the two part, each conv's BN moments at both batches in ulps,
+     the 2,000-window step with the 400-window step's BN affines (>= 99.9%
+     identical in both modes) and, in bf16, the plain CPU path's 2,000 vs
+     five 400; the host syncs inside one decode_step; each run's launch
+     counts;
+  7. print the per-kernel JSON line, then {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -128,6 +142,21 @@ BF16_LOGIT_TOL = 1e-2
 BF16_MIN_SAME = 0.97
 # the JAX package's own bound on bf16 against float32 logits (tests/test_model.py:107)
 JAX_BF16_BOUND = 0.15
+# the accuracy axes (chiron_tpu_torch/accuracy.py): call batch of each axis's
+# model; float32 at beam 30 lands on the committed ACCURACY.json row within
+# SKILL_TOL (about 0.005 identity) and KMER11_TOL; both modes clear the
+# identity / kmer11 floors of tests/test_accuracy_smoke.py:64-71 (beam floors
+# for synthetic_dna, the DNA_slow and RNA floors for the other two)
+ACC_BATCH = {"synthetic_dna": 400, "synthetic_dna_slow": 300, "synthetic_rna": 100}
+SKILL_TOL, KMER11_TOL = 0.01, 0.005
+SMOKE_FLOORS = {"synthetic_dna": (0.74, 0.07), "synthetic_dna_slow": (0.69, 0.062),
+                "synthetic_rna": (0.64, 0.036)}
+# the 2,000-window step against five 400-window steps on the same windows, and
+# the most its convs' BN mean (in ulps of rms(y)) and var (in ulps of E[y^2],
+# what the var is taken from) may differ from the 400-window step's on equal
+# inputs: the last bits
+BIG_MIN_SAME = 0.999
+AFFINE_MAX_ULPS = 16
 # the bundled models, their presets and their conv_bn launches per batch
 MODELS = {"DNA_default": ("dna-pre", "dna", 12), "DNA_slow": ("dna-slow-pre", "dna", 13),
           "RNA_default": ("rna-pre", "rna", 13)}
@@ -1794,6 +1823,427 @@ def main(out_dir=OUT_DIR):
                  "the count of its work is wrong")
     log("  kernel no slower than its library call: " + json.dumps(
         {k["name"]: k["ms"] <= k["library_ms"] for k in kernels if k["library_ms"]}))
+
+    # ---- 6. bench and accuracy ---------------------------------------------
+    phase("6. bench and accuracy")
+    t6 = time.time()
+    import contextlib
+    import io
+    import traceback
+    import warnings
+
+    from chiron_tpu_torch import accuracy, bench
+
+    committed = accuracy.committed_rows()
+
+    def accuracy_launches(doc, dtype):
+        """A document's launches: per axis ceil(windows / batch) batches of
+        its model (DNA_default 12 conv_bn at batch 400; DNA_slow 13 at 300;
+        RNA_default 13 at 100), each 3 bilstm, 1 search, 1 traceback."""
+        nb = {axis: -(-doc[axis]["n_windows"] // bsz) for axis, bsz in ACC_BATCH.items()}
+        return {f"conv_bn_{dtype}": sum(n * (12 if a == "synthetic_dna" else 13)
+                                        for a, n in nb.items()),
+                f"bilstm_{dtype}": 3 * sum(nb.values()), "beam_search": sum(nb.values()),
+                "beam_traceback": sum(nb.values())}
+
+    # float32 through the entry point, then the same corpora in bf16 mode
+    acc_docs = {}
+    acc_path = os.path.join(out_dir, "accuracy_float32.json")
+    reset()
+    accuracy.main(["--beam", str(BEAM), "--skip", "real_dna", "--out", acc_path])
+    torch.cuda.synchronize()
+    acc_counts = {"float32": counts()}
+    with open(acc_path) as f:
+        acc_docs["float32"] = json.load(f)
+    reset()
+    acc_docs["bfloat16"] = accuracy.measure(tempfile.mkdtemp(dir=work), BEAM, skip={"real_dna"},
+                                            device="cuda", bf16=True)
+    torch.cuda.synchronize()
+    acc_counts["bfloat16"] = counts()
+    with open(os.path.join(out_dir, "accuracy_bfloat16.json"), "w") as f:
+        json.dump(acc_docs["bfloat16"], f, indent=2, sort_keys=True)
+    for dt, doc in acc_docs.items():
+        log(f"accuracy beam {BEAM} {dt}: launches {acc_counts[dt]}")
+        check_counts(f"accuracy {dt}", acc_counts[dt], accuracy_launches(doc, dt))
+    acc_fail = []
+    for axis in accuracy.SYNTHETIC_AXES:
+        ref = committed[axis]
+        id_floor, k_floor = SMOKE_FLOORS[axis]
+        for dt, doc in acc_docs.items():
+            row = doc[axis]
+            d_skill, d_kmer = row["skill"] - ref["skill"], row["kmer11_hit_rate"] - \
+                ref["kmer11_hit_rate"]
+            floors_ok = row["identity"] >= id_floor and row["kmer11_hit_rate"] >= k_floor
+            rows_ok = abs(d_skill) <= SKILL_TOL and abs(d_kmer) <= KMER11_TOL
+            ok = floors_ok and (rows_ok or dt == "bfloat16")
+            log(f"  {axis} {dt}: identity {row['identity']:.4f} skill {row['skill']:.4f} "
+                f"kmer11 {row['kmer11_hit_rate']:.4f} ({row['n_reads']} reads, "
+                f"{row['n_windows']} windows); committed skill {ref['skill']:.4f} kmer11 "
+                f"{ref['kmer11_hit_rate']:.4f}: skill {d_skill:+.4f} (+-{SKILL_TOL}), kmer11 "
+                f"{d_kmer:+.4f} (+-{KMER11_TOL}) {'within' if rows_ok else 'past'}"
+                f"{' (gated)' if dt == 'float32' else ' (printed)'}; smoke floors identity "
+                f">= {id_floor}, kmer11 >= {k_floor} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                acc_fail.append(f"{axis} {dt}")
+    if acc_fail:
+        fail(f"accuracy off its committed rows or under the smoke floors: {acc_fail}")
+
+    # the bench's line through its entry point, every count set to 0 before it:
+    # 1 warm-up + 5 timed calls, then 1 + 3 x 4 steps each of the two device axes
+    reset()
+    bench_out = io.StringIO()
+    with contextlib.redirect_stdout(bench_out):
+        bench.main([])
+    torch.cuda.synchronize()
+    bench_counts = counts()
+    bench_line = json.loads(bench_out.getvalue().strip().splitlines()[-1])
+    log(json.dumps(bench_line))
+    nb = 6 * -(-bench_line["call_windows"] // BATCH)
+    n_dev = 1 + 3 * 4
+    check_counts("bench", bench_counts,
+                 {"conv_bn_bfloat16": 12 * nb + 12 * n_dev + 13 * n_dev,
+                  "bilstm_bfloat16": 3 * (nb + 2 * n_dev), "beam_search": nb + 2 * n_dev,
+                  "beam_traceback": nb + 2 * n_dev})
+    log(f"bench launches {bench_counts}")
+    # the device's idle share over one warm call of the bench's input (the
+    # warm-up call outside the profiled window)
+    bench_dir = os.path.join(work, "bench")
+    bench_input = bench.simulated_input(bench_dir)[0]
+    pipeline.evaluation(bench.make_flags(bench_input, os.path.join(bench_dir, "warm"),
+                                         bench.MODEL_DNA))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.time()
+        pipeline.evaluation(bench.make_flags(bench_input, os.path.join(bench_dir, "profiled"),
+                                             bench.MODEL_DNA))
+        torch.cuda.synchronize()
+        wall_b = time.time() - t
+    busy_b = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA) / 1e6
+    bench_idle = 1 - busy_b / wall_b if busy_b > 0 else None
+    log(f"profiled warm bench call (bf16, beam {BEAM}): wall {wall_b:.3f} s, device busy "
+        f"{busy_b:.3f} s, idle share "
+        f"{'not measured (no device events)' if bench_idle is None else f'{bench_idle:.3f}'}")
+
+    # every kernel of the bench's step at B = 2,000 against its plain version on
+    # the card, both instances: conv_bn (both routes), bilstm at T = 400, H =
+    # 128 (the geometry inference_geometry picks for 2,000 rows), and below the
+    # beam search and traceback on the 2,000-window step's own lp
+    big_b = 5 * BATCH
+    g2k = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rnd2k(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g2k, device=dev) * scale
+
+    conv2k = {"k3_two_terms_relu": ([(rnd2k(big_b, SEG, c), rnd2k(c).abs() + 0.5,
+                                      rnd2k(c, scale=0.2)) for _ in range(2)],
+                                    rnd2k(3, c, c, scale=(2 / (4 * c)) ** 0.5), True),
+              "k1_cin1": ([(rnd2k(big_b, SEG, 1), torch.ones(1, device=dev),
+                            torch.zeros(1, device=dev))], rnd2k(1, 1, c, scale=(2 / (1 + c)) ** 0.5),
+                          False)}
+    for case, (terms, w, relu) in conv2k.items():
+        for dt in (torch.float32, torch.bfloat16):
+            terms_dt = [(r.to(dt), a, b_) for r, a, b_ in terms]
+            y, s_, q = conv_bn.conv_bn(terms_dt, w, relu, 1, out_dtype=dt)
+            py, ps, pq = conv_bn.conv_bn_plain(terms_dt, w, relu, 1, out_dtype=dt)
+            torch.cuda.synchronize()
+            mom = max(float(((s_ - ps).abs() / ps.abs().clamp(min=1.0)).max()),
+                      float(((q - pq).abs() / pq.abs().clamp(min=1.0)).max()))
+            name = f"conv_bn {case} B=2000 {str(dt).split('.')[-1]}"
+            if dt == torch.float32:
+                hold(f"{name} y", float((y - py).abs().max()), 1e-4)
+            else:
+                bf16_hold(f"{name} y", y, py, 1e-4)
+            hold(f"{name} moments (relative)", mom, 1e-4)
+            del y, py
+    del conv2k, terms
+    ln2k = torch.randint(0, t_len + 1, (big_b,), generator=gen).to(torch.int32)
+    ln2k[0], ln2k[-1] = 0, t_len
+    ln2k = ln2k.to(dev)
+    args2k = (rnd2k(t_len, big_b, 4 * h), rnd2k(t_len, big_b, 4 * h),
+              rnd2k(h, 4 * h, scale=(6 / (5 * h)) ** 0.5 / 2),
+              rnd2k(h, 4 * h, scale=(6 / (5 * h)) ** 0.5 / 2), ln2k,
+              (t_len - ln2k).to(torch.int32))
+    hold(f"bilstm T=400 B=2000 H=128 ({geometry('infer', big_b, h, 2)})",
+         max_err(bilstm.bilstm_layer(*args2k), bilstm.bilstm_layer_plain(*args2k)), 1e-4)
+    args2k = (args2k[0].to(bf16), args2k[1].to(bf16), *args2k[2:])
+    got2k, want2k = bilstm.bilstm_layer(*args2k), bilstm.bilstm_layer_plain(*args2k)
+    for i, name in enumerate(("fw", "bw")):
+        bf16_hold(f"bilstm {name} bf16 T=400 B=2000 H=128"
+                  + (f" ({geometry('infer', big_b, h, 2, 2)})" if i == 0 else ""),
+                  got2k[i], want2k[i], 1e-4)
+    del args2k, got2k, want2k
+    if failures:
+        fail(f"a kernel disagrees with its plain version at B = 2000: {failures}")
+
+    # the 2,000-window step against five 400-window steps on the same windows:
+    # the five copies are permutations of one full batch of the bench's corpus,
+    # so the batch-stat BN moments of every step are those of that batch (up
+    # to float32 sum order), while rows i and i + 400 hold different windows.
+    # Each 2,000-window run's conv outputs, LSTM inputs (xw), LSTM outputs and
+    # logits are held bit for bit (first 400 rows) against the 400-window
+    # step's, which names the first stage where the two part. A second
+    # 2,000-window run takes each conv's BN affine from the unpermuted
+    # 400-window step (models/layers.py calls bn_affine once a batch-stat conv),
+    # so all five of its copies are held to that one step: its own BN (mean,
+    # var), on inputs that the pinned affines keep equal upstream, are read
+    # against the 400-window step's in float32 ulps. In bf16 the plain CPU path
+    # on the same windows (2,000 against five 400) is a second witness.
+    big_batch = load_batch(gpu_model, bench_input, "dna-pre")
+    perms = [torch.arange(BATCH)] + [torch.randperm(BATCH, generator=torch.Generator()
+                                                    .manual_seed(k)) for k in range(1, 5)]
+    inv = [torch.argsort(p).numpy() for p in perms]
+    big_cmp, steps2k = {}, {}
+    bn_affine, conv_bn_fn, bilstm_fn = L.bn_affine, L.conv_bn, R.bilstm_layer
+    trace = {"affines": None, "pin": None, "ref": None, "cmp": None}
+
+    def traced_bn_affine(sums, sqs, count, scale, offset):
+        a, b_ = bn_affine(sums, sqs, count, scale, offset)
+        if trace["affines"] is not None:
+            mean = sums / count
+            trace["affines"].append((mean, torch.clamp(sqs / count - mean * mean, min=0.0),
+                                     sqs / count, a, b_))
+            if trace["pin"] is not None:
+                a, b_ = trace["pin"][len(trace["affines"]) - 1][3:]
+        return a, b_
+
+    def stage(name, t, dim):
+        """A stage output's first 400 rows (batch dim ``dim``): kept as the
+        reference, or compared bit for bit with the reference's."""
+        rows = t.narrow(dim, 0, BATCH)
+        if trace["ref"] is not None:
+            trace["ref"].append(rows.clone())
+        if trace["cmp"] is not None:
+            ref_rows = small_ref[len(trace["cmp"])]
+            trace["cmp"].append((name, float((rows != ref_rows).float().mean())))
+
+    def traced_conv_bn(*args, **kw):
+        out = conv_bn_fn(*args, **kw)
+        stage("conv", out[0], 0)
+        return out
+
+    def traced_bilstm(xw_fw, xw_bw, *args):
+        stage("xw_fw", xw_fw, 1)
+        stage("xw_bw", xw_bw, 1)
+        out = bilstm_fn(xw_fw, xw_bw, *args)
+        stage("h_fw", out[0], 1)
+        stage("h_bw", out[1], 1)
+        return out
+
+    def parting(cmp):
+        """The stages that differ, in order, as 'name#index: share of elements'."""
+        return [f"{name}#{i}: {share:.2e}" for i, (name, share) in enumerate(cmp) if share]
+
+    def ulps(got, want, unit_of):
+        """max |got - want| in float32 ulps of unit_of."""
+        unit = torch.abs(unit_of.float()).clamp(min=torch.finfo(torch.float32).tiny)
+        return float(((got - want).abs() / torch.pow(2.0, torch.floor(torch.log2(unit)) - 23))
+                     .max())
+
+    def as_small(big, k):
+        return tuple(a[k * BATCH:(k + 1) * BATCH] for a in big)
+
+    class FixedLogits:
+        """decode_step's model, returning given logits on the card: the CPU
+        path's logits decoded by the card's beam kernels."""
+        config = gpu_model.config
+
+        def __init__(self, logits):
+            self.logits = logits.to(dev)
+
+        def __call__(self, x, seq_len, bf16=False):
+            return self.logits
+
+    def step(model, x, sl, b16):
+        return pipeline.unpack_step_outputs(
+            pipeline.decode_step(model, x, sl, BEAM, lb, b16).cpu().numpy())
+
+    L.bn_affine, L.conv_bn, R.bilstm_layer = traced_bn_affine, traced_conv_bn, traced_bilstm
+    try:
+        for dt, b16 in (("float32", False), ("bfloat16", True)):
+            xg_b, slg_b, xc_b, slc_b = big_batch[dt]
+            parts = [(xg_b[p.to(dev)], slg_b[p.to(dev)]) for p in perms]
+            big_x, big_sl = torch.cat([x for x, _ in parts]), torch.cat([s for _, s in parts])
+            with torch.no_grad():
+                # the 400-window step of the unpermuted batch: the reference
+                trace.update(affines=[], ref=[])
+                small = [step(gpu_model, *parts[0], b16)]
+                small_aff, small_ref = trace["affines"], trace["ref"]
+                trace.update(affines=None, ref=None)
+                small += [step(gpu_model, x, s_, b16) for x, s_ in parts[1:]]
+                # the 2,000-window step as it runs, its launches counted
+                trace.update(affines=[], cmp=[])
+                reset()
+                big = step(gpu_model, big_x, big_sl, b16)
+                torch.cuda.synchronize()
+                check_counts(f"2000-window step {dt}", counts(),
+                             {f"conv_bn_{dt}": 12, f"bilstm_{dt}": 3, "beam_search": 1,
+                              "beam_traceback": 1})
+                big_aff, big_stages = trace["affines"], trace["cmp"]
+                # the same step with every conv's affine pinned to the 400-window step's
+                trace.update(affines=[], cmp=[], pin=small_aff)
+                pinned = step(gpu_model, big_x, big_sl, b16)
+                pin_aff, pin_stages = trace["affines"], trace["cmp"]
+                trace.update(affines=[], cmp=None)
+                pinned_logits = gpu_model(big_x, big_sl, bf16=b16)
+                trace.update(affines=None, pin=None)
+                del small_ref
+                big_logits = gpu_model(big_x, big_sl, bf16=b16)
+                small_logits = torch.cat([gpu_model(x, s_, bf16=b16) for x, s_ in parts])
+                for run, run_logits in ((big_stages, big_logits), (pin_stages, pinned_logits)):
+                    run.append(("logits", float((run_logits[:BATCH] != small_logits[:BATCH])
+                                                .float().mean())))
+                # the pinned run's five copies against the unpermuted 400-window step
+                pinned_ref = torch.cat([small_logits[:BATCH][p.to(dev)] for p in perms])
+                same_pinned = sum(same_decodes(as_small(pinned, k),
+                                               tuple(a[p.numpy()] for a in small[0]), BATCH)
+                                  for k, p in enumerate(perms))
+                diff_pinned = float((pinned_logits - pinned_ref).abs().max())
+                del pinned_logits, pinned_ref
+                # bf16: the plain CPU path on the same windows, decoded by the card's kernels
+                same_cpu = diff_cpu = t_cpu = None
+                if b16:
+                    t_cpu = time.time()
+                    cpu_parts = [(xc_b[p], slc_b[p]) for p in perms]
+                    cpu_big = cpu_model(torch.cat([x for x, _ in cpu_parts]),
+                                        torch.cat([s_ for _, s_ in cpu_parts]), bf16=b16)
+                    cpu_small = torch.cat([cpu_model(x, s_, bf16=b16) for x, s_ in cpu_parts])
+                    t_cpu = time.time() - t_cpu
+                    cpu_big_step = step(FixedLogits(cpu_big), big_x, big_sl, b16)
+                    same_cpu = sum(same_decodes(as_small(cpu_big_step, k), step(
+                        FixedLogits(cpu_small[k * BATCH:(k + 1) * BATCH]), x, s_, b16), BATCH)
+                        for k, (x, s_) in enumerate(parts))
+                    diff_cpu = float((cpu_big - cpu_small).abs().max())
+                    del cpu_big, cpu_small
+            torch.cuda.synchronize()
+            if not len(big_aff) == len(pin_aff) == len(small_aff) > 0:
+                fail(f"{dt}: BN affines read {len(big_aff)}, {len(pin_aff)}, {len(small_aff)}")
+
+            def aff_ulps(aff):
+                return [(ulps(m2, m4, e4.sqrt()), ulps(v2, v4, e4))
+                        for (m2, v2, *_), (m4, v4, e4, *_) in zip(aff, small_aff)]
+
+            pin_ulps, big_ulps = aff_ulps(pin_aff), aff_ulps(big_aff)
+            aff_max = max(max(u) for u in pin_ulps)
+            aff_ok = aff_max <= AFFINE_MAX_ULPS
+            aff_same = sum(bool(torch.equal(x2[3], x4[3]) and torch.equal(x2[4], x4[4]))
+                           for x2, x4 in zip(big_aff, small_aff))
+            log(f"  {dt} BN moments of the {len(small_aff)} batch-stat convs, 2000-window "
+                f"step vs the 400-window step, as float32 ulps (mean in ulps of rms(y), var "
+                f"in ulps of E[y^2]); with the affines pinned upstream: "
+                f"{json.dumps(pin_ulps)} (last bits: <= {AFFINE_MAX_ULPS} "
+                f"{'ok' if aff_ok else 'FAIL'}); as the step runs: {json.dumps(big_ulps)}, "
+                f"{aff_same}/{len(small_aff)} affines (a, b) bit-identical")
+            log(f"  {dt} first 400 rows, 2000-window step vs the 400-window step, stages that "
+                f"differ (share of elements; {len(big_stages)} stages: conv outputs, per "
+                f"LSTM layer xw_fw, xw_bw, h_fw, h_bw, then the logits): as it runs "
+                f"{parting(big_stages) or 'none'}; affines pinned {parting(pin_stages) or 'none'}")
+            steps2k[dt] = (big, small, big_logits, small_logits)
+            same = sum(same_decodes(as_small(big, k), small[k], BATCH) for k in range(5))
+            # control: the permuted 400-window steps against the unpermuted one, window by window
+            control = min(same_decodes(tuple(a[inv[k]] for a in small[k]), small[0], BATCH)
+                          for k in range(1, 5))
+            diff = float((big_logits - small_logits).abs().max())
+            scale = float(small_logits.abs().max())
+            met = same >= BIG_MIN_SAME * big_b
+            row = {"identical_decodes": same, "windows": big_b, "max_logit_diff": diff,
+                   "max_logit": scale, "permuted_400_control_min": control,
+                   "min_same_met": met, "affines_bit_identical": aff_same,
+                   "pinned_moment_ulps_max": aff_max, "stages_differing": parting(big_stages),
+                   "pinned_stages_differing": parting(pin_stages),
+                   "pinned_identical_decodes": same_pinned,
+                   "pinned_max_logit_diff": diff_pinned,
+                   "cpu_plain_identical_decodes": same_cpu, "cpu_plain_max_logit_diff": diff_cpu,
+                   "cpu_plain_seconds": t_cpu}
+            pinned_ok = same_pinned >= BIG_MIN_SAME * big_b
+            ok = aff_ok and pinned_ok
+            if not b16:
+                ok = ok and met
+                gate = f">= {BIG_MIN_SAME:.1%}: {'met' if met else 'NOT MET'}"
+            else:
+                # bf16: float32 residues of another sum order flip bf16 roundings
+                # downstream (see BF16_RMS_RATIO), so BIG_MIN_SAME is printed, met
+                # or not, beside the stages and witnesses above; the step is
+                # held to the float32 five 400-window steps as the bf16 call steps
+                # are held to float32 (BF16_RMS_RATIO, BF16_DECODE_SLACK)
+                _, f32_small, _, f32_logits = steps2k["float32"]
+                rms_big, rms_small = rms(big_logits - f32_logits), rms(small_logits - f32_logits)
+                as_f32_big = sum(same_decodes(as_small(big, k), f32_small[k], BATCH)
+                                 for k in range(5))
+                as_f32_small = sum(same_decodes(small[k], f32_small[k], BATCH)
+                                   for k in range(5))
+                ok = ok and (rms_big / rms_small <= BF16_RMS_RATIO
+                             and as_f32_big >= as_f32_small - BF16_DECODE_SLACK * big_b)
+                gate = (f">= {BIG_MIN_SAME:.1%}: {'met' if met else 'NOT MET'}; held to the "
+                        f"float32 400-window steps: RMS from their logits, 2000 / 400 "
+                        f"{rms_big:.4e} / {rms_small:.4e} = {rms_big / rms_small:.3f} (<= "
+                        f"{BF16_RMS_RATIO}); decoding as they do {as_f32_big} / {as_f32_small} "
+                        f"of {big_b} (within {BF16_DECODE_SLACK:.0%})")
+                row.update(rms_ratio=rms_big / rms_small, as_float32_2000=as_f32_big,
+                           as_float32_400=as_f32_small)
+            big_cmp[dt] = row
+            log(f"  2000-window step {dt} vs five 400-window steps: {same}/{big_b} windows "
+                f"decode identically ({gate}), max |logit difference| {diff:.3e} (max |logit| "
+                f"{scale:.2f}); control, a permuted 400-window step vs the unpermuted one: >= "
+                f"{control}/{BATCH} identical")
+            log(f"  2000-window step {dt} with each conv's BN affine pinned to the unpermuted "
+                f"400-window step's, its five copies against that step: {same_pinned}/{big_b} "
+                f"decode identically (>= {BIG_MIN_SAME:.1%} {'ok' if pinned_ok else 'FAIL'}), "
+                f"max |logit difference| {diff_pinned:.3e}")
+            if b16:
+                log(f"  plain CPU path, 2000 vs five 400 on the same windows (its logits decoded "
+                    f"by the card's beam kernels; forward {t_cpu:.1f} s): {same_cpu}/{big_b} "
+                    f"identical, max |logit difference| {diff_cpu:.3e}")
+            log(f"  2000-window step {dt}: {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"the 2000-window {dt} step disagrees with five 400-window steps")
+    finally:
+        L.bn_affine, L.conv_bn, R.bilstm_layer = bn_affine, conv_bn_fn, bilstm_fn
+    # where the bench's device step goes at B = 2,000 (bf16, CUDA events)
+    log_step_parts("dna-pre DNA_default bfloat16 B=2000", gpu_model, (big_x, big_sl), lb, True)
+    # the beam kernel and its plain version on the 2,000-window step's lp
+    lp2k = torch.log_softmax(steps2k["float32"][2], -1)
+    sl2k = big_sl.to(torch.int32)
+    trace2k, pb2k, pnb2k = beam.beam_search(lp2k, sl2k, BEAM, lb)
+    ptrace2k = beam.beam_search_plain(lp2k, sl2k, BEAM, lb)[0]
+    best2k = torch.argmax(beam._lae(pb2k, pnb2k), dim=1).to(torch.int32)
+    tb2k = int((beam.beam_traceback(trace2k, best2k)
+                != beam.beam_traceback_plain(trace2k, best2k)).sum())
+    beam_rows = int((trace2k != ptrace2k).any(dim=(1, 2)).sum())
+    log(f"  beam_search W=30 B=2000 on the step's lp: rows whose trace differs from the plain "
+        f"version's {beam_rows} (must be 0); beam_traceback chars that differ {tb2k} (must be 0)")
+    if beam_rows or tb2k:
+        fail("the beam kernels disagree with their plain versions at B = 2000")
+    # host syncs inside one bf16 step at batch 2,000 (torch's sync debug mode),
+    # each named by the innermost frame of the port's code that reached it
+    syncs = []
+
+    def record_sync(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            port = [f"{os.path.relpath(fr.filename, REPO)}:{fr.lineno}"
+                    for fr in traceback.extract_stack()[:-1]
+                    if fr.filename.startswith(os.path.join(REPO, "chiron_tpu_torch"))]
+            syncs.append(port[-1] if port else f"{filename}:{lineno}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record_sync
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with torch.no_grad():
+                pipeline.decode_step(gpu_model, big_x, big_sl, BEAM, lb, True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = sorted(set(syncs))
+    log(f"  host syncs inside one decode_step (B = 2000, bf16): {len(syncs)} sites {syncs}")
+    log(json.dumps({"bench": bench_line, "bench_call_idle_share": bench_idle,
+                    "accuracy": {dt: {a: {k: doc[a][k] for k in ("identity", "skill",
+                                                                  "kmer11_hit_rate")}
+                                      for a in accuracy.SYNTHETIC_AXES}
+                                 for dt, doc in acc_docs.items()},
+                    "step_2000_vs_5x400": big_cmp, "decode_step_sync_sites": syncs}))
+    log(f"phase 6 took {time.time() - t6:.1f} s")
     shutil.rmtree(work, ignore_errors=True)
     log(json.dumps({**{f"call_{k}": r for k, r in call_rates.items()},
                     "train_s400_b300": train_rate,
