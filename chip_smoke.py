@@ -90,10 +90,24 @@ Phases (any failure exits non-zero and prints no result line):
      printed against the 99.9% and held to the float32 steps), the stage
      where the two part, each conv's BN moments at both batches in ulps,
      the 2,000-window step with the 400-window step's BN affines (>= 99.9%
-     identical in both modes) and, in bf16, the plain CPU path's 2,000 vs
-     five 400; the host syncs inside one decode_step; each run's launch
-     counts;
-  7. print the per-kernel JSON line, then {"ok": true, "device": ...}.
+     identical in both modes); the host syncs inside one decode_step; each
+     run's launch counts (the plain CPU path's 2,000 vs five 400, and the JAX
+     package's, are tools_dev/bf16_batch_check.py's, on a CPU);
+  7. the CNN zoo: for every front of the JAX package's zoo that no bundled
+     model runs (ZOO: at its published widths, a dynamic_net with every
+     layer type and one of tools/grid_search.py's form) and for
+     DNA_default's front with the CNN-only logit head, a seeded checkpoint
+     with DNA_default's RNN: `call` at beam 30 on one full dna-pre batch in
+     both modes, every count checked (conv_bn as fused_convs computes it from
+     the config), its step on the card against the CPU (float32: logits 5e-4
+     of max |logit|, >= 95% identical decodes, as the random-weight GRU /
+     BNLSTM models; bf16: BF16_RMS_RATIO), and where each step's device time
+     goes; conv_bn at every new shape those calls gave it, each instance with
+     the route it takes, held against its plain version and timed beside its
+     bound and cuDNN; `train` on gate_conv_net and on the CNN-only head
+     (loss falling, launches counted) and one of their steps on the card
+     against the CPU;
+  8. print the per-kernel JSON line, then {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -160,8 +174,38 @@ AFFINE_MAX_ULPS = 16
 # the bundled models, their presets and their conv_bn launches per batch
 MODELS = {"DNA_default": ("dna-pre", "dna", 12), "DNA_slow": ("dna-slow-pre", "dna", 13),
           "RNA_default": ("rna-pre", "rna", 13)}
-# where the run saves the windows that decode differently (``--out``)
+# where the run saves the windows that decode differently (``--out``), at most
+# SAVED_WINDOWS a step (a random-weight model's bf16 step differs on most of its
+# 400 windows, ~30 MB of logits)
 OUT_DIR = os.path.join(REPO, "chiron_tpu_torch", "_build", "chip_smoke")
+SAVED_WINDOWS = 16
+# phase 7, the CNN zoo: every front of the JAX package's zoo that no bundled
+# model runs, at its published widths (the JAX package's defaults), a
+# dynamic_net with every layer type (a VALID conv, both pools, a conv of 250
+# input channels: no multiple of 4) and one of the form tools/grid_search.py
+# writes (its 15 / 3 / 3 kernels, 5 / 1 / 1 strides, 256 channels), each with
+# DNA_default's RNN, and DNA_default's front with the CNN-only logit head
+# (rnn.layer_num 0)
+ZOO = {
+    "res_x": {"model": "res_x"},
+    "rna_model1": {"model": "rna_model1"},
+    "rna_model3": {"model": "rna_model3"},
+    "rna_test": {"model": "rna_test"},
+    "variant_wavnet": {"model": "variant_wavnet"},
+    "incp_v2": {"model": "incp_v2"},
+    "gate_conv_net": {"model": "gate_conv_net"},
+    "gate_conv_net_low": {"model": "gate_conv_net_low"},
+    "gate_conv_net_high": {"model": "gate_conv_net_high"},
+    "dynamic_net": {"model": "dynamic_net", "tp": ["res", "conv", "p_avg", "conv", "p_max"],
+                    "hu": [256, 250, 0, 256, 0], "kw": [5, 1, 3, 3, 2], "st": [2, 1, 1, 1, 2],
+                    "pd": ["SAME", "VALID", "SAME", "SAME", "VALID"]},
+    "dynamic_net_grid": {"model": "dynamic_net", "tp": ["res"] * 3, "hu": [256] * 3,
+                         "kw": [15, 3, 3], "st": [5, 1, 1], "pd": ["SAME"] * 3},
+    "custom": {"model": "custom"},
+    "cnn_logit": {"model": "dna_model1"},
+}
+ZOO_TRAIN = ("gate_conv_net", "cnn_logit")
+ZOO_TRAIN_STEPS = 30
 
 
 def log(*a):
@@ -181,12 +225,13 @@ def bound_ms(flops, nbytes, peak=PEAK_F32):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def conv_bound(terms, w, stride, on_tensor_cores):
-    """conv_bn's bound from its inputs. On the tensor cores the product is
-    three TF32 products (3 x the FLOP over the TF32 peak); the narrow-input
-    kernel runs on the CUDA cores. Bytes: every term (at its element size:
-    2 for the bf16 instance, whose y is bf16 too) and its affine read once,
-    w read once, y and the moments written once."""
+def conv_bound(terms, w, stride):
+    """conv_bn's bound from its inputs, set by the function and not by the
+    route a kernel took: where k * C_in > 16 the product fits the tensor
+    cores, as three TF32 products (3 x the FLOP over the TF32 peak); a
+    narrower input is bounded on the CUDA cores. Bytes: every term (at its
+    element size: 2 for the bf16 instance, whose y is bf16 too) and its
+    affine read once, w read once, y and the moments written once."""
     bsz, t, cin = terms[0][0].shape
     k, _, cout = w.shape
     el = terms[0][0].element_size()
@@ -194,7 +239,7 @@ def conv_bound(terms, w, stride, on_tensor_cores):
     flops = 2.0 * rows_out * k * cin * cout
     nbytes = (el * len(terms) * bsz * t * cin + 4.0 * (len(terms) * 2 * cin + k * cin * cout)
               + el * rows_out * cout + 4.0 * 2 * cout)
-    if on_tensor_cores:
+    if k * cin > 16:
         return bound_ms(3 * flops, nbytes, PEAK_TF32) + ("3 x FLOP / 495 TFLOP/s TF32",)
     return bound_ms(flops, nbytes) + ("FLOP / 67 TFLOP/s float32",)
 
@@ -255,6 +300,27 @@ def time_ms(torch, fn, reps, warm=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def fused_convs(cnn):
+    """conv_bn launches a batch of a CNN front, from its config: the convs
+    that layers.fused_conv_ok sends to the kernel (dilation 1, SAME, relu or
+    linear, no bias); 4 a residual block."""
+    name = cnn["model"]
+    if name == "dynamic_net":
+        return sum(4 if tp == "res" else int(tp == "conv" and pd == "SAME")
+                   for tp, pd in zip(cnn["tp"], cnn["pd"]))
+    if name == "res_x":
+        return 4 * (int(cnn.get("layer_num", 10)) - 1)
+    if name == "variant_wavnet":  # residual blocks, each wavenet's identity and proj
+        return 4 * int(cnn.get("res_layer", 1)) + 2 * int(cnn.get("dilate_layer", 7)) * int(
+            cnn.get("dilate_repeat", 1))
+    # incp_v2: conv1-4 and 8 of each inception's 10 convs (not its two dilated
+    # ones); the gate_conv_net family: its residual block and each gated
+    # block's identity (the gate and conv carry a bias)
+    return {"dna_model1": 12, "rna_model1": 12, "rna_model3": 13, "rna_test": 20,
+            "incp_v2": 4 + 9 * 8, "gate_conv_net": 8, "gate_conv_net_low": 8,
+            "gate_conv_net_high": 8, "custom": 0}[name]
 
 
 def write_reads(sig_dir, n_reads, samples, rng, dwell_mean=9.0):
@@ -955,6 +1021,16 @@ def main(out_dir=OUT_DIR):
         return sum(bool(a[1][i] == b[1][i] and (a[0][i, :a[1][i]] == b[0][i, :b[1][i]]).all())
                    for i in range(n))
 
+    class FixedLogits:
+        """decode_step's model, returning given logits: a step's decode of
+        logits computed once (on their own device)."""
+
+        def __init__(self, logits, config):
+            self.logits, self.config = logits, config
+
+        def __call__(self, x, seq_len, bf16=False):
+            return self.logits
+
     def load_batch(model, inp, preset):
         """The first full batch of a preset's stream over inp: (card, CPU) pairs
         of the float32 windows, their bf16 upload, and the lengths."""
@@ -973,7 +1049,8 @@ def main(out_dir=OUT_DIR):
         return float(a.double().pow(2).mean().sqrt())
 
     def step_card_vs_cpu(label, on_card, on_cpu, batch, logit_tol=LOGIT_TOL, min_same=0.99,
-                         width=BEAM, rnn_kernel="bilstm", n_conv=12, f32_ref=None, lb=0.0):
+                         width=BEAM, rnn_kernel="bilstm", n_conv=12, f32_ref=None, lb=0.0,
+                         n_rnn=3, cpu_logits_on_card=False):
         """One full batch, card against CPU. Float32 (``f32_ref`` None):
         logits within logit_tol of max |logit|, the card's decodes as the
         CPU's on at least min_same of the windows. bf16 (``f32_ref``: this
@@ -982,15 +1059,20 @@ def main(out_dir=OUT_DIR):
         printed. Both: the beam kernel and beam_search_plain on ONE lp tensor
         (the card's log_softmax of the card's logits, both searches on the
         card) with identical traces on every window; the card's decode_step
-        launches counted (n_conv conv_bn and 3 of rnn_kernel of the mode's
-        instances, 1 search, 1 traceback). Where a window decodes differently
-        card vs CPU, the two searches' first divergence is printed: the two
-        candidates' margin beside what the two sides' roundings moved the
-        scores. Returns the logits and step outputs of both sides."""
+        launches counted (n_conv conv_bn and n_rnn of rnn_kernel of the mode's
+        instances, 1 search, 1 traceback). ``cpu_logits_on_card``: the CPU's
+        logits are decoded by the card's beam kernels (exact against
+        beam_search_plain on one lp tensor, checked here) rather than by
+        beam_search_plain on the CPU (~8 s a batch at beam 30). Where a
+        window decodes differently card vs CPU, the two searches' first
+        divergence is printed: the two candidates' margin beside what the two
+        sides' roundings moved the scores. Returns the logits and step outputs of both sides."""
         bf16_mode = f32_ref is not None
         xg, slg, xc, slc = batch
         bsz = xc.shape[0]
+        t_cpu = time.time()
         logits_c = on_cpu(xc, slc, bf16=bf16_mode)
+        t_cpu = time.time() - t_cpu
         logits_g = on_card(xg, slg, bf16=bf16_mode)
         logit_err = float((logits_g.cpu() - logits_c).abs().max())
         scale = float(logits_c.abs().max())
@@ -1019,10 +1101,18 @@ def main(out_dir=OUT_DIR):
         dt = "bfloat16" if bf16_mode else "float32"
         check_counts(f"{label} decode_step", counts(),
                      {f"conv_bn_{dt}": n_conv,
-                      f"bilstm_{dt}" if rnn_kernel == "bilstm" else rnn_kernel: 3,
+                      f"bilstm_{dt}" if rnn_kernel == "bilstm" else rnn_kernel: n_rnn,
                       "beam_search": 1, "beam_traceback": 1})
-        step_c = pipeline.unpack_step_outputs(
-            pipeline.decode_step(on_cpu, xc, slc, width, lb, bf16_mode).numpy())
+        # the CPU's step on the logits it computed above (its forward run once)
+        t_dec = time.time()
+        if cpu_logits_on_card:
+            step_c = pipeline.unpack_step_outputs(pipeline.decode_step(
+                FixedLogits(logits_c.to(dev), on_cpu.config), xg, slg, width, lb,
+                bf16_mode).cpu().numpy())
+        else:
+            step_c = pipeline.unpack_step_outputs(pipeline.decode_step(
+                FixedLogits(logits_c, on_cpu.config), xc, slc, width, lb, bf16_mode).numpy())
+        t_dec = time.time() - t_dec
         same = same_decodes(step_g, step_c, bsz)
         differ = [i for i in range(bsz) if not (
             step_g[1][i] == step_c[1][i]
@@ -1032,23 +1122,25 @@ def main(out_dir=OUT_DIR):
             lp_cpu = torch.log_softmax(logits_c, -1)
             os.makedirs(out_dir, exist_ok=True)
             path = os.path.join(out_dir, f"beam_differs_{label.replace(' ', '_')}.npz")
-            np.savez(path, logits=logits_g.cpu().numpy()[differ],
-                     logits_cpu=logits_c.numpy()[differ], lp_card=lp_card.numpy()[differ],
-                     lp_cpu=lp_cpu.numpy()[differ], seq_len=slc.numpy()[differ],
-                     windows=np.array(differ), beam_width=width, length_bonus=lb)
+            saved = differ[:SAVED_WINDOWS]
+            np.savez(path, logits=logits_g.cpu().numpy()[saved],
+                     logits_cpu=logits_c.numpy()[saved], lp_card=lp_card.numpy()[saved],
+                     lp_cpu=lp_cpu.numpy()[saved], seq_len=slc.numpy()[saved],
+                     windows=np.array(saved), beam_width=width, length_bonus=lb)
             for i in differ[:3]:
                 div = beam.first_divergence(lp_card[i], lp_cpu[i], slc[i].to(torch.int32),
                                             width, lb)
                 log(f"  {label}: window {i} decodes differently end to end; first divergence "
                     f"{json.dumps(div)} (a near-tie when the margin is within the rounding)")
-            log(f"  {label}: saved the {len(differ)} windows that differ to {path}")
+            log(f"  {label}: {len(differ)} windows differ; saved the first {len(saved)} to "
+                f"{path}")
         log(f"  {label} step decodes (beam {width}): {on_same}/{bsz} windows with identical "
             f"traces, kernel vs plain on one lp tensor on the card (must be all); {same}/{bsz} "
             f"identical card vs CPU end to end"
             + (f" (must be >= {min_same:.0%}: rounding of the logits and of log_softmax may "
                f"flip a near-tie beam)" if not bf16_mode else
                f" ({'at or above' if same >= BF16_MIN_SAME * bsz else 'below'} "
-               f"{BF16_MIN_SAME:.0%})"))
+               f"{BF16_MIN_SAME:.0%})") + f"; CPU forward {t_cpu:.1f} s, CPU decode {t_dec:.1f} s")
         ok = on_same == bsz
         if bf16_mode:
             as_f32_g = same_decodes(step_g, f32_ref["step_c"], bsz)
@@ -1097,9 +1189,11 @@ def main(out_dir=OUT_DIR):
                                          dna_batch["bfloat16"], f32_ref=steps["float32"], lb=lb)
     mode_cmp["DNA_default"] = bf16_vs_f32("DNA_default", steps["float32"], steps["bfloat16"],
                                           BATCH)
-    # a beam wider than a warp on the main path (the block kernel)
+    # a beam wider than a warp on the main path (the block kernel), the CPU's
+    # logits decoded by the card's kernels (beam_search_plain at W = 80 on the
+    # CPU took 36 s; the kernel is held exact against it on one lp tensor here)
     step_card_vs_cpu("DNA_default beam 80", gpu_model, cpu_model, dna_batch["float32"],
-                     width=80, lb=lb)
+                     width=80, lb=lb, cpu_logits_on_card=True)
     model_steps["DNA_default"] = (gpu_model, dna_batch, lb)
 
     # ---- 3a. the other bundled models, DNA_slow and RNA_default, both modes -----
@@ -1361,11 +1455,14 @@ def main(out_dir=OUT_DIR):
         rnn_cfg = model.config["rnn"]
         with torch.no_grad():
             ev[0].record()
-            fea = L.materialize(front(model.params["cnn"], xg_m[..., None], bf16=bf16_mode),
-                                bf16_mode)
+            fea = L.materialize(front(model.params["cnn"], xg_m[..., None], model.config["cnn"],
+                                      bf16=bf16_mode), bf16_mode)
             ev[1].record()
-            logits = R.rnn_layers(model.params["rnn"], fea, slg_m, rnn_cfg["cell_type"],
-                                  rnn_cfg["layer_type"], bf16=bf16_mode)
+            if rnn_cfg["layer_num"] == 0:  # the CNN-only logit head
+                logits = M.cnn_logit(model.params["cnn_logit"], fea)
+            else:
+                logits = R.rnn_layers(model.params["rnn"], fea, slg_m, rnn_cfg["cell_type"],
+                                      rnn_cfg["layer_type"], bf16=bf16_mode)
             ev[2].record()
             prob = pipeline.path_prob(logits)
             dec = beam.beam_search_decode(logits, slg_m, BEAM, lb_m)
@@ -1499,7 +1596,7 @@ def main(out_dir=OUT_DIR):
         torch.backends.cudnn.allow_tf32 = True
         lib_tf32_ms = time_ms(torch, library, 10)
         torch.backends.cudnn.allow_tf32 = False
-        b_ms, b_by, b_unit = conv_bound(terms, w, stride, conv_route[case] == 2)
+        b_ms, b_by, b_unit = conv_bound(terms, w, stride)
         conv_shapes[case] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                              "bound_unit": b_unit, "library_ms": lib_ms,
                              "library_tf32_ms": lib_tf32_ms, "route": conv_route[case]}
@@ -1529,7 +1626,7 @@ def main(out_dir=OUT_DIR):
             return conv_bn.conv_bn(terms32, w, relu, stride)
 
         turns = [time_ms(torch, fn, 10) for fn in (run_f32, run_bf16, run_bf16, run_f32)]
-        b_ms, b_by, b_unit = conv_bound(terms, w, stride, conv_route_bf16[case] == 2)
+        b_ms, b_by, b_unit = conv_bound(terms, w, stride)
         conv_shapes_bf16[case] = {
             "ms": (turns[1] + turns[2]) / 2, "f32_instance_ms": (turns[0] + turns[3]) / 2,
             "turns_f32_bf16_bf16_f32": turns,
@@ -1681,7 +1778,24 @@ def main(out_dir=OUT_DIR):
                     xt_x, wh_x, lt_x), 2, 1),
                 "lstm_bwd": time_ms(torch, lambda: lstm_grad.lstm_bwd(*res_x[1:], dh_x, wh_x, lt_x),
                                     2, 1)}
-        del c_x, xw_x, gx_x, cx_x, xt_x, res_x
+        # the library calls of rows 2w, 5w, 6w and 7w, as rows 2, 5, 6 and 7's:
+        # nn.LSTM (cuDNN) bidirectional and one direction on [T, B, 256], and a
+        # training layer's forward and backward on [T, 300, 2H]
+        lib_bi = torch.nn.LSTM(256, h_x, bidirectional=True).to(dev)
+        lib_one = torch.nn.LSTM(256, h_x).to(dev)
+        lib_tr = torch.nn.LSTM(2 * h_x, h_x).to(dev)
+        x_w = rnd(t_len, BATCH, 256)
+        x_tr = rnd(t_len, tb, 2 * h_x).requires_grad_(True)
+        out_tr, _ = lib_tr(x_tr)
+        with torch.no_grad():
+            wide_ms[f"H={h_x}"].update(
+                bilstm_library=time_ms(torch, lambda: lib_bi(x_w), 2, 1),
+                lstm_layer_library=time_ms(torch, lambda: lib_one(x_w), 2, 1))
+        wide_ms[f"H={h_x}"].update(
+            lstm_fwd_residuals_library=time_ms(torch, lambda: lib_tr(x_tr), 2, 1),
+            lstm_bwd_library=time_ms(torch, lambda: torch.autograd.grad(
+                out_tr, [x_tr] + list(lib_tr.parameters()), dh_x, retain_graph=True), 2, 1))
+        del c_x, xw_x, gx_x, cx_x, xt_x, res_x, lib_bi, lib_one, lib_tr, x_w, x_tr, out_tr
     log("recurrent kernels at H = 384 / 512 (T = B = 400; the training LSTM at B = 300), ms: "
         + json.dumps(wide_ms))
     # the BNLSTM "w" rows' bounds, counted as rows 10 / 11's below (the timed
@@ -1987,8 +2101,7 @@ def main(out_dir=OUT_DIR):
     # 400-window step (models/layers.py calls bn_affine once a batch-stat conv),
     # so all five of its copies are held to that one step: its own BN (mean,
     # var), on inputs that the pinned affines keep equal upstream, are read
-    # against the 400-window step's in float32 ulps. In bf16 the plain CPU path
-    # on the same windows (2,000 against five 400) is a second witness.
+    # against the 400-window step's in float32 ulps.
     big_batch = load_batch(gpu_model, bench_input, "dna-pre")
     perms = [torch.arange(BATCH)] + [torch.randperm(BATCH, generator=torch.Generator()
                                                     .manual_seed(k)) for k in range(1, 5)]
@@ -2043,17 +2156,6 @@ def main(out_dir=OUT_DIR):
     def as_small(big, k):
         return tuple(a[k * BATCH:(k + 1) * BATCH] for a in big)
 
-    class FixedLogits:
-        """decode_step's model, returning given logits on the card: the CPU
-        path's logits decoded by the card's beam kernels."""
-        config = gpu_model.config
-
-        def __init__(self, logits):
-            self.logits = logits.to(dev)
-
-        def __call__(self, x, seq_len, bf16=False):
-            return self.logits
-
     def step(model, x, sl, b16):
         return pipeline.unpack_step_outputs(
             pipeline.decode_step(model, x, sl, BEAM, lb, b16).cpu().numpy())
@@ -2061,7 +2163,7 @@ def main(out_dir=OUT_DIR):
     L.bn_affine, L.conv_bn, R.bilstm_layer = traced_bn_affine, traced_conv_bn, traced_bilstm
     try:
         for dt, b16 in (("float32", False), ("bfloat16", True)):
-            xg_b, slg_b, xc_b, slc_b = big_batch[dt]
+            xg_b, slg_b = big_batch[dt][:2]
             parts = [(xg_b[p.to(dev)], slg_b[p.to(dev)]) for p in perms]
             big_x, big_sl = torch.cat([x for x, _ in parts]), torch.cat([s for _, s in parts])
             with torch.no_grad():
@@ -2100,21 +2202,6 @@ def main(out_dir=OUT_DIR):
                                   for k, p in enumerate(perms))
                 diff_pinned = float((pinned_logits - pinned_ref).abs().max())
                 del pinned_logits, pinned_ref
-                # bf16: the plain CPU path on the same windows, decoded by the card's kernels
-                same_cpu = diff_cpu = t_cpu = None
-                if b16:
-                    t_cpu = time.time()
-                    cpu_parts = [(xc_b[p], slc_b[p]) for p in perms]
-                    cpu_big = cpu_model(torch.cat([x for x, _ in cpu_parts]),
-                                        torch.cat([s_ for _, s_ in cpu_parts]), bf16=b16)
-                    cpu_small = torch.cat([cpu_model(x, s_, bf16=b16) for x, s_ in cpu_parts])
-                    t_cpu = time.time() - t_cpu
-                    cpu_big_step = step(FixedLogits(cpu_big), big_x, big_sl, b16)
-                    same_cpu = sum(same_decodes(as_small(cpu_big_step, k), step(
-                        FixedLogits(cpu_small[k * BATCH:(k + 1) * BATCH]), x, s_, b16), BATCH)
-                        for k, (x, s_) in enumerate(parts))
-                    diff_cpu = float((cpu_big - cpu_small).abs().max())
-                    del cpu_big, cpu_small
             torch.cuda.synchronize()
             if not len(big_aff) == len(pin_aff) == len(small_aff) > 0:
                 fail(f"{dt}: BN affines read {len(big_aff)}, {len(pin_aff)}, {len(small_aff)}")
@@ -2152,9 +2239,7 @@ def main(out_dir=OUT_DIR):
                    "pinned_moment_ulps_max": aff_max, "stages_differing": parting(big_stages),
                    "pinned_stages_differing": parting(pin_stages),
                    "pinned_identical_decodes": same_pinned,
-                   "pinned_max_logit_diff": diff_pinned,
-                   "cpu_plain_identical_decodes": same_cpu, "cpu_plain_max_logit_diff": diff_cpu,
-                   "cpu_plain_seconds": t_cpu}
+                   "pinned_max_logit_diff": diff_pinned}
             pinned_ok = same_pinned >= BIG_MIN_SAME * big_b
             ok = aff_ok and pinned_ok
             if not b16:
@@ -2190,10 +2275,6 @@ def main(out_dir=OUT_DIR):
                 f"400-window step's, its five copies against that step: {same_pinned}/{big_b} "
                 f"decode identically (>= {BIG_MIN_SAME:.1%} {'ok' if pinned_ok else 'FAIL'}), "
                 f"max |logit difference| {diff_pinned:.3e}")
-            if b16:
-                log(f"  plain CPU path, 2000 vs five 400 on the same windows (its logits decoded "
-                    f"by the card's beam kernels; forward {t_cpu:.1f} s): {same_cpu}/{big_b} "
-                    f"identical, max |logit difference| {diff_cpu:.3e}")
             log(f"  2000-window step {dt}: {'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"the 2000-window {dt} step disagrees with five 400-window steps")
@@ -2244,6 +2325,236 @@ def main(out_dir=OUT_DIR):
                                  for dt, doc in acc_docs.items()},
                     "step_2000_vs_5x400": big_cmp, "decode_step_sync_sites": syncs}))
     log(f"phase 6 took {time.time() - t6:.1f} s")
+
+    # ---- 7. the CNN zoo ----------------------------------------------------
+    phase("7. the CNN zoo")
+    t7 = time.time()
+    # one full dna-pre batch: 10 reads of 40 windows. Each model: DNA_default's
+    # model.json with the front (and for cnn_logit the RNN's layer_num) changed,
+    # fresh seeded weights with the head scaled as for the GRU / BNLSTM models,
+    # `call` at beam 30 in both modes with every count checked, then its step
+    # on the card against the CPU (random weights: >= 95% identical decodes in
+    # float32, as the GRU / BNLSTM models; bf16 by BF16_RMS_RATIO), the CPU's
+    # logits decoded by the card's beam kernels (26 CPU beam searches would
+    # take ~200 s). Every conv the calls send to conv_bn is recorded by shape.
+    zoo_dir = os.path.join(work, "signal_zoo")
+    z_reads, z_samples = 10, 39 * JUMP + 10
+    write_reads(zoo_dir, z_reads, z_samples, rng)
+    z_windows = z_reads * (-(-z_samples // JUMP))
+    if z_windows != BATCH:
+        fail(f"the zoo's reads give {z_windows} windows, not one batch of {BATCH}")
+    zoo_shapes = {}  # (B, T, C_in, C_out, k, stride, terms, relu_in) -> {"model dtype": launches}
+    recorder = {"model": None}
+
+    def recording_conv_bn(terms, w, relu_in, stride=1, out_dtype=torch.float32):
+        if recorder["model"] is not None:
+            bsz_r, t_r, cin_r = terms[0][0].shape
+            key = (bsz_r, t_r, cin_r, w.shape[2], w.shape[0], stride, len(terms), bool(relu_in))
+            per = zoo_shapes.setdefault(key, {})
+            per[recorder["model"]] = per.get(recorder["model"], 0) + 1
+        return conv_bn_fn(terms, w, relu_in, stride=stride, out_dtype=out_dtype)
+
+    zoo_rows, zoo_models = {}, {}
+    L.conv_bn = recording_conv_bn
+    try:
+        for name, cnn in ZOO.items():
+            t_m = time.time()
+            layer_num = 0 if name == "cnn_logit" else base_json["rnn"]["layer_num"]
+            mdir = os.path.join(work, f"model_zoo_{name}")
+            os.makedirs(mdir)
+            with open(os.path.join(mdir, "model.json"), "w") as f:
+                json.dump({**base_json, "cnn": cnn,
+                           "rnn": {**base_json["rnn"], "layer_num": layer_num}}, f)
+            cfg = C.read_config(os.path.join(mdir, "model.json"))
+            fresh = from_jax_params(M.init_model(torch.Generator().manual_seed(SEED), cfg), cfg,
+                                    "cuda")
+            z_batch = load_batch(fresh, zoo_dir, "dna-pre")
+            fresh_tree = to_numpy_tree(fresh)
+            gain = 2.0 ** round(np.log2(10.0 / float(fresh(*z_batch["float32"][:2]).abs().max())))
+            head = fresh_tree["cnn_logit"] if layer_num == 0 else fresh_tree["rnn"]["head"]
+            for k in (("w", "b") if layer_num == 0 else ("w_class",)):
+                head[k] = head[k] * gain
+            save_checkpoint(mdir, fresh_tree, 0)
+            z_gpu = from_jax_params(fresh_tree, cfg, "cuda")
+            z_cpu = from_jax_params(fresh_tree, cfg, "cpu")
+            n_conv, n_rnn = fused_convs(cnn), 3 if layer_num else 0
+            row = {"conv_bn_per_batch": n_conv, "head_gain": gain,
+                   "frames": M.output_len(cfg, SEG), "calls": {}}
+            z_steps = {}
+            for tag, b16 in (("float32", False), ("bfloat16", True)):
+                recorder["model"] = f"{name} {tag}"
+                cnt = counted_call(f"zoo_{name}_{tag}", BEAM, mdir, "dna-pre", "dna", b16, zoo_dir,
+                                   z_reads, z_windows)
+                recorder["model"] = None
+                check_counts(f"zoo {name} {tag}", cnt,
+                             {f"conv_bn_{tag}": n_conv, f"bilstm_{tag}": n_rnn,
+                              "beam_search": 1, "beam_traceback": 1})
+                row["calls"][tag] = {k: n for k, n in cnt.items() if n}
+                z_steps[tag] = step_card_vs_cpu(
+                    f"zoo {name} {tag}", z_gpu, z_cpu, z_batch[tag], min_same=0.95,
+                    n_conv=n_conv, n_rnn=n_rnn, f32_ref=z_steps["float32"] if b16 else None,
+                    lb=lb, cpu_logits_on_card=True)
+            row["bf16_vs_float32"] = bf16_vs_f32(f"zoo {name}", z_steps["float32"],
+                                                 z_steps["bfloat16"], BATCH)
+            row["seconds"] = time.time() - t_m
+            zoo_rows[name] = row
+            zoo_models[name] = (z_gpu, z_batch)
+            del z_cpu
+            log(f"zoo {name}: {json.dumps(row)}")
+    finally:
+        L.conv_bn = conv_bn_fn
+    # where each model's step goes on the device, both modes
+    for name, (z_gpu, z_batch) in zoo_models.items():
+        for tag, b16 in (("float32", False), ("bfloat16", True)):
+            log_step_parts(f"dna-pre zoo {name} {tag}", z_gpu, z_batch[tag], lb, b16)
+
+    # conv_bn at every shape the zoo's calls gave it that phase 2 does not
+    # hold: the route each instance takes, the kernel against its plain
+    # version (float32 1e-4, bf16 in the working type), bit-identical across
+    # two runs and (bf16, where both instances take one route) to the float32
+    # instance rounded; the moments within 1e-4 (relative) of the plain
+    # version's in float64: a sum of up to 160,000 rows with cancellation,
+    # where the float32 plain version's own sum order is off by ~1e-4 (its
+    # distance printed beside); timed beside its plain version, its bound and
+    # F.conv1d + F.batch_norm (cuDNN, TF32 off) on the normalised input, in
+    # turns f32, bf16, bf16, f32
+    held = {(terms[0][0].shape[0], terms[0][0].shape[1], w.shape[1], w.shape[2], w.shape[0],
+             stride, len(terms), relu) for terms, w, relu, stride in conv_cases.values()}
+    zoo_conv = {}
+    for key in sorted(zoo_shapes):
+        if key in held:
+            continue
+        bsz_k, t_k, cin_k, cout_k, k_k, st_k, nt_k, relu_k = key
+        terms = [(rnd(bsz_k, t_k, cin_k), rnd(cin_k).abs() + 0.5, rnd(cin_k, scale=0.2))
+                 for _ in range(nt_k)]
+        w = rnd(k_k, cin_k, cout_k, scale=(2 / (k_k * cin_k + cout_k)) ** 0.5)
+        terms16 = [(r.to(bf16), a, b) for r, a, b in terms]
+        label = (f"B={bsz_k} T={t_k} {cin_k}->{cout_k} k={k_k} stride={st_k} terms={nt_k}"
+                 f"{' relu' if relu_k else ''}")
+        routes = [conv_lib.conv_bn_route(cin_k, cout_k, k_k, st_k, int(nt_k == 2), e)
+                  for e in (0, 1)]
+        y, s_, q = conv_bn.conv_bn(terms, w, relu_k, st_k)
+        again = conv_bn.conv_bn(terms, w, relu_k, st_k)
+        py, ps, pq = conv_bn.conv_bn_plain(terms, w, relu_k, st_k)
+        y16, s16, q16 = conv_bn.conv_bn(terms16, w, relu_k, st_k, out_dtype=bf16)
+        again16 = conv_bn.conv_bn(terms16, w, relu_k, st_k, out_dtype=bf16)
+        up = conv_bn.conv_bn([(r.float(), a, b) for r, a, b in terms16], w, relu_k, st_k)
+        py16, ps16, pq16 = conv_bn.conv_bn_plain(terms16, w, relu_k, st_k, out_dtype=bf16)
+        torch.cuda.synchronize()
+        if not (all(torch.equal(a, g) for a, g in zip(again, (y, s_, q)))
+                and all(torch.equal(a, g) for a, g in zip(again16, (y16, s16, q16)))):
+            failures.append(f"conv_bn {label} differs between two runs")
+        if routes[0] == routes[1] and not (torch.equal(y16, up[0].to(bf16))
+                                           and torch.equal(s16, up[1]) and torch.equal(q16, up[2])):
+            failures.append(f"conv_bn bf16 {label} is not the float32 instance's function")
+
+        def moments64(tms):
+            x64 = sum(r.double() * a.double() + b.double() for r, a, b in tms)
+            y64 = conv_bn.conv1d(torch.relu(x64) if relu_k else x64, w.double(), st_k)
+            return y64.sum(dim=(0, 1)), (y64 * y64).sum(dim=(0, 1))
+
+        def rel(got, want):
+            return max(float(((g.double() - w_).abs() / w_.abs().clamp(min=1.0)).max())
+                       for g, w_ in zip(got, want))
+
+        err = hold(f"conv_bn {label} (routes {routes[0]} / bf16 {routes[1]}) y",
+                   float((y - py).abs().max()), 1e-4)
+        m64, m64_16 = moments64(terms), moments64(terms16)
+        hold(f"conv_bn {label} moments vs float64 (relative)", rel((s_, q), m64), 1e-4,
+             f"(the float32 plain version's: {rel((ps, pq), m64):.3e}) ")
+        err16 = bf16_hold(f"conv_bn bf16 {label} y", y16, py16, 1e-4)
+        hold(f"conv_bn bf16 {label} moments vs float64 (relative)", rel((s16, q16), m64_16), 1e-4,
+             f"(the float32 plain version's: {rel((ps16, pq16), m64_16):.3e}) ")
+        z = sum(r * a + b for r, a, b in terms)
+        z = (torch.relu(z) if relu_k else z).transpose(1, 2)
+        _, lpad, rpad = conv_bn.conv_window(t_k, k_k, st_k)
+        z_ncw = F.pad(z, (lpad, rpad)).contiguous()
+        w_oik = w.permute(2, 1, 0).contiguous()
+
+        def library():
+            return F.batch_norm(F.conv1d(z_ncw, w_oik, stride=st_k), None, None, training=True)
+
+        turns = [time_ms(torch, fn, 5) for fn in (
+            lambda: conv_bn.conv_bn(terms, w, relu_k, st_k),
+            lambda: conv_bn.conv_bn(terms16, w, relu_k, st_k, out_dtype=bf16),
+            lambda: conv_bn.conv_bn(terms16, w, relu_k, st_k, out_dtype=bf16),
+            lambda: conv_bn.conv_bn(terms, w, relu_k, st_k))]
+        b_ms, b_by, _ = conv_bound(terms, w, st_k)
+        b16_ms, b16_by, _ = conv_bound(terms16, w, st_k)
+        entry = {"models": zoo_shapes[key], "routes_f32_bf16": routes,
+                 "ms": (turns[0] + turns[3]) / 2, "bf16_ms": (turns[1] + turns[2]) / 2,
+                 "plain_ms": time_ms(torch, lambda: conv_bn.conv_bn_plain(terms, w, relu_k, st_k),
+                                     2, 1),
+                 "bound_ms": b_ms, "bound_by": b_by, "bf16_bound_ms": b16_ms,
+                 "bf16_bound_by": b16_by, "library_ms": time_ms(torch, library, 5),
+                 "max_abs_err": err, "bf16_max_abs_err": err16}
+        zoo_conv[label] = entry
+        if entry["ms"] < b_ms or entry["bf16_ms"] < b16_ms:
+            fail(f"conv_bn {label}: {entry['ms']:.4f} / {entry['bf16_ms']:.4f} ms reads below "
+                 f"its bound {b_ms:.4f} / {b16_ms:.4f} ms")
+        log(f"  conv_bn {label}: {json.dumps(entry)}")
+        del terms, terms16, y, py, y16, py16, again, again16, up, z, z_ncw, m64, m64_16
+    if failures:
+        fail(f"conv_bn disagrees with its plain version at a zoo shape: {failures}")
+    log(f"conv_bn at the zoo's {len(zoo_conv)} new shapes held and timed; routes "
+        f"(f32, bf16) by shape: " + json.dumps({k: v["routes_f32_bf16"] for k, v in
+                                                  zoo_conv.items()}))
+
+    # `train` on gate_conv_net (every gated conv unfused) and on the CNN-only
+    # head: -s 400 -b 300, ZOO_TRAIN_STEPS steps on phase 4's reads, the training
+    # LSTM's launches counted (none for the head), the loss falling; then one
+    # step at CPU_STEP_BATCH windows on the card against the CPU, as phase 4
+    zoo_train = {}
+    for name in ZOO_TRAIN:
+        cfg_path = os.path.join(work, f"model_zoo_{name}", "model.json")
+        cfg = C.read_config(cfg_path)
+        t = time.time()
+        for k in lstm_grad.launches:
+            lstm_grad.launches[k] = 0
+        result = cli.main(["train", "-i", train_dir, "-o", os.path.join(work, "log_zoo"), "-m",
+                           name, "--configure", cfg_path, "-s", str(SEG), "-b", str(TRAIN_BATCH),
+                           "-x", str(ZOO_TRAIN_STEPS), "-t", str(TRAIN_RATE), "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        launches_t = dict(lstm_grad.launches)
+        per_step = 6 if cfg["rnn"]["layer_num"] else 0
+        with open(os.path.join(result["model_dir"], "metrics.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        log(f"train zoo {name} -s {SEG} -b {TRAIN_BATCH} -x {ZOO_TRAIN_STEPS}: {wall:.3f} s, "
+            f"losses {losses}; launches {launches_t}")
+        if any(n != per_step * ZOO_TRAIN_STEPS for n in launches_t.values()):
+            fail(f"train zoo {name}: launches {launches_t}, expected "
+                 f"{per_step * ZOO_TRAIN_STEPS} each")
+        if not (np.all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            fail(f"train zoo {name}: losses {losses} do not fall")
+        z_tree, _ = restore_latest(os.path.join(work, f"model_zoo_{name}"))
+        z_batch = loop.batch_to_device(dataset.next_batch(CPU_STEP_BATCH),
+                                       M.model_ratio(cfg, SEG), torch.device("cpu"))
+
+        def zoo_value_and_grad(device):
+            m = from_jax_params(z_tree, cfg, device).requires_grad_(True)
+            b = {k: v.to(device) for k, v in z_batch.items()}
+            loss = ctc_focal_loss(m(b["signal"], b["seq_len"], training=True), b["seq_len"],
+                                  b["label"], b["label_len"], float(cfg["fl_gamma"]))
+            loss.backward()
+            return float(loss.detach()), {k: p.grad.cpu() for k, p in m.flat.items()}
+
+        loss_g, grads_g = zoo_value_and_grad("cuda")
+        loss_c, grads_c = zoo_value_and_grad("cpu")
+        top = max(float(g.abs().max()) for g in grads_c.values())
+        ratio = max(float((grads_g[k] - g).abs().max())
+                    / (1e-2 * float(g.abs().max()) + 1e-4 * top) for k, g in grads_c.items())
+        hold(f"train zoo {name} step loss card vs CPU ({CPU_STEP_BATCH} windows, relative)",
+             abs(loss_g - loss_c) / abs(loss_c), 1e-4, f"(loss {loss_c:.4f}) ")
+        hold(f"train zoo {name} step gradients card vs CPU (worst leaf: err / (1e-2 own max + "
+             f"1e-4 top))", ratio, 1.0, f"(largest |grad| {top:.3e}) ")
+        zoo_train[name] = {"seconds": wall, "losses": losses, "launches": launches_t,
+                           "loss_card": loss_g, "loss_cpu": loss_c, "grad_ratio": ratio}
+    if failures:
+        fail(f"a zoo train step on the card disagrees with the CPU: {failures}")
+    log(json.dumps({"cnn_zoo": {"models": zoo_rows, "train": zoo_train,
+                                "conv_bn_shapes": len(zoo_conv)}}))
+    log(f"phase 7 took {time.time() - t7:.1f} s")
     shutil.rmtree(work, ignore_errors=True)
     log(json.dumps({**{f"call_{k}": r for k, r in call_rates.items()},
                     "train_s400_b300": train_rate,

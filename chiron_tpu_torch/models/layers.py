@@ -1,20 +1,24 @@
 """Convolutional layer library: functions on [B, T, C] tensors.
 
-Port of ``chiron_tpu/models/layers.py`` (reference: chiron/cnn.py:15-331),
-float32. Parameters are the JAX package's nested dicts, with torch tensors
-as leaves.
+Port of ``chiron_tpu/models/layers.py`` (reference: chiron/cnn.py:15-404):
+the conv, the residual, inception, wavenet and gated-conv blocks, and the
+pooling layers. Parameters are the JAX package's nested dicts, with torch
+tensors as leaves.
 
-At inference every conv of the ported fronts goes through the fused conv+BN
-kernel (``ops/conv_bn.py``): a BN'd relu/linear conv returns a ``LazyBN``,
-the raw conv output plus a deferred affine that the NEXT conv applies as it
-reads; ``materialize`` collapses one into a tensor. With ``training=True``
-a conv is the differentiable chain of the JAX package's unfused path: a SAME
-conv as one ``torch.matmul`` per tap, ``global_bn``, then the activation,
+At inference a conv takes the fused conv+BN kernel (``ops/conv_bn.py``)
+exactly where the JAX package's ``_fused_conv_ok`` sends it there (dilation
+1, SAME, relu or linear, no bias: ``fused_conv_ok``), on either device: a
+BN'd conv returns a ``LazyBN``, the raw conv output plus a deferred affine
+that the NEXT fused conv applies as it reads; ``materialize`` collapses one
+into a tensor. Every other conv, and every conv with ``training=True``, is
+the JAX package's unfused chain: the conv as one ``torch.matmul`` per tap
+(``ops/conv_bn.py:conv1d``; the JAX package runs it as XLA's conv, outside
+any Pallas kernel), the bias, ``pop_bn`` / ``global_bn``, the activation,
 each materialised, in full float32 (the trainer turns TF32 off for matmuls
 and cuDNN: ``utils/device.py:float32_strict``, called by
-``train/loop.py:make_train_step``). The reference's "global batch norm" uses current-batch
-statistics even at inference (chiron/cnn.py:166-188), so outputs depend on
-the batch composition.
+``train/loop.py:make_train_step``). The reference's "global batch norm" uses
+current-batch statistics even at inference (chiron/cnn.py:166-188), so
+outputs depend on the batch composition.
 
 bf16 inference mode (``chiron_tpu/models/layers.py:31-70``; the JAX
 package's production inference mode): activations are stored as bfloat16
@@ -34,7 +38,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from chiron_tpu_torch.models.initializers import variance_scaling, xavier_normal
-from chiron_tpu_torch.ops.conv_bn import bn_affine, conv_bn, conv_same
+from chiron_tpu_torch.ops.conv_bn import bn_affine, conv1d, conv_bn, conv_window
 
 Params = Dict[str, Any]
 
@@ -65,9 +69,12 @@ def store_activation(x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
 
 
 def init_conv(gen: torch.Generator, ksize: int, c_in: int, c_out: int,
-              bn: bool = True) -> Params:
-    """A conv's params: w [k, C_in, C_out] (+ BN scale/offset [C_out])."""
+              bias: bool = False, bn: bool = True) -> Params:
+    """A conv's params: w [k, C_in, C_out] (+ bias b [C_out], zeros) (+ BN
+    scale/offset [C_out])."""
     p: Params = {"w": xavier_normal(gen, (ksize, c_in, c_out))}
+    if bias:
+        p["b"] = torch.zeros(c_out)
     if bn:
         p["bn_scale"] = variance_scaling(gen, (c_out,))
         p["bn_offset"] = variance_scaling(gen, (c_out,))
@@ -87,7 +94,9 @@ def init_residual(gen: torch.Generator, c_in: int, c_out: int, k: int = 3,
 
 
 def global_bn(x: torch.Tensor, scale, offset) -> torch.Tensor:
-    """Normalize by current-batch moments over (batch, time), two-pass."""
+    """Normalize by current-batch moments over (batch, time), two-pass, in
+    float32 (a bfloat16 x is promoted first)."""
+    x = x.float()
     mean = x.mean(dim=(0, 1), keepdim=True)
     var = ((x - mean) ** 2).mean(dim=(0, 1), keepdim=True)
     return (x - mean) * torch.rsqrt(var + _BN_EPS) * scale + offset
@@ -95,7 +104,15 @@ def global_bn(x: torch.Tensor, scale, offset) -> torch.Tensor:
 
 def pop_bn(x, scale, offset, mean, var) -> torch.Tensor:
     """Population-statistics batch norm (chiron/cnn.py:125-163, eps 1e-5)."""
-    return (x - mean) * torch.rsqrt(var + _BN_EPS) * scale + offset
+    return (x.float() - mean) * torch.rsqrt(var + _BN_EPS) * scale + offset
+
+
+_ACTIVATIONS = {
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "elu": torch.nn.functional.elu,
+}
 
 
 class LazyBN:
@@ -135,35 +152,15 @@ def _as_terms(x):
     return ((x, one, zero),), False
 
 
-def _conv_train(params: Params, x, stride: int, active: Optional[str]) -> torch.Tensor:
-    """The differentiable unfused conv: SAME conv -> BN -> activation."""
-    y = conv_same(materialize(x), params["w"], stride)
-    if "bn_mean" in params:
-        y = pop_bn(y, params["bn_scale"], params["bn_offset"], params["bn_mean"],
-                   params["bn_var"])
-    elif "bn_scale" in params:
-        y = global_bn(y, params["bn_scale"], params["bn_offset"])
-    return torch.relu(y) if active == "relu" else y
+def fused_conv_ok(params: Params, dilation: int, padding: str, active: Optional[str]) -> bool:
+    """Whether an inference conv takes the fused conv+BN kernel: the JAX
+    package's ``_fused_conv_ok`` (chiron_tpu/models/layers.py:191-198) with
+    its fused flag on, on either device and in either mode."""
+    return dilation == 1 and padding == "SAME" and active in ("relu", None) and "b" not in params
 
 
-def conv(params: Params, x, stride: int = 1, dilation: int = 1,
-         padding: str = "SAME", active: Optional[str] = "relu", training: bool = False,
-         bf16: bool = False):
-    """1-D SAME conv [B, T, C_in] -> [B, ceil(T/stride), C_out].
-
-    conv -> optional BN (batch-stat, or population stats when the params
-    carry bn_mean/bn_var) -> optional relu (chiron/cnn.py:15-83). At
-    inference through the fused conv+BN kernel, returning a LazyBN; with
-    ``training`` as differentiable torch ops, returning a tensor. The ported
-    fronts only use dilation 1, SAME padding, relu/linear activations and no
-    bias. ``bf16``: the raw output is stored as bfloat16 (its input must then
-    be bfloat16 too: the bf16 signal or an earlier conv's output).
-    """
-    if dilation != 1 or padding != "SAME" or active not in ("relu", None) or "b" in params:
-        raise NotImplementedError(
-            "only dilation-1 SAME relu/linear convs without bias are ported")
-    if training:
-        return _conv_train(params, x, stride, active)
+def _fused_conv(params: Params, x, stride: int, active: Optional[str], bf16: bool) -> LazyBN:
+    """The fused kernel's conv: a LazyBN of this conv's raw output."""
     if isinstance(x, LazyBN) and len(x.terms) > 2:
         x = materialize(x, bf16)  # the kernel prologue sums at most two terms
     terms, relu_in = _as_terms(x)
@@ -184,6 +181,51 @@ def conv(params: Params, x, stride: int = 1, dilation: int = 1,
     return LazyBN([(y_raw, a, b)], relu=(active == "relu"))
 
 
+def _unfused_conv(params: Params, x, stride: int, dilation: int, padding: str,
+                  active: Optional[str], bf16: bool) -> torch.Tensor:
+    """The JAX package's unfused chain: conv -> bias -> BN -> activation,
+    materialised (in bf16 mode both conv operands bfloat16-rounded, the conv
+    result and bias stored as bfloat16, BN in float32)."""
+    lhs, rhs = matmul_inputs(materialize(x, bf16), params["w"], bf16=bf16)
+    y = store_activation(conv1d(lhs, rhs, stride, dilation, padding), bf16)
+    if "b" in params:
+        y = y + store_activation(params["b"], bf16)
+    if "bn_mean" in params:
+        y = pop_bn(y, params["bn_scale"], params["bn_offset"], params["bn_mean"],
+                   params["bn_var"])
+    elif "bn_scale" in params:
+        y = global_bn(y, params["bn_scale"], params["bn_offset"])
+    if active is not None:
+        y = _ACTIVATIONS[active](y)
+    return store_activation(y, bf16)
+
+
+def conv(params: Params, x, stride: int = 1, dilation: int = 1,
+         padding: str = "SAME", active: Optional[str] = "relu", training: bool = False,
+         bf16: bool = False):
+    """1-D conv [B, T, C_in] -> [B, T', C_out] (T' = ceil(T / stride) for
+    SAME), then bias, BN (batch-stat, or population stats when the params
+    carry bn_mean/bn_var) and activation (relu, sigmoid, tanh, elu or None),
+    each where the params or arguments ask for it (chiron/cnn.py:15-83).
+
+    At inference a conv that ``fused_conv_ok`` admits runs the fused kernel
+    and returns a LazyBN (``bf16``: its raw output stored as bfloat16, so its
+    input must be bfloat16 too); any other conv, and every conv with
+    ``training``, is the unfused chain and returns a tensor.
+    """
+    if not training and fused_conv_ok(params, dilation, padding, active):
+        return _fused_conv(params, x, stride, active, bf16)
+    return _unfused_conv(params, x, stride, dilation, padding, active, bf16 and not training)
+
+
+def _merge(identity, y, bf16: bool):
+    """relu(identity + y): as one LazyBN of both branches' terms when both
+    are lazy (never materialised), else summed as tensors."""
+    if isinstance(identity, LazyBN) and isinstance(y, LazyBN):
+        return LazyBN(identity.terms + y.terms, relu=True)
+    return torch.relu(materialize(identity, bf16) + materialize(y, bf16))
+
+
 def residual(params: Params, x, stride: int = 1, training: bool = False, bf16: bool = False):
     """Residual block (chiron/cnn.py:234-262). At inference its output is
     never materialised: both branches flow to the next conv's prologue as
@@ -193,6 +235,106 @@ def residual(params: Params, x, stride: int = 1, training: bool = False, bf16: b
     y = conv(params["conv2a"], x, training=training, bf16=bf16)
     y = conv(params["conv2b"], y, stride=stride, training=training, bf16=bf16)
     y = conv(params["conv2c"], y, active=None, training=training, bf16=bf16)
-    if training:
-        return torch.relu(identity + y)
-    return LazyBN(identity.terms + y.terms, relu=True)
+    return _merge(identity, y, bf16)
+
+
+def init_inception(gen: torch.Generator, c_in: int, times: int = 16) -> Params:
+    """Inception block params (chiron/cnn.py:191-231): six branches of
+    3 * times channels each."""
+    return {
+        "conv1a": init_conv(gen, 1, c_in, times * 3),
+        "conv0b": init_conv(gen, 1, c_in, times * 3),
+        "conv0c": init_conv(gen, 1, c_in, times * 2),
+        "conv1c": init_conv(gen, 3, times * 2, times * 3),
+        "conv0d": init_conv(gen, 1, c_in, times * 2),
+        "conv1d": init_conv(gen, 5, times * 2, times * 3),
+        "conv0e": init_conv(gen, 1, c_in, times * 2),
+        "conv1e": init_conv(gen, 3, times * 2, times * 3),
+        "conv0f": init_conv(gen, 1, c_in, times * 2),
+        "conv1f": init_conv(gen, 3, times * 2, times * 3),
+    }
+
+
+def inception(params: Params, x, training: bool = False, bf16: bool = False) -> torch.Tensor:
+    """Six branches concatenated on channels: avg-pool -> 1x1, 1x1, 1x1 ->
+    3, 1x1 -> 5, 1x1 -> 3 dilated 2, 1x1 -> 3 dilated 3."""
+    kw = dict(training=training, bf16=bf16)
+    branches = [
+        conv(params["conv1a"], avg_pool(x, 3, 1, bf16=bf16), **kw),
+        conv(params["conv0b"], x, **kw),
+        conv(params["conv1c"], conv(params["conv0c"], x, **kw), **kw),
+        conv(params["conv1d"], conv(params["conv0d"], x, **kw), **kw),
+        conv(params["conv1e"], conv(params["conv0e"], x, **kw), dilation=2, **kw),
+        conv(params["conv1f"], conv(params["conv0f"], x, **kw), dilation=3, **kw),
+    ]
+    return torch.cat([materialize(b, bf16) for b in branches], dim=-1)
+
+
+def init_wavenet(gen: torch.Generator, c_in: int, c_out: int) -> Params:
+    """Wavenet block params (chiron/cnn.py:299-331)."""
+    return {
+        "identity": init_conv(gen, 1, c_in, c_out),
+        "gate": init_conv(gen, 2, c_in, c_out),
+        "filter": init_conv(gen, 2, c_in, c_out),
+        "proj": init_conv(gen, 1, c_out, c_out),
+    }
+
+
+def wavenet(params: Params, x, dilation: int, training: bool = False, bf16: bool = False):
+    """relu(identity(x) + proj(sigmoid(gate(x)) * tanh(filter(x)))), the gate
+    and filter convs dilated; lazy where both outer branches are."""
+    kw = dict(training=training, bf16=bf16)
+    identity = conv(params["identity"], x, active=None, **kw)
+    gate = conv(params["gate"], x, dilation=dilation, active="sigmoid", **kw)
+    filt = conv(params["filter"], x, dilation=dilation, active="tanh", **kw)
+    y = conv(params["proj"], gate * filt, active=None, **kw)
+    return _merge(identity, y, bf16)
+
+
+def init_gated_conv(gen: torch.Generator, c_in: int, c_out: int, k: int) -> Params:
+    """Gated conv block params (chiron/cnn.py:85-124): biased gate and conv."""
+    return {
+        "gate": init_conv(gen, k, c_in, c_out, bias=True),
+        "conv": init_conv(gen, k, c_in, c_out, bias=True),
+        "identity": init_conv(gen, 1, c_in, c_out),
+    }
+
+
+def gated_conv(params: Params, x, dilation: int = 1, training: bool = False,
+               bf16: bool = False) -> torch.Tensor:
+    """sigmoid(gate(x)) * tanh(conv(x)) + identity(x)."""
+    kw = dict(training=training, bf16=bf16)
+    gate = conv(params["gate"], x, dilation=dilation, active="sigmoid", **kw)
+    y = conv(params["conv"], x, dilation=dilation, active="tanh", **kw)
+    identity = conv(params["identity"], x, active=None, **kw)
+    return gate * y + materialize(identity, bf16)
+
+
+def _pool(x: torch.Tensor, ksize: int, stride: int, padding: str, fill: float, op):
+    """XLA ``reduce_window`` over time: ``op`` folded over the window's taps
+    in order, in x's dtype (XLA rounds each bfloat16 step), from ``fill``
+    padding."""
+    out_t, lpad, rpad = conv_window(x.shape[1], ksize, stride, 1, padding)
+    if out_t == 0:
+        return x[:, :0]
+    xp = torch.nn.functional.pad(x, (0, 0, lpad, rpad), value=fill)
+    y = None
+    for i in range(ksize):
+        xi = xp[:, i:i + (out_t - 1) * stride + 1:stride]
+        y = xi if y is None else op(y, xi)
+    return y
+
+
+def avg_pool(x, ksize: int, stride: int, padding: str = "SAME", bf16: bool = False):
+    """Average over each window's unpadded samples (XLA ``reduce_window``
+    SAME / VALID semantics), materialising x."""
+    x = materialize(x, bf16)
+    s = _pool(x, ksize, stride, padding, 0.0, torch.add)
+    ones = torch.ones((1, x.shape[1], 1), dtype=x.dtype, device=x.device)
+    return s / _pool(ones, ksize, stride, padding, 0.0, torch.add)
+
+
+def max_pool(x, ksize: int, stride: int, padding: str = "SAME", bf16: bool = False):
+    """Maximum over each window, padded with -inf (XLA ``reduce_window``),
+    materialising x."""
+    return _pool(materialize(x, bf16), ksize, stride, padding, float("-inf"), torch.maximum)

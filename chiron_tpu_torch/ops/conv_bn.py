@@ -71,17 +71,35 @@ def _prologue(terms, relu_in: bool) -> torch.Tensor:
     return torch.relu(x) if relu_in else x
 
 
-def conv_same(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """XLA-SAME 1-D conv of x [B, T, C_in] by w [k, C_in, C_out] (JAX WIO
-    layout) at ``stride``: one torch.matmul per tap, differentiable."""
-    t = x.shape[1]
-    k = w.shape[0]
-    out_t, lpad = same_padding(t, k, stride)
-    need = (out_t - 1) * stride + k
-    xp = torch.nn.functional.pad(x, (0, 0, lpad, max(need - lpad - t, 0)))
+def conv_window(t: int, k: int, stride: int = 1, dilation: int = 1,
+                padding: str = "SAME") -> Tuple[int, int, int]:
+    """(out_t, left pad, right pad) of an XLA conv window of k taps
+    ``dilation`` apart: SAME gives out_t = ceil(t / stride), VALID no padding
+    and out_t = floor((t - span) / stride) + 1 (0 when the span exceeds t)."""
+    span = (k - 1) * dilation + 1
+    if padding == "SAME":
+        out_t, lpad = same_padding(t, span, stride)
+        return out_t, lpad, max((out_t - 1) * stride + span - t - lpad, 0)
+    if padding == "VALID":
+        return max((t - span) // stride + 1, 0), 0, 0
+    raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+
+
+def conv1d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, dilation: int = 1,
+           padding: str = "SAME") -> torch.Tensor:
+    """XLA 1-D conv (``lax.conv_general_dilated`` with ``rhs_dilation``) of
+    x [B, T, C_in] by w [k, C_in, C_out] (JAX WIO layout): one torch.matmul
+    per tap, float32 on the card (no TF32, no global flag), differentiable."""
+    bsz, t, _ = x.shape
+    k, _, c_out = w.shape
+    out_t, lpad, rpad = conv_window(t, k, stride, dilation, padding)
+    if out_t == 0:
+        return x.new_zeros((bsz, 0, c_out))
+    xp = torch.nn.functional.pad(x, (0, 0, lpad, rpad))
     y = None
     for i in range(k):
-        yi = torch.matmul(xp[:, i:i + (out_t - 1) * stride + 1:stride, :], w[i])
+        s = i * dilation
+        yi = torch.matmul(xp[:, s:s + (out_t - 1) * stride + 1:stride, :], w[i])
         y = yi if y is None else y + yi
     return y
 
@@ -90,7 +108,7 @@ def conv_bn_plain(terms, w: torch.Tensor, relu_in: bool, stride: int = 1,
                   out_dtype: torch.dtype = torch.float32):
     """Plain PyTorch version of the kernel: same inputs, same outputs (the
     moments from the float32 y, then y rounded to ``out_dtype``)."""
-    y = conv_same(_prologue(terms, relu_in), w, stride)
+    y = conv1d(_prologue(terms, relu_in), w, stride)
     return y.to(out_dtype), y.sum(dim=(0, 1)), (y * y).sum(dim=(0, 1))
 
 
@@ -108,10 +126,10 @@ def conv_bn_3xtf32(terms, w: torch.Tensor, relu_in: bool, stride: int = 1, produ
     product, which the kernel does not use."""
     x = _prologue(terms, relu_in)
     xh, wh = tf32_round(x), tf32_round(w)
-    y = conv_same(xh, wh, stride)
+    y = conv1d(xh, wh, stride)
     if products == 3:
         xt, wt = tf32_round(x - xh), tf32_round(w - wh)
-        y = (conv_same(xt, wh, stride) + conv_same(xh, wt, stride)) + y
+        y = (conv1d(xt, wh, stride) + conv1d(xh, wt, stride)) + y
     elif products != 1:
         raise ValueError("products must be 1 or 3")
     # sum(y) as the kernel takes it: the conv is linear, so it is w applied to

@@ -34,6 +34,8 @@ def _to_params(tree, device, name, sink):
         return [_to_params(v, device, f"{name}/[{i}]", sink) for i, v in enumerate(tree)]
     if isinstance(tree, (int, str)) or tree is None:
         return tree  # static metadata leaves
+    if np.ndim(tree) == 0 and np.asarray(tree).dtype.kind in "iu":
+        return int(tree)  # an int leaf that went through numpy (variant_wavnet's dilate_layer)
     data = torch.tensor(np.asarray(tree, dtype=np.float32), device=device)
     p = nn.Parameter(data, requires_grad=False)
     sink[name.lstrip("/")] = p

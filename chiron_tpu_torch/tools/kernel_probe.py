@@ -205,7 +205,7 @@ def main(argv=None):
             w = rnd(k, c, c, scale=(2 / ((k + 1) * c)) ** 0.5)
             py, ps, _ = conv_bn.conv_bn_plain(terms, w, True, 1)
             x64 = torch.relu(sum(r.double() * a.double() + b.double() for r, a, b in terms))
-            y64 = conv_bn.conv_same(x64, w.double(), 1)
+            y64 = conv_bn.conv1d(x64, w.double(), 1)
             del x64
             s64 = y64.sum(dim=(0, 1))
 

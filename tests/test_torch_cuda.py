@@ -39,6 +39,7 @@ from chiron_tpu_torch.ops import beam as tbeam
 from chiron_tpu_torch.ops import bilstm as tbl
 from chiron_tpu_torch.ops import bnlstm as tbn
 from chiron_tpu_torch.ops import conv_bn as tconv
+from chiron_tpu_torch.ops import cuda_build
 from chiron_tpu_torch.ops import gru as tgru
 from chiron_tpu_torch.ops import lstm as tlstm
 from chiron_tpu_torch.ops import lstm_grad as tlg
@@ -87,6 +88,88 @@ def test_conv_bn_kernel_matches_plain(cuda, k, stride, t, c_in, c_out, n_terms,
     again = tconv.conv_bn(terms, w, relu_in, stride)
     torch.cuda.synchronize()
     assert all(torch.equal(a, g) for a, g in zip(again, got)), "differs between runs"
+
+
+# conv_bn's shapes in the CNN zoo's fronts (chip_smoke.py's ZOO: every front no
+# bundled model runs, at its published widths) at a full dna-pre batch (B = 400,
+# window 400), one entry per distinct (k, stride, T, C_in, C_out, terms, relu_in)
+# that dna_model1 does not give; tests/test_torch_zoo.py checks this list against
+# the fronts. Among them the one shape that misses the tensor cores in float32:
+# gate_conv_net_high's res1.conv2b (k = 17, stride 9, 200 -> 200), whose float32
+# slab needs 384 bytes more shared memory than a block has (its bf16 instance's
+# fits), and dynamic_net's 250 input channels (no multiple of 4)
+ZOO_CONV_SHAPES = [
+    (1, 1, 45, 200, 200, 1, True), (1, 1, 45, 200, 200, 2, True),
+    (1, 1, 45, 200, 400, 1, False), (1, 1, 45, 400, 600, 1, False),
+    (1, 1, 45, 600, 800, 1, False), (1, 1, 58, 256, 256, 1, True),
+    (1, 1, 58, 256, 256, 2, True), (3, 1, 58, 256, 256, 1, True),
+    (1, 1, 80, 256, 256, 1, False), (1, 1, 80, 256, 256, 1, True),
+    (1, 1, 80, 256, 256, 2, True), (3, 1, 80, 256, 256, 1, True),
+    (3, 1, 100, 32, 48, 1, True), (5, 1, 100, 32, 48, 1, True),
+    (1, 1, 100, 256, 256, 1, True), (1, 1, 100, 256, 256, 2, True),
+    (3, 1, 100, 256, 256, 1, True), (1, 1, 100, 288, 32, 1, False),
+    (1, 1, 100, 288, 48, 1, False), (1, 1, 200, 1, 256, 1, False),
+    (1, 2, 200, 1, 256, 1, False), (3, 1, 200, 32, 48, 1, True),
+    (5, 1, 200, 32, 48, 1, True), (3, 1, 200, 250, 256, 1, False),
+    (1, 1, 200, 256, 256, 1, True), (3, 2, 200, 256, 256, 1, True),
+    (1, 1, 200, 288, 32, 1, False), (1, 1, 200, 288, 48, 1, False),
+    (3, 1, 400, 1, 64, 1, False), (1, 1, 400, 1, 200, 1, False),
+    (1, 9, 400, 1, 200, 1, False), (1, 2, 400, 1, 256, 1, False),
+    (1, 5, 400, 1, 256, 1, False), (14, 7, 400, 1, 256, 1, False),
+    (3, 1, 400, 32, 48, 1, True), (5, 1, 400, 32, 48, 1, True),
+    (3, 1, 400, 64, 128, 1, True), (3, 1, 400, 128, 256, 1, True),
+    (17, 9, 400, 200, 200, 1, True), (1, 1, 400, 256, 32, 1, True),
+    (1, 1, 400, 256, 48, 1, False), (1, 1, 400, 256, 48, 1, True),
+    (1, 1, 400, 256, 256, 1, False), (5, 1, 400, 256, 256, 1, True),
+    (5, 2, 400, 256, 256, 1, True), (13, 5, 400, 256, 256, 1, True),
+    (15, 5, 400, 256, 256, 1, True), (1, 1, 400, 288, 32, 1, False),
+    (1, 1, 400, 288, 48, 1, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,stride,t,c_in,c_out,n_terms,relu_in", ZOO_CONV_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_bn_zoo_shapes_match_plain(cuda, k, stride, t, c_in, c_out, n_terms, relu_in,
+                                        dtype):
+    """Each instance at each zoo shape, B = 400: float32 1e-4, bf16 in the
+    working type (as the bf16 cases below), bit-identical across runs, and,
+    where both instances take one route, the bf16 instance the float32
+    instance's function rounded. The moments within 1e-4 (relative and
+    absolute) of the same sums in float64: over 160,000 rows with
+    cancellation, the float32 plain version's own sums sit up to ~1.7e-4
+    from them."""
+    gen = torch.Generator().manual_seed(k * 1000 + t + c_in + c_out)
+    terms = [((torch.randn(400, t, c_in, generator=gen)).to(cuda).to(dtype),
+              (0.5 + torch.rand(c_in, generator=gen)).to(cuda),
+              (0.2 * torch.randn(c_in, generator=gen)).to(cuda)) for _ in range(n_terms)]
+    w = (torch.randn(k, c_in, c_out, generator=gen) * (2 / (k * c_in + c_out)) ** 0.5).to(cuda)
+    key = str(dtype).split(".")[-1]
+    before = dict(tconv.launches_by_dtype)
+    got = tconv.conv_bn(terms, w, relu_in, stride, out_dtype=dtype)
+    assert tconv.launches_by_dtype == {**before, key: before[key] + 1}
+    want = tconv.conv_bn_plain(terms, w, relu_in, stride, out_dtype=dtype)
+    again = tconv.conv_bn(terms, w, relu_in, stride, out_dtype=dtype)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, g) for a, g in zip(again, got)), "differs between runs"
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    else:
+        _assert_bf16_close(got[0], want[0], 1e-4)
+        routes = {cuda_build.load("conv_bn").conv_bn_route(c_in, c_out, k, stride,
+                                                           int(n_terms == 2), bf16)
+                  for bf16 in (0, 1)}
+        if len(routes) == 1:
+            y32, s32, q32 = tconv.conv_bn([(r.float(), a, b) for r, a, b in terms], w,
+                                          relu_in, stride)
+            assert torch.equal(got[0], y32.to(BF16))
+            assert torch.equal(got[1], s32) and torch.equal(got[2], q32)
+    x64 = sum(r.double() * a.double() + b.double() for r, a, b in terms)
+    y64 = tconv.conv1d(torch.relu(x64) if relu_in else x64, w.double(), stride)
+    for g, r in zip(got[1:], (y64.sum(dim=(0, 1)), (y64 * y64).sum(dim=(0, 1)))):
+        np.testing.assert_allclose(g.double().cpu().numpy(), r.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-4)
 
 
 # (h, t, b): widths with a ragged slice (100) and a cluster of 8 (256), a single
