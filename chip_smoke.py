@@ -107,7 +107,24 @@ Phases (any failure exits non-zero and prints no result line):
      bound and cuDNN; `train` on gate_conv_net and on the CNN-only head
      (loss falling, launches counted) and one of their steps on the card
      against the CPU;
-  8. print the per-kernel JSON line, then {"ok": true, "device": ...}.
+  8. serving and the training sources: export DNA_default through the
+     port's export_model (segment 400, beam 30, and a second bundle at
+     beam 0) into DIR/serving, serve it on 127.0.0.1 (batch 400, the card)
+     and send it phase 3's windows from 4 client threads at once: phase 3's
+     first batch with its logits, 800, 137 (wrap-padded) and 1 windows;
+     every response bit for bit the port's decode_step on the card with
+     length_bonus 0 on the same wrap-padded batch, -1 past each length, the
+     first batch's logits phase 3's card logits, every launch count as the
+     requests' steps predict; latency p50 / p95 of 400-window requests with
+     1 client (20 requests) and 4 concurrent clients (10 each), windows/s,
+     the lock's held time, the card's idle share over a profiled 4-client
+     run, the protocol's host time; run_call through the server on three of
+     phase 3's reads, each fastq byte for byte a one-read `call -b 400 --beam
+     30 --length_bonus 0`'s; the beam-0 bundle for two requests; then phase
+     4's reads as a .bin folder, a TFRecord (int16 signals) and a window
+     cache, each equal to the in-RAM .signal/.label arrays, and `train -s 400
+     -b 300 -x 10` from each with the training LSTM's launches counted;
+  9. print the per-kernel JSON line, then {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -350,6 +367,365 @@ def write_train_reads(data_dir, n_reads, n_bases, rng):
         np.savetxt(os.path.join(data_dir, f"read{i:02d}.signal"), sig, fmt="%.3f")
         with open(os.path.join(data_dir, f"read{i:02d}.label"), "w") as f:
             f.writelines(f"{s} {s + d} {'ACGT'[b]}\n" for s, d, b in zip(starts, dwell, bases))
+
+
+def serve_and_train_sources(torch, work, out_dir, sig_dir, train_dir, gpu_model, first_logits,
+                            reset, counts, check_counts, smi):
+    """Phase 8: serve DNA_default on the card to concurrent clients, basecall
+    through the server, and train from the .bin, TFRecord and cache sources.
+    ``first_logits``: phase 3's card logits of the first dna-pre batch.
+    Returns the serving numbers."""
+    import socket
+    import threading
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chiron_tpu_torch import cli
+    from chiron_tpu_torch.eval import pipeline
+    from chiron_tpu_torch.io import binfmt, tfrecord
+    from chiron_tpu_torch.io.cache import cached_dataset
+    from chiron_tpu_torch.io.labels import read_raw_data_sets
+    from chiron_tpu_torch.io.signal import read_signal_for_eval
+    from chiron_tpu_torch.models.model import output_len
+    from chiron_tpu_torch.ops import lstm_grad
+    from chiron_tpu_torch.serve import client as sclient, export, protocol, server as sserver
+    from chiron_tpu_torch.train import loop
+
+    dev = torch.device("cuda")
+    t_out = output_len(gpu_model.config, SEG)
+    # phase 3's reads windowed as `call -p dna-pre --sig_norm 1` windows them: the
+    # first 400 are phase 3's first batch
+    file_dir, files = pipeline.list_input_files(sig_dir)
+    parts = [read_signal_for_eval(os.path.join(file_dir, f), 0, step=JUMP, seg_length=SEG,
+                                  normalize=1) for f in files]
+    windows = np.concatenate([p[0] for p in parts]).astype(np.float32)
+    lengths = np.concatenate([p[1] for p in parts]).astype(np.int32)
+    if len(windows) < 2 * BATCH + 20:
+        fail(f"phase 3's reads give {len(windows)} windows, expected {2 * BATCH + 20}")
+
+    def reference(x, sl, width, want_logits=False):
+        """The port's decode_step on the card with length_bonus 0 on each
+        batch as the server forms it (wrap-padded), cut to t_out columns
+        and -1 past each length; the model's forward for the logits."""
+        out = {"decoded": [], "decoded_length": [], "log_prob": [], "prob_logits": [],
+               "logits": []}
+        for ofs in range(0, len(x), BATCH):
+            bx, bl = x[ofs:ofs + BATCH], sl[ofs:ofs + BATCH]
+            take = len(bx)
+            bx = np.pad(bx, ((0, BATCH - take), (0, 0)), mode="wrap")
+            bl = np.pad(bl, (0, BATCH - take), mode="wrap")
+            xd, ld = torch.from_numpy(bx).to(dev), torch.from_numpy(bl).to(dev)
+            dec, dlen, score, prob = pipeline.unpack_step_outputs(
+                pipeline.decode_step(gpu_model, xd, ld, width, 0.0).cpu().numpy())
+            dec = dec[:, :t_out].astype(np.int32)
+            dec[np.arange(t_out)[None, :] >= dlen[:, None]] = -1
+            for k, v in (("decoded", dec), ("decoded_length", dlen), ("log_prob", score),
+                         ("prob_logits", prob)):
+                out[k].append(v[:take])
+            if want_logits:
+                with torch.no_grad():
+                    out["logits"].append(gpu_model(xd, ld)[:take].cpu().numpy())
+        return {k: np.concatenate(v) for k, v in out.items() if v}
+
+    def same(label, got, want):
+        """Every array of a response bit for bit as the reference's; -1 past
+        each decoded length."""
+        for k, v in want.items():
+            g = got.get(k)
+            if g is None or g.dtype != v.dtype or g.shape != v.shape \
+                    or g.tobytes() != v.tobytes():
+                fail(f"serving {label}: {k} differs from decode_step on the card "
+                     f"({None if g is None else (g.dtype, g.shape)} vs {(v.dtype, v.shape)})")
+        dec, dlen = got["decoded"], got["decoded_length"]
+        if not ((dec == -1) == (np.arange(dec.shape[1])[None, :] >= dlen[:, None])).all():
+            fail(f"serving {label}: decoded is not -1 exactly past each length")
+
+    class TimedLock:
+        """The engine's device lock, recording how long each hold lasts."""
+
+        def __init__(self, lock):
+            self.lock, self.held = lock, []
+
+        def __enter__(self):
+            self.lock.acquire()
+            self.t = time.perf_counter()
+
+        def __exit__(self, *exc):
+            self.held.append(time.perf_counter() - self.t)
+            self.lock.release()
+
+    def step_counts(steps, width=BEAM, forwards=0):
+        n = steps + forwards
+        want = {"conv_bn_float32": 12 * n, "bilstm_float32": 3 * n}
+        if width:
+            want.update(beam_search=steps, beam_traceback=steps)
+        return want
+
+    def drive(port, per_client, label):
+        """Each client thread sends its list of (x, seq_len, want_logits) in
+        turn; returns each thread's (latency s, response) lists and the wall
+        from the first send to the last response."""
+        results = [[] for _ in per_client]
+        errors = []
+        gate = threading.Barrier(len(per_client) + 1)
+
+        def run(i):
+            try:
+                client = sclient.PredictionClient(port=port, timeout=120.0)
+                try:
+                    gate.wait(60)
+                    for x, sl, lg in per_client[i]:
+                        t = time.perf_counter()
+                        r = client.predict(x, sl, request_id=len(results[i]), want_logits=lg)
+                        results[i].append((time.perf_counter() - t, r))
+                finally:
+                    client.close()
+            except BaseException as e:  # reported below, after every join
+                errors.append(repr(e))
+                gate.abort()
+
+        threads = [threading.Thread(target=run, args=(i,), daemon=True)
+                   for i in range(len(per_client))]
+        for t in threads:
+            t.start()
+        try:
+            gate.wait(60)
+        except threading.BrokenBarrierError:
+            pass  # a client failed to start: reported below
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join(300)
+        wall = time.perf_counter() - t0
+        if errors or any(t.is_alive() for t in threads):
+            fail(f"serving {label}: client errors {errors}, "
+                 f"{sum(t.is_alive() for t in threads)} clients still waiting")
+        return results, wall
+
+    serve_dir = os.path.join(out_dir, "serving")
+    bundles = {w: export.export_model(MODEL_DIR, os.path.join(serve_dir, f"beam{w}"), version=1,
+                                      segment_len=SEG, beam=w) for w in (BEAM, 0)}
+    log(f"exported DNA_default as {bundles}")
+    numbers = {}
+    t = time.time()
+    server = sserver.serve(bundles[BEAM], port=0, batch_size=BATCH, block=False)
+    try:
+        engine = server.engine
+        port = server.server_address[1]
+        log(f"serving {bundles[BEAM]} on 127.0.0.1:{port} ({engine.device}, beam {engine.beam}, "
+            f"batch {engine.batch_size}); engine built and warmed in {time.time() - t:.2f} s")
+        timed = engine._lock = TimedLock(engine._lock)
+        # four clients at once: phase 3's first batch (with its logits), two
+        # steps, a wrap-padded 137 and a single window
+        checks = [("first batch + logits", windows[:BATCH], lengths[:BATCH], True),
+                  ("800 windows", windows[:2 * BATCH], lengths[:2 * BATCH], False),
+                  ("137 windows", windows[BATCH:BATCH + 137], lengths[BATCH:BATCH + 137], False),
+                  ("1 window", windows[-1:], lengths[-1:], False)]
+        reset()
+        res, _ = drive(port, [[c[1:]] for c in checks], "checks")
+        with timed.lock:  # the counters are module globals: read them under the lock
+            cnt = counts()
+        check_counts("serving, 4 concurrent checks", cnt, step_counts(5, forwards=1))
+        for (label, x, sl, lg), [(_, r)] in zip(checks, res):
+            same(label, r, reference(x, sl, BEAM, lg))
+        if not np.array_equal(res[0][0][1]["logits"], first_logits.cpu().numpy()):
+            fail("serving: the first batch's logits are not phase 3's card logits of that batch")
+        log(f"  4 concurrent requests (400 + logits, 800, 137, 1 windows): every array bit "
+            f"for bit as decode_step on the card (length_bonus 0) on the same wrap-padded "
+            f"batch, -1 past each length; the first batch's logits are phase 3's card logits; "
+            f"launches {cnt}")
+
+        # latency and rate: 400-window requests, one client then four at once
+        payloads = [(windows[:BATCH], lengths[:BATCH]),
+                    (windows[BATCH + 20:2 * BATCH + 20], lengths[BATCH + 20:2 * BATCH + 20])]
+        want = [reference(x, sl, BEAM) for x, sl in payloads]
+        for n_clients, per in ((1, 20), (4, 10)):
+            reqs = [[(*payloads[(c + k) % 2], False) for k in range(per)]
+                    for c in range(n_clients)]
+            reset()
+            timed.held.clear()
+            res, wall = drive(port, reqs, f"{n_clients} clients")
+            with timed.lock:
+                cnt = counts()
+            check_counts(f"serving, {n_clients} clients", cnt, step_counts(n_clients * per))
+            lat = []
+            for c, rows in enumerate(res):
+                for k, (dt, r) in enumerate(rows):
+                    same(f"{n_clients} clients", r, want[(c + k) % 2])
+                    lat.append(dt)
+            lat = np.array(lat) * 1e3
+            numbers[f"clients_{n_clients}"] = {
+                "requests": len(lat), "windows_per_request": BATCH,
+                "latency_ms_p50": float(np.percentile(lat, 50)),
+                "latency_ms_p95": float(np.percentile(lat, 95)),
+                "latency_ms_max": float(lat.max()), "wall_s": wall,
+                "windows_per_s": len(lat) * BATCH / wall,
+                "lock_held_ms_mean": 1e3 * float(np.mean(timed.held)),
+                "lock_held_s_total": float(np.sum(timed.held))}
+            log(f"  serving {n_clients} client(s) x {per} requests of {BATCH} windows: "
+                + json.dumps(numbers[f"clients_{n_clients}"]) + f"; launches {cnt}")
+        # the card's idle share over a second 4-client run, profiled
+        reqs = [[(*payloads[(c + k) % 2], False) for k in range(10)] for c in range(4)]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, wall_p = drive(port, reqs, "profiled 4 clients")
+        busy = sum(e.time_range.elapsed_us() for e in prof.events()
+                   if e.device_type == DeviceType.CUDA) / 1e6
+        numbers["clients_4_profiled"] = {
+            "wall_s": wall_p, "device_busy_s": busy,
+            "idle_share": 1 - busy / wall_p if busy > 0 else "not measured (no device events)"}
+        log("  profiled 4 clients x 10: " + json.dumps(numbers["clients_4_profiled"]))
+
+        # the protocol's host time for one 400-window request and its response
+        req = {"x": windows[:BATCH], "seq_len": lengths[:BATCH], "request_id": np.asarray(0)}
+        host = {}
+        for name, msg in (("request", req), ("response", want[0])):
+            reps = 20
+            t = time.perf_counter()
+            for _ in range(reps):
+                data = protocol.pack(msg)
+            host[f"pack_{name}_ms"] = 1e3 * (time.perf_counter() - t) / reps
+            a, b = socket.socketpair()
+            try:
+                sender = threading.Thread(target=a.sendall, args=(data * reps,), daemon=True)
+                sender.start()
+                t = time.perf_counter()
+                for _ in range(reps):
+                    protocol.read_message(b)
+                host[f"read_{name}_ms"] = 1e3 * (time.perf_counter() - t) / reps
+                sender.join(60)
+            finally:
+                a.close()
+                b.close()
+            host[f"{name}_bytes"] = len(data)
+        numbers["protocol_host"] = host
+        log("  protocol host time per 400-window request: " + json.dumps(host))
+
+        # run_call through the server on three reads, each against a one-read `call`
+        three = os.path.join(work, "serve_reads")
+        os.makedirs(three)
+        for f in files[:3]:
+            shutil.copy(os.path.join(file_dir, f), three)
+        flags = type("F", (), dict(
+            input=three, output=os.path.join(work, "serve_call"), host="127.0.0.1", port=port,
+            batch_size=BATCH, segment_len=SEG, jump=JUMP, start=0, extension="fastq",
+            mode="dna", reverse_fast5=False, concise=False, model="remote", sig_norm=1))()
+        reset()
+        summary = sclient.run_call(flags)
+        with timed.lock:
+            cnt = counts()
+        check_counts("serving run_call", cnt, step_counts(3))
+        for f in files[:3]:
+            one = os.path.join(work, f"one_{f}")
+            os.makedirs(os.path.join(one, "in"))
+            shutil.copy(os.path.join(file_dir, f), os.path.join(one, "in"))
+            cli.main(["call", "-i", os.path.join(one, "in"), "-o", os.path.join(one, "out"),
+                      "-p", "dna-pre", "--sig_norm", "1", "-b", str(BATCH), "--beam", str(BEAM),
+                      "--length_bonus", "0", "--device", "cuda"])
+            name = os.path.splitext(f)[0] + ".fastq"
+            with open(os.path.join(flags.output, "result", name)) as a, \
+                    open(os.path.join(one, "out", "result", name)) as b:
+                served, called = a.read(), b.read()
+            if not served or served != called:
+                fail(f"run_call through the server wrote another {name} than a one-read call")
+        log(f"  run_call through the server on 3 reads ({summary}): each fastq byte for byte "
+            f"the one-read `call -b {BATCH} --beam {BEAM} --length_bonus 0`'s; launches {cnt}")
+    finally:
+        server.shutdown()
+        server.server_close()
+
+    # the beam-0 bundle (the export's default) for two requests
+    server = sserver.serve(bundles[0], port=0, batch_size=BATCH, block=False)
+    try:
+        reqs = [(windows[:BATCH], lengths[:BATCH], False),
+                (windows[BATCH:BATCH + 137], lengths[BATCH:BATCH + 137], False)]
+        reset()
+        res, _ = drive(server.server_address[1], [reqs], "beam 0")
+        with server.engine._lock:
+            cnt = counts()
+        check_counts("serving beam 0", cnt, step_counts(2, width=0))
+        for (x, sl, _), (_, r) in zip(reqs, res[0]):
+            same("beam 0", r, reference(x, sl, 0))
+        log(f"  beam-0 bundle: 2 requests (400, 137 windows) bit for bit as decode_step at "
+            f"beam 0; launches {cnt}")
+    finally:
+        server.shutdown()
+        server.server_close()
+
+    # train from each further source on the card: phase 4's reads as a .bin
+    # folder, as a TFRecord (signals rounded to int16, what the format holds),
+    # and through the window cache
+    arrays = read_raw_data_sets(train_dir, seq_length=SEG)
+    bin_dir = os.path.join(work, "train_bin")
+    os.makedirs(bin_dir)
+    per_file = 200
+    for k, ofs in enumerate(range(0, len(arrays[0]), per_file)):
+        sl = slice(ofs, ofs + per_file)
+        binfmt.write_bin(os.path.join(bin_dir, f"data_batch_{k}.bin"), arrays[0][sl],
+                         arrays[1][sl], [r[:n] for r, n in zip(arrays[2][sl], arrays[3][sl])],
+                         arrays[3][sl])
+    binfmt.write_meta(bin_dir, SEG, per_file, "median", "RawGenomeCorrected_000",
+                      "BaseCalled_template", "dna")
+    ev, evl, lb, lbl = binfmt.read_bin_folder(bin_dir)
+    u = arrays[2].shape[1]
+    if not (np.array_equal(ev, arrays[0]) and np.array_equal(evl, arrays[1])
+            and np.array_equal(lbl, arrays[3]) and np.array_equal(lb[:, :u], arrays[2])
+            and (lb[:, u:] == -1).all()):
+        fail(".bin folder: the records are not the in-RAM .signal/.label windows")
+    tf_sig = os.path.join(work, "train_int16")
+    os.makedirs(tf_sig)
+    reads = []
+    for name in sorted(os.listdir(train_dir)):
+        if name.endswith(".signal"):
+            pre = os.path.join(train_dir, name[:-len(".signal")])
+            sig = np.round(np.loadtxt(pre + ".signal")).astype(np.int16)
+            with open(pre + ".label") as f:
+                rows = [(int(s), int(e), b) for s, e, b in (line.split() for line in f)]
+            reads.append((name, sig, rows))
+            np.savetxt(os.path.join(tf_sig, name), sig, fmt="%d")
+            shutil.copy(pre + ".label", tf_sig)
+    tf_path = os.path.join(work, "train.tfrecords")
+    tfrecord.write_training_tfrecord(tf_path, reads)
+    t_ev, t_evl, t_lb, t_lbl = tfrecord.read_tfrecord_data_sets(tf_path, seq_length=SEG)
+    s_ev, s_evl, s_lb, s_lbl = read_raw_data_sets(tf_sig, seq_length=SEG)
+    if not (t_ev.shape == s_ev.shape and np.array_equal(t_evl, s_evl)
+            and np.array_equal(t_lb, s_lb) and np.array_equal(t_lbl, s_lbl)
+            and np.allclose(t_ev, s_ev, rtol=1e-6, atol=0)):
+        fail("TFRecord: its windows are not the in-RAM .signal/.label windows")
+    cache_dir = os.path.join(work, "train_cache")
+    disk = cached_dataset(train_dir, cache_dir, SEG, seed=7)
+    ram = loop.Dataset(*arrays, seed=7)
+    for _ in range(2 * -(-ram.n // TRAIN_BATCH) + 1):  # across two epoch boundaries
+        a, b = disk.next_batch(TRAIN_BATCH), ram.next_batch(TRAIN_BATCH)
+        if not all(np.array_equal(a[k], b[k]) for k in a):
+            fail("window cache: a batch differs from the in-RAM Dataset's")
+    disk.close()
+    log(f"  sources: .bin folder ({len(ev)} windows in {k + 1} files), TFRecord "
+        f"({len(t_ev)} windows of {len(reads)} int16 reads), cache ({ram.n} windows): each "
+        f"equal to the in-RAM .signal/.label arrays")
+    sources = {"bin": (bin_dir, []), "tfrecord": (work, ["-f", os.path.basename(tf_path)]),
+               "cache": (train_dir, ["--train_cache", cache_dir])}
+    train_runs = {}
+    for name, (data, extra) in sources.items():
+        for k in lstm_grad.launches:
+            lstm_grad.launches[k] = 0
+        t = time.time()
+        result = cli.main(["train", "-i", data, "-o", os.path.join(work, "log_sources"),
+                           "-m", name, "--configure", os.path.join(MODEL_DIR, "model.json"),
+                           "-s", str(SEG), "-b", str(TRAIN_BATCH), "-x", "10",
+                           "-t", str(TRAIN_RATE), "--device", "cuda", *extra])
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        launches_t = dict(lstm_grad.launches)
+        if any(n != 6 * 10 for n in launches_t.values()) or not result["losses"] \
+                or not np.all(np.isfinite(result["losses"])):
+            fail(f"train from {name}: launches {launches_t} (expected 60 each), losses "
+                 f"{result['losses']}")
+        train_runs[name] = {"seconds": wall, "losses": result["losses"], "launches": launches_t}
+        log(f"  train -s {SEG} -b {TRAIN_BATCH} -x 10 from {name}: {wall:.2f} s, losses "
+            f"{result['losses']}, launches {launches_t}")
+    numbers["train_sources"] = train_runs
+    numbers["card"] = smi
+    return numbers
 
 
 def main(out_dir=OUT_DIR):
@@ -2555,6 +2931,15 @@ def main(out_dir=OUT_DIR):
     log(json.dumps({"cnn_zoo": {"models": zoo_rows, "train": zoo_train,
                                 "conv_bn_shapes": len(zoo_conv)}}))
     log(f"phase 7 took {time.time() - t7:.1f} s")
+
+    # ---- 8. serving and the training sources --------------------------------
+    phase("8. serving and the training sources")
+    t8 = time.time()
+    serving = serve_and_train_sources(torch, work, out_dir, sig_dir, train_dir, gpu_model,
+                                      steps["float32"]["logits_g"], reset, counts,
+                                      check_counts, smi)
+    log(json.dumps({"serving": serving}))
+    log(f"phase 8 took {time.time() - t8:.1f} s")
     shutil.rmtree(work, ignore_errors=True)
     log(json.dumps({**{f"call_{k}": r for k, r in call_rates.items()},
                     "train_s400_b300": train_rate,

@@ -11,10 +11,13 @@ Layering (bottom-up), mirroring ``chiron_tpu``:
              greedy decode
   models/    conv/residual/BiLSTM blocks as functions on tensors
   params.py  JAX params pytree (or bundled .npz) -> the port's model
-  io/        .signal/.fast5 readers, windowing, writers
+  io/        .signal/.fast5 readers, windowing, writers; the .bin, TFRecord
+             and window-cache training sources
   assembly/  overlap-consensus stitching + phred quality scores
   eval/      the `call` pipeline: host producer -> device decode -> writer
   train/     the `train` loop: datasets, optimizers, EMA, checkpoints
+  serve/     bundle export, the inference server and its client (the JAX
+             package's bundles and wire protocol)
   cli.py     `call` and `train` subcommands (``--device``, default cuda)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; a

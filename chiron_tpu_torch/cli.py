@@ -4,7 +4,8 @@ Flags mirror ``chiron_tpu/cli.py`` (chiron/entry.py:62-155) plus
 ``--device`` (default cuda; a missing GPU raises instead of falling back).
 A fast5 input folder is first extracted to <output>/raw/*.signal (needs
 h5py); a folder of .signal files is basecalled directly. Training reads a
-folder of .signal/.label pairs:
+folder of .signal/.label pairs, a .bin folder (``data.meta``), a TFRecord
+file (``-f``) or a window cache (``--train_cache``):
 
     python -m chiron_tpu_torch.cli call -i <in> -o <out> -p dna-pre
     python -m chiron_tpu_torch.cli train -i <train dir> -o <log dir> -m <name> \
@@ -86,16 +87,18 @@ def train(args):
 def _add_train_parser(subparsers) -> None:
     p = subparsers.add_parser("train", description="Model training", help="Train a model.")
     p.add_argument("-i", "--data_dir", required=True,
-                   help="Directory that stores .signal/.label training pairs.")
+                   help="Directory that stores .signal/.label training pairs, a .bin "
+                        "folder (data.meta), or a .tfrecord(s) file.")
     p.add_argument("-o", "--log_dir", required=True,
                    help="log directory that store the training model.")
     p.add_argument("-m", "--model_name", required=True, help="model_name")
     p.add_argument("-v", "--validation", default=None,
                    help="validation data directory; default None (no validation)")
     p.add_argument("--train_cache", default=None,
-                   help="Cache file for training dataset (not ported yet: raises).")
+                   help="Window cache directory for the training dataset (built on first "
+                        "use, rebuilt when the data or its parameters change).")
     p.add_argument("--valid_cache", default=None,
-                   help="Cache file for validation dataset (not ported yet: raises).")
+                   help="Window cache directory for the validation dataset.")
     p.add_argument("-s", "--sequence_len", type=int, default=400, help="the length of sequence")
     p.add_argument("-b", "--batch_size", type=int, default=300, help="Batch size")
     p.add_argument("-t", "--step_rate", type=float, default=4e-3, help="Step rate")
@@ -105,7 +108,8 @@ def _add_train_parser(subparsers) -> None:
     p.add_argument("--configure", default=None, help="Model structure configure json file.")
     p.add_argument("-k", "--k_mer", default=1, type=int, help="Output k-mer size")
     p.add_argument("-f", "--tfrecord", default=None,
-                   help="Train from a TFRecord file (not ported yet: raises).")
+                   help="Train from a TFRecord file (relative to data_dir) instead of "
+                        ".signal/.label pairs (reference: entry.py:116-117).")
     p.add_argument("--retrain", dest="retrain", action="store_true", help="Set retrain to true")
     p.add_argument("--resample_after_epoch", type=int, default=0,
                    help="Resample the reads data every n epochs with an increasing initial "

@@ -31,7 +31,10 @@ import numpy as np
 import torch
 
 from chiron_tpu_torch import config as C
+from chiron_tpu_torch.io.binfmt import read_bin_folder
+from chiron_tpu_torch.io.cache import cached_dataset
 from chiron_tpu_torch.io.labels import read_raw_data_sets
+from chiron_tpu_torch.io.tfrecord import read_tfrecord_data_sets
 from chiron_tpu_torch.models.model import init_model, model_ratio
 from chiron_tpu_torch.ops.ctc_greedy import greedy_decode
 from chiron_tpu_torch.ops.ctc_loss import ctc_focal_loss
@@ -256,22 +259,40 @@ class Dataset:
 
 
 def load_dataset(data_dir, seq_len, k_mer=1, max_segments=None, skip_start=10,
-                 sig_norm=None, tfrecord=None, cache_dir=None) -> Dataset:
-    """Training segments from a folder of .signal/.label pairs.
+                 sig_norm=None, tfrecord=None, cache_dir=None):
+    """Training segments from .signal/.label pairs, a .bin folder, a TFRecord
+    file or the out-of-core window cache, in the JAX package's order.
 
-    The JAX package's other sources are not ported yet and raise: the
-    out-of-core window cache (``--train_cache``/``--valid_cache``), TFRecord
-    files and ``.bin`` folders (``data.meta``), all ROADMAP A9.
+    ``cache_dir`` selects the window cache (``io/cache.py``: windows stream
+    to disk and batches are served by positioned reads). A ``.tfrecord(s)``
+    file given as ``data_dir``, or ``tfrecord`` (joined to ``data_dir``
+    unless absolute), selects the reference's TFRecord layout
+    (chiron_input.py:318). A folder with a ``data.meta`` descriptor is the
+    fixed-record .bin layout (file_batch output, chiron_queue_input's
+    source). Anything else is walked for .signal/.label pairs.
     """
     if cache_dir:
-        raise NotImplementedError(
-            "the out-of-core window cache (--train_cache/--valid_cache) is not "
-            "ported yet (ROADMAP A9)")
-    if tfrecord or str(data_dir).endswith((".tfrecord", ".tfrecords")):
-        raise NotImplementedError("TFRecord training data is not ported yet (ROADMAP A9)")
+        return cached_dataset(data_dir, cache_dir, seq_len, k_mer=k_mer, skip_start=skip_start,
+                              sig_norm=sig_norm, max_segments=max_segments)
+    if not tfrecord and os.path.isfile(data_dir) and data_dir.endswith(
+            (".tfrecord", ".tfrecords")):
+        # a tfrecord FILE given directly (the reference's --validation takes
+        # a validation tfrecord, entry.py:115)
+        tfrecord = os.path.abspath(data_dir)
+    if tfrecord:
+        path = tfrecord if os.path.isabs(tfrecord) else os.path.join(data_dir, tfrecord)
+        return Dataset(*read_tfrecord_data_sets(path, seq_length=seq_len, k_mer=k_mer,
+                                                max_segments_num=max_segments,
+                                                skip_start=skip_start, sig_norm=sig_norm))
     if os.path.exists(os.path.join(data_dir, "data.meta")):
-        raise NotImplementedError(".bin training folders (data.meta) are not ported yet "
-                                  "(ROADMAP A9)")
+        events, event_lens, labels, label_lens = read_bin_folder(data_dir)
+        if events.shape[1] != seq_len:
+            raise ValueError(f".bin records have signal_length {events.shape[1]}; "
+                             f"--sequence_len {seq_len} must match")
+        if max_segments:
+            events, event_lens = events[:max_segments], event_lens[:max_segments]
+            labels, label_lens = labels[:max_segments], label_lens[:max_segments]
+        return Dataset(events, event_lens, labels, label_lens)
     return Dataset(*read_raw_data_sets(data_dir, seq_length=seq_len, k_mer=k_mer,
                                        max_segments_num=max_segments, skip_start=skip_start,
                                        sig_norm=sig_norm))
@@ -364,6 +385,8 @@ def train(hparams) -> Dict[str, Any]:
         if (resample_every > 0 and dataset.epochs_completed > 0
                 and dataset.epochs_completed % resample_every == 0 and dataset._pos == 0):
             skip_start += offset_inc
+            if hasattr(dataset, "close"):
+                dataset.close()
             dataset = load_dataset(hparams.data_dir, seq_len, k_mer=k_mer,
                                    max_segments=max_segments, skip_start=skip_start,
                                    sig_norm=sig_norm, tfrecord=tfrecord, cache_dir=train_cache)

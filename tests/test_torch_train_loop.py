@@ -96,24 +96,34 @@ def test_retrain_resumes_a_jax_checkpoint(tmp_path):
     assert tckpt.restore_latest(mdir)[1] == 6
 
 
-def test_train_without_gpu_raises_and_unported_sources_raise(tmp_path):
+def test_train_without_gpu_raises_and_each_source_loads_or_raises_as_jax(tmp_path):
+    from chiron_tpu.train import loop as jloop
+
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
-    make_training_dir(os.path.join(str(tmp_path), "train"), n_files=1, n_bases=100, seed=3)
+    train_dir = os.path.join(str(tmp_path), "train")
+    make_training_dir(train_dir, n_files=1, n_bases=100, seed=3)
     args = _train_args(tmp_path, 2)
     with pytest.raises(RuntimeError):
         cli.main(args[:-2])  # default --device cuda
-    for extra in (["--train_cache", str(tmp_path)], ["-f", "x.tfrecord"],
-                  ["--n_devices", "2"]):
-        with pytest.raises(NotImplementedError):
-            cli.main(args + extra)
     with pytest.raises(NotImplementedError):
-        tloop.load_dataset(os.path.join(str(tmp_path), "x.tfrecords"), 120)
+        cli.main(args + ["--n_devices", "2"])  # multi-GPU: ROADMAP A10
+    # a missing TFRecord, named by -f or by path, fails as in the JAX package
+    with pytest.raises(FileNotFoundError):
+        cli.main(args + ["-f", "x.tfrecord"])
+    missing = os.path.join(str(tmp_path), "x.tfrecords")  # no such file: an empty walk
+    assert tloop.load_dataset(missing, 120).n == jloop.load_dataset(missing, 120).n == 0
+    # an empty data.meta: read_meta finds no signal_length
     bin_dir = os.path.join(str(tmp_path), "bin")
     os.makedirs(bin_dir)
     open(os.path.join(bin_dir, "data.meta"), "w").close()
-    with pytest.raises(NotImplementedError):
-        tloop.load_dataset(bin_dir, 120)
+    for load in (tloop.load_dataset, jloop.load_dataset):
+        with pytest.raises(KeyError):
+            load(bin_dir, 120)
+    # the window cache is built, then served like the in-RAM Dataset
+    cached = tloop.load_dataset(train_dir, 120, cache_dir=os.path.join(str(tmp_path), "cache"))
+    assert cached.n == tloop.load_dataset(train_dir, 120).n > 0
+    cached.close()
 
 
 def _hparams(tmp_path, **kw):
