@@ -124,7 +124,19 @@ Phases (any failure exits non-zero and prints no result line):
      4's reads as a .bin folder, a TFRecord (int16 signals) and a window
      cache, each equal to the in-RAM .signal/.label arrays, and `train -s 400
      -b 300 -x 10` from each with the training LSTM's launches counted;
-  9. print the per-kernel JSON line, then {"ok": true, "device": ...}.
+  9. multi-GPU (chiron_tpu_torch/parallel) on the one card: the sharded
+     decode over [cuda:0] * 4 on phase 3's first batch at beam 30 and 0,
+     equal bit for bit to four decode_steps on contiguous rows (and over
+     [cuda:0] to phase 3's step), with no host sync inside the step (torch's
+     sync debug mode set to raise), its launches counted and its device time
+     beside the 1-shard step's; two training ranks sharing cuda:0 through
+     gloo (-s 400 -b 300, DNA_default's bundled weights) against the
+     one-process global-batch step (loss 1e-5 relative, phase 4's gradient
+     gate, the training LSTM launched in each rank); one step in an NCCL
+     group of one rank through initialize_distributed, equal bit for bit to
+     the step without a group; `call --n_devices` past the visible GPUs
+     raising with the device count;
+ 10. print the per-kernel JSON line, then {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -725,6 +737,160 @@ def serve_and_train_sources(torch, work, out_dir, sig_dir, train_dir, gpu_model,
             f"{result['losses']}, launches {launches_t}")
     numbers["train_sources"] = train_runs
     numbers["card"] = smi
+    return numbers
+
+
+def param_leaves(tree):
+    """The array leaves of a nested params tree (dicts and lists), in order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in param_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in param_leaves(v)]
+    return [tree] if isinstance(tree, np.ndarray) else []
+
+
+def multi_gpu(torch, work, gpu_model, tree, config, batch, lb, phase3_step, train_dir,
+              reset, counts, check_counts, smi):
+    """Phase 9: the data-parallel paths (chiron_tpu_torch/parallel) on the one
+    card. ``batch``: phase 3's first dna-pre batch on the card (x, seq_len);
+    ``phase3_step``: phase 3's unpacked card step of that batch at beam 30.
+    Returns the numbers."""
+    import functools
+
+    from chiron_tpu_torch import cli
+    from chiron_tpu_torch.eval import pipeline
+    from chiron_tpu_torch.parallel import dryrun
+    from chiron_tpu_torch.parallel.dist import free_port, make_sharded_decode_step, run_ranks
+    from chiron_tpu_torch.parallel.mesh import initialize_distributed
+    from chiron_tpu_torch.train import loop
+
+    dev = torch.device("cuda", 0)
+    xg, slg = batch
+    numbers = {"card": smi}
+    # 9a: the sharded decode over [cuda:0] * 4 equals four decode_steps on rows
+    # 0-99, 100-199, ... bit for bit (each shard normalised by its own moments),
+    # and over [cuda:0] phase 3's step
+    shards = 4
+    rows = BATCH // shards
+    for width in (BEAM, 0):
+        step = functools.partial(pipeline.decode_step, beam=width, length_bonus=lb)
+        sharded = make_sharded_decode_step(step, [dev] * shards)
+        single = make_sharded_decode_step(step, [dev])
+        reset()
+        got = sharded(gpu_model, xg, slg)
+        torch.cuda.synchronize()
+        launches = counts()
+        want = {"conv_bn_float32": 12 * shards, "bilstm_float32": 3 * shards}
+        if width:
+            want.update(beam_search=shards, beam_traceback=shards)
+        check_counts(f"9a sharded decode, beam {width}", launches, want)
+        parts = torch.cat([step(gpu_model, xg[i * rows:(i + 1) * rows],
+                                slg[i * rows:(i + 1) * rows]) for i in range(shards)])
+        one = single(gpu_model, xg, slg)
+        torch.cuda.synchronize()
+        if not torch.equal(got, parts):
+            fail(f"9a: the {shards}-shard decode at beam {width} is not {shards} decode_steps "
+                 "on contiguous rows")
+        if not torch.equal(one, step(gpu_model, xg, slg)):
+            fail(f"9a: the 1-shard decode at beam {width} is not the decode_step")
+        # nothing in the sharded step waits on the host: each shard is enqueued
+        # while the ones before it run (on k cards they run together)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = sharded(gpu_model, xg, slg)
+        except RuntimeError as e:
+            fail(f"9a: the {shards}-shard decode at beam {width} syncs with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if not torch.equal(again, got):
+            fail(f"9a: the {shards}-shard decode at beam {width} is not repeatable")
+        if width:
+            unpacked = pipeline.unpack_step_outputs(one.cpu().numpy())
+            if not all(np.array_equal(a, b) for a, b in zip(unpacked, phase3_step)):
+                fail("9a: the 1-shard decode at beam 30 is not phase 3's card step")
+        same = int(sum(np.array_equal(a, b) for a, b in zip(
+            pipeline.unpack_step_outputs(got.cpu().numpy())[0],
+            pipeline.unpack_step_outputs(one.cpu().numpy())[0])))
+        ms = {"shards_4": time_ms(torch, lambda: sharded(gpu_model, xg, slg), 5),
+              "shards_1": time_ms(torch, lambda: single(gpu_model, xg, slg), 5)}
+        numbers[f"sharded_decode_beam{width}"] = {"launches": launches, "device_ms": ms,
+                                                  "decodes_as_1_shard": same, "windows": BATCH}
+        log(f"  9a beam {width}: 4 shards == 4 decode_steps on rows of {rows} bit for bit, "
+            f"no host sync inside; 1 shard == {'phase 3 step' if width else 'decode_step'}; launches {launches}; "
+            f"device ms 4 shards {ms['shards_4']:.3f} vs 1 shard {ms['shards_1']:.3f} ({smi}); "
+            f"{same}/{BATCH} windows decode as with 1 shard (per-shard BN moments)")
+
+    # 9b: two ranks sharing cuda:0 through gloo (NCCL refuses two ranks on one
+    # GPU), -s 400 -b 300 (150 rows a rank), DNA_default's config and bundled
+    # weights, against the one-process global-batch step on the card
+    dataset = loop.load_dataset(train_dir, SEG)
+    # two steps: the first is held, the second (warm) timed
+    batches = [dataset.next_batch(TRAIN_BATCH) for _ in range(2)]
+    job = (config, tree, batches, "Adam", TRAIN_RATE, float(config["fl_gamma"]))
+    alone = dryrun.data_parallel_steps(0, 1, dev, *job)
+    t = time.time()
+    ranks = run_ranks(dryrun.data_parallel_steps, [dev, dev], args=job, backend="gloo",
+                      timeout=300)
+    ranks_wall = time.time() - t
+    loss_err = abs(ranks[0]["losses"][0] - alone["losses"][0]) / abs(alone["losses"][0])
+    grads_1, grads_2 = alone["grads"], ranks[0]["grads"]
+    top = max(float(np.abs(g).max()) for g in grads_1.values())
+    ratio = max(float(np.abs(grads_2[k] - g).max()) / (1e-2 * float(np.abs(g).max()) + 1e-4 * top)
+                for k, g in grads_1.items())
+    same_ranks = ranks[0]["losses"] == ranks[1]["losses"] and all(
+        np.array_equal(ranks[0]["grads"][k], ranks[1]["grads"][k]) for k in grads_1)
+    want_launches = {"lstm_fwd_residuals": 12, "lstm_bwd": 12}
+    log(f"  9b two gloo ranks on cuda:0, {TRAIN_BATCH // 2} rows each: loss "
+        f"{ranks[0]['losses'][0]:.6f} vs one process {alone['losses'][0]:.6f} (relative "
+        f"{loss_err:.2e}, must be <= 1e-5; second step {ranks[0]['losses'][1]:.6f} vs "
+        f"{alone['losses'][1]:.6f}); gradients worst leaf err / (1e-2 own max + 1e-4 top) "
+        f"{ratio:.3f} (must be <= 1); ranks equal {same_ranks}; launches "
+        f"{[r['launches'] for r in ranks]} (6 + 6 a step); step seconds (cold, warm) "
+        f"{[r['seconds'] for r in ranks]} vs one process {alone['seconds']}; "
+        f"{ranks_wall:.1f} s with start-up ({smi})")
+    if loss_err > 1e-5 or ratio > 1.0 or not same_ranks or any(
+            r["launches"] != want_launches for r in ranks):
+        fail("9b: the two-rank step is not the one-process global-batch step")
+    numbers["gloo_two_ranks"] = {"loss": ranks[0]["losses"][0], "loss_alone": alone["losses"][0],
+                                 "loss_rel_err": loss_err, "grad_gate_ratio": ratio,
+                                 "launches": [r["launches"] for r in ranks],
+                                 "warm_step_seconds": [r["seconds"][1] for r in ranks],
+                                 "warm_step_seconds_alone": alone["seconds"][1],
+                                 "wall_with_start_up": ranks_wall}
+
+    # 9c: one step in an NCCL group of one rank through initialize_distributed:
+    # every collective runs and must change no bit
+    import torch.distributed as dist
+
+    initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"9c: backend {dist.get_backend()}, expected nccl")
+        grouped = dryrun.data_parallel_steps(0, 1, dev, *job)
+    finally:
+        dist.destroy_process_group()
+    bitwise = grouped["losses"] == alone["losses"] and all(
+        np.array_equal(grouped["grads"][k], g) for k, g in grads_1.items()) and all(
+        np.array_equal(a, b) for a, b in zip(
+            param_leaves(grouped["params"]), param_leaves(alone["params"])))
+    log(f"  9c NCCL group of one rank: losses {grouped['losses']}, gradients, losses and "
+        f"params after two steps equal to the steps without a group bit for bit: {bitwise}; "
+        f"launches {grouped['launches']}")
+    if not bitwise or grouped["launches"] != want_launches:
+        fail("9c: the step in an NCCL group of one differs from the step without a group")
+    numbers["nccl_one_rank"] = {"bitwise": bitwise, "warm_step_seconds": grouped["seconds"][1]}
+
+    # 9d: more GPUs than the machine has
+    try:
+        cli.main(["call", "-i", os.path.join(work, "signal"), "-o", os.path.join(work, "out_9d"),
+                  "-p", "dna-pre", "--n_devices", str(torch.cuda.device_count() + 1),
+                  "--device", "cuda"])
+    except RuntimeError as e:
+        if f"torch.cuda.device_count() is {torch.cuda.device_count()}" not in str(e):
+            fail(f"9d: the error does not name the device count: {e}")
+        log(f"  9d call --n_devices {torch.cuda.device_count() + 1} raises: {e}")
+    else:
+        fail("9d: call --n_devices past the visible GPUs did not raise")
     return numbers
 
 
@@ -2940,6 +3106,14 @@ def main(out_dir=OUT_DIR):
                                       check_counts, smi)
     log(json.dumps({"serving": serving}))
     log(f"phase 8 took {time.time() - t8:.1f} s")
+
+    # ---- 9. multi-GPU: the data-parallel paths on the one card ------------------
+    phase("9. multi-GPU")
+    t9 = time.time()
+    multi = multi_gpu(torch, work, gpu_model, tree, config, (xg, slg), lb,
+                      steps["float32"]["step_g"], train_dir, reset, counts, check_counts, smi)
+    log(json.dumps({"multi_gpu": multi}))
+    log(f"phase 9 took {time.time() - t9:.1f} s")
     shutil.rmtree(work, ignore_errors=True)
     log(json.dumps({**{f"call_{k}": r for k, r in call_rates.items()},
                     "train_s400_b300": train_rate,

@@ -10,6 +10,11 @@ file (``-f``) or a window cache (``--train_cache``):
     python -m chiron_tpu_torch.cli call -i <in> -o <out> -p dna-pre
     python -m chiron_tpu_torch.cli train -i <train dir> -o <log dir> -m <name> \
         --configure chiron_tpu/model/DNA_default/model.json
+
+``--n_devices k`` shards `call`'s batches over k GPUs and starts k training
+ranks. Under ``torchrun --nproc_per_node N -m chiron_tpu_torch.cli ...``
+each process joins the launcher's group: `call` basecalls its hash shard of
+the files, `train` feeds its file shard to the global-batch step.
 """
 
 from __future__ import annotations
@@ -34,11 +39,24 @@ def _set_paras(args, p):
     return args
 
 
+def _join_launch_group(args) -> None:
+    """Under a multi-process launcher (``torchrun`` sets ``WORLD_SIZE``),
+    join its process group: one rank per GPU (NCCL), or gloo with
+    ``--device cpu``."""
+    import torch.distributed as dist
+
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
+        from chiron_tpu_torch.parallel.mesh import initialize_distributed
+
+        initialize_distributed(device=args.device)
+
+
 def evaluation(args):
     from chiron_tpu_torch.eval import pipeline
     from chiron_tpu_torch.utils.device import resolve_device
 
     resolve_device(args.device)  # fail before any extraction work
+    _join_launch_group(args)
     if args.preset is None:
         default_p = PRESETS["default"]
     elif args.preset in ("dna-pre", "dna-slow-pre"):
@@ -81,6 +99,7 @@ def train(args):
     from chiron_tpu_torch.utils.device import resolve_device
 
     resolve_device(args.device)  # fail before loading any data
+    _join_launch_group(args)
     return loop.train(args)
 
 
@@ -117,7 +136,8 @@ def _add_train_parser(subparsers) -> None:
     p.add_argument("--offset_increment", type=int, default=3,
                    help="Increment of initial offset per resample.")
     p.add_argument("--n_devices", type=int, default=0,
-                   help="Data-parallel GPUs (only 0/1 supported).")
+                   help="Data-parallel GPUs: k > 1 starts k ranks on this host, one a GPU "
+                        "(0 or 1: one process).")
     p.add_argument("--sig_norm", type=int, default=None,
                    help="Signal normalization: None raw (default), 0 median/mad, 1 mean/std.")
     p.add_argument("--device", default="cuda",
@@ -170,7 +190,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-p", "--preset", default=None,
                    help="Preset evaluation parameters: dna-pre, dna-slow-pre, rna-pre")
     p.add_argument("--n_devices", type=int, default=0,
-                   help="Shard each batch across this many GPUs (only 0/1 supported).")
+                   help="Shard each batch across this many GPUs (0 or 1: one).")
     p.add_argument("--sig_norm", type=int, default=None,
                    help="Signal normalization: None raw (default), 0 median/mad, 1 mean/std.")
     p.add_argument("--profile", action="store_true",

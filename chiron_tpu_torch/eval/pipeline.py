@@ -21,6 +21,7 @@ the batch is exactly the JAX package's.
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from collections import defaultdict, deque
@@ -41,6 +42,8 @@ from chiron_tpu_torch.io.signal import read_signal_for_eval
 from chiron_tpu_torch.io.writers import ensure_output_dirs, write_output, write_run_meta
 from chiron_tpu_torch.ops.beam import beam_search_decode
 from chiron_tpu_torch.ops.ctc_greedy import greedy_decode
+from chiron_tpu_torch.parallel.dist import make_sharded_decode_step, process_info, shard_files
+from chiron_tpu_torch.parallel.mesh import make_mesh
 from chiron_tpu_torch.params import Basecaller, from_jax_params
 from chiron_tpu_torch.train.checkpoint import restore_latest
 from chiron_tpu_torch.utils.device import resolve_device
@@ -68,8 +71,9 @@ def pack_step_outputs(decoded, lengths, score, prob, two_bit: bool = True):
         t4 = -(-t // 4) * 4
         d = torch.clamp(decoded, min=0).to(torch.int32)
         d = torch.nn.functional.pad(d, (0, t4 - t)).reshape(b, t4 // 4, 4)
-        weights = torch.tensor([1, 4, 16, 64], dtype=torch.int32, device=d.device)
-        dec8 = (d * weights).sum(dim=-1).to(torch.uint8)
+        # scalar weights: a weights tensor built here would be a host->device
+        # copy, a host sync inside every decode step
+        dec8 = (d[..., 0] + 4 * d[..., 1] + 16 * d[..., 2] + 64 * d[..., 3]).to(torch.uint8)
     else:
         dec8 = decoded.to(torch.int8).view(torch.uint8)
     len8 = lengths.to(torch.int32).contiguous().view(torch.uint8).reshape(b, 4)
@@ -278,20 +282,42 @@ def load_model(model_dir: str, config, device) -> Basecaller:
 
 
 def evaluation(flags) -> dict:
-    """Run basecalling over all input files. Returns summary stats."""
-    if int(getattr(flags, "n_devices", 0) or 1) > 1:
-        raise NotImplementedError("multi-GPU decode is not supported by the PyTorch port yet")
+    """Run basecalling over all input files. Returns summary stats.
+
+    ``flags.n_devices`` k > 1 shards each batch over k devices
+    (``parallel.dist.make_sharded_decode_step``: each shard's batch norm
+    takes its own moments, as the JAX package's); fewer than k visible GPUs
+    raise. Inside an initialised process group each rank basecalls its
+    hash shard of the files (``parallel.dist.shard_files``) on its own
+    device, so k > 1 there raises.
+    """
     device = resolve_device(getattr(flags, "device", "cuda"))
+    n_devices = int(getattr(flags, "n_devices", 0) or 1)
+    world = process_info()[1]
+    if n_devices > 1 and world > 1:
+        raise ValueError(f"--n_devices {n_devices} inside a process group of {world} ranks: "
+                         "each rank basecalls its file shard on its own device "
+                         "(--n_devices 1)")
+    if n_devices > 1 and flags.batch_size % n_devices:
+        raise ValueError(f"batch_size {flags.batch_size} not divisible by n_devices {n_devices}")
+    devices = make_mesh(n_devices, device=device) if n_devices > 1 else None
+    if device.type == "cuda" and world > 1:
+        device = torch.device("cuda", torch.cuda.current_device())  # the rank's GPU
     config_path = os.path.join(flags.model, "model.json") if flags.model else None
     config = C.read_config(config_path)
-    model = load_model(flags.model, config, device)
+    model = load_model(flags.model, config, devices[0] if devices else device)
 
     ensure_output_dirs(flags.output)
     file_dir, file_list = list_input_files(flags.input, getattr(flags, "recursive", True))
     test_number = getattr(flags, "test_number", None)
     if test_number is not None:
         file_list = file_list[: int(test_number)]
-    print(f"Found {len(file_list)} files.")
+    rank, world = process_info()
+    if world > 1:  # reads never span processes
+        file_list = shard_files(file_list, world, rank)
+        print(f"Process {rank}/{world}: {len(file_list)} files in shard.")
+    else:
+        print(f"Found {len(file_list)} files.")
 
     ratio = model.ratio(flags.segment_len)
     bf16 = bool(getattr(flags, "bf16", False))
@@ -338,11 +364,16 @@ def evaluation(flags) -> dict:
     # moves half the bytes (the first conv reads it as bfloat16 either way)
     x_dtype = torch.bfloat16 if bf16 else torch.float32
 
+    step = functools.partial(decode_step, beam=flags.beam, length_bonus=length_bonus, bf16=bf16)
+    if devices is not None:
+        step = make_sharded_decode_step(step, devices)
+    upload_to = devices[0] if devices else device
+
     def _upload(stream):
         # host->device upload runs in the producer thread (via _prefetch)
         for x, sl, widx, fnames, meta in stream:
-            yield (torch.from_numpy(x).to(x_dtype).to(device), torch.from_numpy(sl).to(device),
-                   widx, fnames, meta)
+            yield (torch.from_numpy(x).to(x_dtype).to(upload_to),
+                   torch.from_numpy(sl).to(upload_to), widx, fnames, meta)
 
     def _readback(out):
         return out.cpu().numpy()
@@ -355,7 +386,7 @@ def evaluation(flags) -> dict:
             for fn, (nwin, rtime) in meta.items():
                 counts[fn] = nwin
                 timing[fn] = (time.time() - rtime, rtime)  # (start, reading)
-            out = decode_step(model, x, sl, flags.beam, length_bonus, bf16)
+            out = step(model, x, sl)
             inflight.append((readback_pool.submit(_readback, out), widx, fnames))
             if len(inflight) > pipeline_depth:
                 drain_one(pool.submit)

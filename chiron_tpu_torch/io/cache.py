@@ -3,10 +3,10 @@
 A copy of ``chiron_tpu/io/cache.py``: the same files and the same meta, so a
 cache that either package builds is reused by the other without a rebuild,
 and ``CachedDataset(seed)`` serves the JAX package's batches in its order.
-Two differences: a read is skipped only where its label file is missing or
+One difference: a read is skipped only where its label file is missing or
 malformed (the port's ``read_raw_data_sets`` rule; the JAX package skips on
-any exception), and ``file_shard``, which belongs to multi-GPU training, is
-not ported and raises.
+any exception). ``file_shard`` (index, count) builds the cache of one shard
+of the files, a process's share in multi-process training.
 
 The reference spills training segments to an HDF5 "biglist" once they
 exceed 1e5 entries (chiron/chiron_input.py:42-120) and re-reads batches
@@ -35,7 +35,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
-from chiron_tpu_torch.io.labels import read_label, read_raw
+from chiron_tpu_torch.io.labels import _in_shard, read_label, read_raw
 from chiron_tpu_torch.io.signal import read_signal
 
 META_NAME = "cache.meta.json"
@@ -98,13 +98,6 @@ class CacheWriter:
         return meta
 
 
-def _no_shards(file_shard) -> None:
-    if file_shard is not None:
-        raise NotImplementedError(
-            "file_shard (a process's share of the corpus) belongs to multi-GPU "
-            "training, which is not ported yet (ROADMAP A10)")
-
-
 def read_meta(cache_dir: str) -> Optional[Dict[str, Any]]:
     path = os.path.join(cache_dir, META_NAME)
     if not os.path.exists(path):
@@ -146,7 +139,6 @@ def build_cache(
     chiron/chiron_input.py:447-471) but never holds more than one read's
     windows in memory. Returns the cache meta.
     """
-    _no_shards(file_shard)
     build_params = {
         "data_dir": os.path.abspath(data_dir),
         "k_mer": int(k_mer),
@@ -154,6 +146,7 @@ def build_cache(
         "sig_norm": sig_norm,
         "max_segments": max_segments,
         "signature": data_signature(data_dir),
+        **({"file_shard": list(file_shard)} if file_shard else {}),
     }
     writer = CacheWriter(cache_dir, seq_length, build_params)
     done = False
@@ -162,6 +155,9 @@ def build_cache(
             break
         for name in sorted(files):
             if not name.endswith(".signal"):
+                continue
+            if file_shard is not None and not _in_shard(
+                    os.path.relpath(os.path.join(root, name), data_dir), file_shard):
                 continue
             file_pre = os.path.splitext(name)[0]
             f_signal = read_signal(os.path.join(root, name), normalize=sig_norm)
@@ -288,7 +284,6 @@ def cached_dataset(
     epoch resampling with shifted offsets (chiron_rcnn_train.py:100-103)
     work out-of-core.
     """
-    _no_shards(file_shard)
     want = {
         "data_dir": os.path.abspath(data_dir),
         "k_mer": int(k_mer),
@@ -296,6 +291,7 @@ def cached_dataset(
         "sig_norm": sig_norm,
         "max_segments": max_segments,
         "signature": data_signature(data_dir),
+        **({"file_shard": list(file_shard)} if file_shard else {}),
     }
     meta = read_meta(cache_dir)
     if (

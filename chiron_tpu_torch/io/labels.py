@@ -3,7 +3,7 @@
 A copy of the ``.signal``/``.label`` side of ``chiron_tpu/io/labels.py``
 (reference: chiron/chiron_input.py:570-693): ``base2ind``,
 ``label_from_rows``, ``read_label``, ``read_raw`` and
-``read_raw_data_sets``. It imports no h5py; the fast5 labelling functions
+``read_raw_data_sets`` with its ``file_shard``. It imports no h5py; the fast5 labelling functions
 are not ported yet. The windower emits plain numpy arrays with dense,
 -1-padded labels.
 """
@@ -11,6 +11,7 @@ are not ported yet. The windower emits plain numpy arrays with dense,
 from __future__ import annotations
 
 import collections
+import hashlib
 import os
 from typing import List, Tuple
 
@@ -122,17 +123,31 @@ def read_raw(raw_signal: np.ndarray, raw_label: raw_labels,
     return event_val, event_length, label_val, label_length
 
 
+def _in_shard(rel_path: str, file_shard) -> bool:
+    """Whether a file belongs to ``file_shard`` = (shard_index, num_shards):
+    the md5 rule of ``parallel.dist.shard_files``, so each process of a
+    multi-process run loads a disjoint subset of the corpus."""
+    index, count = file_shard
+    h = int.from_bytes(hashlib.md5(rel_path.encode()).digest()[:4], "big")
+    return h % count == index
+
+
 def read_raw_data_sets(data_dir: str, seq_length: int = 300, k_mer: int = 1,
-                       max_segments_num=None, skip_start: int = 10, sig_norm=None):
+                       max_segments_num=None, skip_start: int = 10, sig_norm=None,
+                       file_shard=None):
     """Walk a directory of .signal/.label pairs into dense training arrays.
 
     Returns (events [N, L] f32, event_lengths [N] i32, labels [N, U] i32
-    padded with -1, label_lengths [N] i32).
+    padded with -1, label_lengths [N] i32). ``file_shard`` (index, count)
+    keeps the files of one shard (``_in_shard``).
     """
     events, event_lengths, labels, label_lengths = [], [], [], []
     for root, _, files in os.walk(data_dir, topdown=False):
         for name in sorted(files):
             if not name.endswith(".signal"):
+                continue
+            if file_shard is not None and not _in_shard(
+                    os.path.relpath(os.path.join(root, name), data_dir), file_shard):
                 continue
             file_pre = os.path.splitext(name)[0]
             f_signal = read_signal(os.path.join(root, name), normalize=sig_norm)

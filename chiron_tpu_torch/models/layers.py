@@ -39,6 +39,7 @@ import torch
 
 from chiron_tpu_torch.models.initializers import variance_scaling, xavier_normal
 from chiron_tpu_torch.ops.conv_bn import bn_affine, conv1d, conv_bn, conv_window
+from chiron_tpu_torch.parallel.dist import all_sum, global_rows, moments_are_global
 
 Params = Dict[str, Any]
 
@@ -95,10 +96,19 @@ def init_residual(gen: torch.Generator, c_in: int, c_out: int, k: int = 3,
 
 def global_bn(x: torch.Tensor, scale, offset) -> torch.Tensor:
     """Normalize by current-batch moments over (batch, time), two-pass, in
-    float32 (a bfloat16 x is promoted first)."""
+    float32 (a bfloat16 x is promoted first). Inside
+    ``parallel.dist.global_moments`` the batch is the ranks' global batch:
+    each pass's sums are summed over the ranks and divided by the global
+    row count (``parallel.dist.global_rows``); in a group of one that is
+    this mean bit for bit."""
     x = x.float()
-    mean = x.mean(dim=(0, 1), keepdim=True)
-    var = ((x - mean) ** 2).mean(dim=(0, 1), keepdim=True)
+    if moments_are_global():
+        n = global_rows(x.shape[0] * x.shape[1])
+        mean = all_sum(x.sum(dim=(0, 1), keepdim=True)) / n
+        var = all_sum(((x - mean) ** 2).sum(dim=(0, 1), keepdim=True)) / n
+    else:
+        mean = x.mean(dim=(0, 1), keepdim=True)
+        var = ((x - mean) ** 2).mean(dim=(0, 1), keepdim=True)
     return (x - mean) * torch.rsqrt(var + _BN_EPS) * scale + offset
 
 
@@ -172,9 +182,11 @@ def _fused_conv(params: Params, x, stride: int, active: Optional[str], bf16: boo
         a = torch.rsqrt(params["bn_var"] + _BN_EPS) * params["bn_scale"]
         b = params["bn_offset"] - params["bn_mean"] * a
     elif "bn_scale" in params:  # batch-stat BN: affine from streamed moments
-        bsz, t = y_raw.shape[0], y_raw.shape[1]
-        a, b = bn_affine(sums, sqs, float(bsz * t), params["bn_scale"],
-                         params["bn_offset"])
+        count = float(y_raw.shape[0] * y_raw.shape[1])
+        if moments_are_global():  # the ranks' global batch (a validation step)
+            total = all_sum(torch.cat([sums, sqs, sums.new_full((1,), count)]))
+            sums, sqs, count = total[:c_out], total[c_out:2 * c_out], total[2 * c_out:]
+        a, b = bn_affine(sums, sqs, count, params["bn_scale"], params["bn_offset"])
     else:
         a = torch.ones((c_out,), dtype=torch.float32, device=y_raw.device)
         b = torch.zeros((c_out,), dtype=torch.float32, device=y_raw.device)

@@ -14,6 +14,9 @@ timesteps are large matmuls outside the recurrence.
   must cover exactly the rows with ``t < len`` in both directions, so its
   backward input goes through ``reverse_sequence``. ``unirnn_layers`` runs
   the single-direction kernels (``ops/lstm.py`` and the same two modules).
+  Inside ``parallel.dist.global_moments`` (a data-parallel validation step)
+  a BNLSTM layer runs the training recurrence instead, its moments summed
+  over the ranks: the kernels take each step's moments on chip.
 - Training (``training=True``): the backward direction reads
   ``reverse_sequence`` of its input with no start offset. An LSTM direction
   is the differentiable ``ops/lstm_grad.py:lstm_layer_ad``; GRU and BNLSTM
@@ -41,6 +44,7 @@ from chiron_tpu_torch.ops.bnlstm import bibnlstm_layer, bnlstm_layer, bnlstm_sca
 from chiron_tpu_torch.ops.gru import bigru_layer, gru_layer, gru_scan
 from chiron_tpu_torch.ops.lstm import lstm_layer
 from chiron_tpu_torch.ops.lstm_grad import lstm_layer_ad
+from chiron_tpu_torch.parallel.dist import moments_are_global
 
 Params = Dict[str, Any]
 
@@ -175,7 +179,10 @@ def _run_cell(cell_type: str, cell: Params, x: torch.Tensor, lengths: torch.Tens
         raise ValueError("starts requires the LSTM/GRU inference path")
     if cell_type == "BNLSTM":
         xw = _matmul(x, cell["wx"], bf16)  # the bias is added after normalisation
-        return (bnlstm_scan if training else bnlstm_layer)(xw, *_bn_weights(cell), lengths)
+        # the inference kernels take each step's moments on chip, over their
+        # own rows: a step whose moments span the ranks runs the recurrence
+        return (bnlstm_scan if training or moments_are_global() else bnlstm_layer)(
+            xw, *_bn_weights(cell), lengths)
     if cell_type == "LSTM":
         if training:
             return lstm_layer_ad(_proj(x, cell), cell["wh"], lengths)
@@ -205,6 +212,9 @@ def _fused_bigru(layer, x_fw, x_bw, lengths, starts, bf16=False):
 def _fused_bibnlstm(layer, x_fw, x_bw, lengths, starts, bf16=False):
     """x_bw reversed within each length (no flip mode: see the module note)."""
     del starts
+    if moments_are_global():  # see _run_cell
+        return (_run_cell("BNLSTM", layer["fw"], x_fw, lengths, bf16=bf16),
+                _run_cell("BNLSTM", layer["bw"], x_bw, lengths, bf16=bf16))
     return bibnlstm_layer(_matmul(x_fw, layer["fw"]["wx"], bf16),
                           _matmul(x_bw, layer["bw"]["wx"], bf16),
                           _bn_weights(layer["fw"]), _bn_weights(layer["bw"]), lengths)

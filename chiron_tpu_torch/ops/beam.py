@@ -208,10 +208,11 @@ def beam_search(lp: torch.Tensor, lens: torch.Tensor, beam_width: int,
     pb = torch.empty((bsz, beam_width), dtype=torch.float32, device=dev)
     pnb = torch.empty_like(pb)
     lib = cuda_build.load("beam")
-    rc = lib.beam_search_launch(lp.data_ptr(), lens.data_ptr(), trace.data_ptr(),
-                                pb.data_ptr(), pnb.data_ptr(), bsz, t_max, nclass,
-                                beam_width, float(length_bonus),
-                                torch.cuda.current_stream(dev).cuda_stream)
+    with cuda_build.on_device(dev):
+        rc = lib.beam_search_launch(lp.data_ptr(), lens.data_ptr(), trace.data_ptr(),
+                                    pb.data_ptr(), pnb.data_ptr(), bsz, t_max, nclass,
+                                    beam_width, float(length_bonus),
+                                    torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "beam_search")
     launches["beam_search"] += 1
     return trace, pb, pnb
@@ -232,9 +233,10 @@ def beam_traceback(trace: torch.Tensor, best: torch.Tensor) -> torch.Tensor:
     best = best.contiguous()
     chars = torch.empty((bsz, t_max), dtype=torch.int32, device=dev)
     lib = cuda_build.load("beam")
-    rc = lib.beam_traceback_launch(trace.data_ptr(), best.data_ptr(), chars.data_ptr(),
-                                   bsz, t_max, w,
-                                   torch.cuda.current_stream(dev).cuda_stream)
+    with cuda_build.on_device(dev):
+        rc = lib.beam_traceback_launch(trace.data_ptr(), best.data_ptr(), chars.data_ptr(),
+                                       bsz, t_max, w,
+                                       torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "beam_traceback")
     launches["beam_traceback"] += 1
     return chars

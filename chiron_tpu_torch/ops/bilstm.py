@@ -153,10 +153,11 @@ def bilstm_layer(xw_fw: torch.Tensor, xw_bw: torch.Tensor, wh_fw: torch.Tensor,
     out_f = torch.empty((t_max, bsz, h_dim), dtype=dtype, device=dev)
     out_b = torch.empty_like(out_f)
     lib = cuda_build.load(library(dtype))
-    rc = lib.bilstm_launch(*[a.data_ptr() for a in args], out_f.data_ptr(),
-                           out_b.data_ptr(), t_max, bsz, h_dim, rows, cluster, smem, wh_global,
-                           int(dtype == torch.bfloat16),
-                           torch.cuda.current_stream(dev).cuda_stream)
+    with cuda_build.on_device(dev):
+        rc = lib.bilstm_launch(*[a.data_ptr() for a in args], out_f.data_ptr(),
+                               out_b.data_ptr(), t_max, bsz, h_dim, rows, cluster, smem,
+                               wh_global, int(dtype == torch.bfloat16),
+                               torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, f"bilstm ({dtype_name(dtype)} instance)")
     launches += 1
     launches_by_dtype[dtype_name(dtype)] += 1

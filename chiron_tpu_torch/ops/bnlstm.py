@@ -44,6 +44,7 @@ import torch
 
 from chiron_tpu_torch.ops import cuda_build
 from chiron_tpu_torch.ops.lstm import check_cuda_size, check_recurrent_inputs
+from chiron_tpu_torch.parallel.dist import all_sum
 
 _FORGET_BIAS = 1.0
 _BN_EPS = 1e-5
@@ -111,14 +112,16 @@ Weights = Tuple[torch.Tensor, ...]  # (wh, b, scale_x, scale_h, scale_c, offset_
 
 
 def _batch_norm_step(x, scale, m, count):
-    mean = (x * m).sum(dim=0, keepdim=True) / count
-    var = (((x - mean) ** 2) * m).sum(dim=0, keepdim=True) / count
+    mean = all_sum((x * m).sum(dim=0, keepdim=True)) / count
+    var = all_sum((((x - mean) ** 2) * m).sum(dim=0, keepdim=True)) / count
     return (x - mean) * torch.rsqrt(var + _BN_EPS) * scale
 
 
 def bnlstm_scan(xw, wh, b, scale_x, scale_h, scale_c, offset_c, lengths):
     """The recurrence as a differentiable step loop (two-pass moments, as
-    the JAX package's ``_bnlstm_scan``)."""
+    the JAX package's ``_bnlstm_scan``). Inside
+    ``parallel.dist.global_moments`` each step's moments and its count of
+    active rows are summed over the ranks: the global batch's."""
     t_max, bsz, four_h = xw.shape
     h_dim = four_h // 4
     h = xw.new_zeros((bsz, h_dim))
@@ -126,7 +129,7 @@ def bnlstm_scan(xw, wh, b, scale_x, scale_h, scale_c, offset_c, lengths):
     outs = []
     for t in range(t_max):
         m = (t < lengths)[:, None].to(xw.dtype)
-        count = m.sum().clamp(min=1.0)
+        count = all_sum(m.sum()).clamp(min=1.0)
         gates = (_batch_norm_step(xw[t], scale_x, m, count)
                  + _batch_norm_step(h @ wh, scale_h, m, count) + b)
         i, g, f, o = gates.split(h_dim, dim=1)
@@ -320,7 +323,7 @@ def card_limits(dev: torch.device) -> Tuple[int, int]:
     if idx not in _CARD_LIMITS:
         lib = cuda_build.load("bnlstm")
         count = ctypes.c_int(0)
-        with torch.cuda.device(idx):
+        with cuda_build.on_device(idx):
             rc = lib.bnlstm_active_clusters(MAX_CLUSTER, 8, 2, 256, MAX_SHARED_BYTES,
                                             ctypes.byref(count))
         cuda_build.check(rc, "bnlstm_active_clusters")
@@ -349,9 +352,10 @@ def _launch(entry: str, xws: Sequence[torch.Tensor], weights: Sequence[Weights],
                           device=dev)
     bar = torch.zeros(zeroed_words(dirs, h_dim, geom), dtype=torch.int32, device=dev)
     lib = cuda_build.load("bnlstm")
-    fn = getattr(lib, f"{entry}_launch")
     ptrs = [t.data_ptr() for group in (xws, whs, vecs) for t in group]
-    rc = fn(*ptrs, lengths.data_ptr(), *[o.data_ptr() for o in outs], scratch.data_ptr(),
+    with cuda_build.on_device(dev):
+        rc = getattr(lib, f"{entry}_launch")(
+            *ptrs, lengths.data_ptr(), *[o.data_ptr() for o in outs], scratch.data_ptr(),
             bar.data_ptr(), t_max, bsz, h_dim, int(geom.instance == "cluster"), geom.cluster,
             geom.split, geom.row_groups, geom.rows, geom.units, geom.smem_bytes,
             torch.cuda.current_stream(dev).cuda_stream)

@@ -208,14 +208,15 @@ def conv_bn(terms: Sequence, w: torch.Tensor, relu_in: bool, stride: int = 1,
     two = len(terms) == 2
     p = [term[i].data_ptr() for term in terms for i in range(3)]
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.conv_bn_launch(
-        p[0], p[3] if two else None, p[1], p[2],
-        p[4] if two else None, p[5] if two else None,
-        w.data_ptr(), y.data_ptr(), partial.data_ptr(),
-        None if xpart is None else xpart.data_ptr(),
-        None if colsum is None else colsum.data_ptr(), sums.data_ptr(),
-        sqs.data_ptr(), bsz, t, c_in, c_out, k, int(stride), lpad, out_t,
-        int(bool(relu_in)), bf16, stream)
+    with cuda_build.on_device(dev):
+        rc = lib.conv_bn_launch(
+            p[0], p[3] if two else None, p[1], p[2],
+            p[4] if two else None, p[5] if two else None,
+            w.data_ptr(), y.data_ptr(), partial.data_ptr(),
+            None if xpart is None else xpart.data_ptr(),
+            None if colsum is None else colsum.data_ptr(), sums.data_ptr(),
+            sqs.data_ptr(), bsz, t, c_in, c_out, k, int(stride), lpad, out_t,
+            int(bool(relu_in)), bf16, stream)
     dtype = str(out_dtype).split(".")[-1]
     cuda_build.check(rc, f"conv_bn ({dtype} instance)")
     launches += 1

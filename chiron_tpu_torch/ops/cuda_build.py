@@ -21,6 +21,8 @@ import threading
 import time
 from typing import Callable, Dict, Iterable, Tuple
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
@@ -120,6 +122,14 @@ def load(name: str) -> ctypes.CDLL:
             _DECLARE[name](lib)
             _LIBS[name] = lib
         return _LIBS[name]
+
+
+def on_device(dev: torch.device):
+    """The context every kernel launch runs in: its tensors' device made
+    current. A ``<<<>>>`` launch and ``cudaFuncSetAttribute`` act on the
+    current device, whatever the stream passed, so a launch for ``cuda:1``
+    from a thread whose current device is ``cuda:0`` needs it."""
+    return torch.cuda.device(dev)
 
 
 def check(rc: int, what: str) -> None:

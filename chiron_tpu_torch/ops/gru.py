@@ -203,11 +203,12 @@ def _launch(entry: str, gxs, cxs, whs, lengths: torch.Tensor,
     starts = None if starts is None else starts.contiguous()
     outs = [torch.empty((t_max, bsz, h_dim), dtype=torch.float32, device=dev) for _ in cxs]
     lib = cuda_build.load("gru")
-    rc = getattr(lib, f"{entry}_launch")(
-        *[a.data_ptr() for a in ins + weights], *[_ptr(w) for w in packed], lengths.data_ptr(),
-        _ptr(starts), *[o.data_ptr() for o in outs], t_max, bsz,
-        h_dim, int(geom.instance == "streamed"), geom.smem_bytes,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with cuda_build.on_device(dev):
+        rc = getattr(lib, f"{entry}_launch")(
+            *[a.data_ptr() for a in ins + weights], *[_ptr(w) for w in packed],
+            lengths.data_ptr(), _ptr(starts), *[o.data_ptr() for o in outs], t_max, bsz,
+            h_dim, int(geom.instance == "streamed"), geom.smem_bytes,
+            torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, f"{entry}_layer ({geom.instance} instance)")
     launches[entry] += 1
     instance_launches[geom.instance] += 1

@@ -103,10 +103,12 @@ def lstm_layer(xw: torch.Tensor, wh: torch.Tensor, lengths: torch.Tensor,
     cluster, rows, smem = geometry
     (wh,), wh_global = weight_args((wh.contiguous(),), h_dim, geometry, dtype)
     lib = cuda_build.load(library(dtype))
-    rc = lib.lstm_launch(xw.data_ptr(), wh.data_ptr(), lengths.data_ptr(),
-                         None if starts is None else starts.data_ptr(), out.data_ptr(),
-                         t_max, bsz, h_dim, rows, cluster, smem, wh_global,
-                         int(dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
+    with cuda_build.on_device(dev):
+        rc = lib.lstm_launch(xw.data_ptr(), wh.data_ptr(), lengths.data_ptr(),
+                             None if starts is None else starts.data_ptr(), out.data_ptr(),
+                             t_max, bsz, h_dim, rows, cluster, smem, wh_global,
+                             int(dtype == torch.bfloat16),
+                             torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, f"lstm_layer ({dtype_name(dtype)} instance)")
     launches += 1
     launches_by_dtype[dtype_name(dtype)] += 1

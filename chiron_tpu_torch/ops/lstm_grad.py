@@ -343,10 +343,11 @@ def lstm_fwd_residuals(xw: torch.Tensor, wh: torch.Tensor, lengths: torch.Tensor
     resident = weights_resident("fwd", h_dim, cluster, rows, smem)
     wsrc = wh if resident else wh_slices(wh, cluster)
     lib = cuda_build.load("lstm_grad")
-    rc = lib.lstm_fwd_launch(xw.data_ptr(), wsrc.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                             gates.data_ptr(), cc.data_ptr(), hc.data_ptr(), t_max, bsz, h_dim,
-                             rows, cluster, smem, int(not resident),
-                             torch.cuda.current_stream(dev).cuda_stream)
+    with cuda_build.on_device(dev):
+        rc = lib.lstm_fwd_launch(xw.data_ptr(), wsrc.data_ptr(), lengths.data_ptr(),
+                                 out.data_ptr(), gates.data_ptr(), cc.data_ptr(), hc.data_ptr(),
+                                 t_max, bsz, h_dim, rows, cluster, smem, int(not resident),
+                                 torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "lstm_fwd_residuals")
     launches["lstm_fwd_residuals"] += 1
     return out, gates, cc, hc
@@ -380,10 +381,12 @@ def lstm_bwd(gates: torch.Tensor, cc: torch.Tensor, hc: torch.Tensor, dhs: torch
     resident = weights_resident("bwd", h_dim, cluster, rows, smem)
     wh_t = wh.t().contiguous() if resident else wh_slices(wh, cluster, transposed=True)
     lib = cuda_build.load("lstm_grad")
-    rc = lib.lstm_bwd_launch(gates.data_ptr(), cc.data_ptr(), hc.data_ptr(), dhs.data_ptr(),
-                             wh_t.data_ptr(), lengths.data_ptr(), dxw.data_ptr(), dwh.data_ptr(),
-                             part.data_ptr(), splits, t_max, bsz, h_dim, rows, cluster, smem,
-                             int(not resident), torch.cuda.current_stream(dev).cuda_stream)
+    with cuda_build.on_device(dev):
+        rc = lib.lstm_bwd_launch(gates.data_ptr(), cc.data_ptr(), hc.data_ptr(), dhs.data_ptr(),
+                                 wh_t.data_ptr(), lengths.data_ptr(), dxw.data_ptr(),
+                                 dwh.data_ptr(), part.data_ptr(), splits, t_max, bsz, h_dim,
+                                 rows, cluster, smem, int(not resident),
+                                 torch.cuda.current_stream(dev).cuda_stream)
     cuda_build.check(rc, "lstm_bwd")
     launches["lstm_bwd"] += 1
     return dxw, dwh

@@ -1,4 +1,4 @@
-"""Single-GPU trainer: port of ``chiron_tpu/train/loop.py``.
+"""The trainer, one GPU or data-parallel: port of ``chiron_tpu/train/loop.py``.
 
 Optimisation parity with the JAX package (chiron/chiron_model.py:20-99):
 
@@ -22,6 +22,7 @@ the other's runs.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -29,6 +30,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from chiron_tpu_torch import config as C
 from chiron_tpu_torch.io.binfmt import read_bin_folder
@@ -38,6 +40,10 @@ from chiron_tpu_torch.io.tfrecord import read_tfrecord_data_sets
 from chiron_tpu_torch.models.model import init_model, model_ratio
 from chiron_tpu_torch.ops.ctc_greedy import greedy_decode
 from chiron_tpu_torch.ops.ctc_loss import ctc_focal_loss
+from chiron_tpu_torch.ops import cuda_build
+from chiron_tpu_torch.parallel.dist import (all_mean, average_gradients, global_moments,
+                                            process_info, run_ranks)
+from chiron_tpu_torch.parallel.mesh import local_rows, make_mesh, replicate, shard_batch
 from chiron_tpu_torch.params import Basecaller, from_jax_params, to_numpy_tree
 from chiron_tpu_torch.train.checkpoint import restore_latest, save_checkpoint
 from chiron_tpu_torch.utils.device import float32_strict, resolve_device
@@ -142,20 +148,34 @@ def ema_update(ema: Basecaller, model: Basecaller, n_updates: float) -> None:
         ema.flat[key].mul_(decay).add_(p, alpha=1.0 - decay)
 
 
-def make_train_step(config: Dict[str, Any], fl_gamma: float):
+def _moments(data_parallel: bool):
+    return global_moments() if data_parallel else contextlib.nullcontext()
+
+
+def make_train_step(config: Dict[str, Any], fl_gamma: float, data_parallel: bool = False):
     """step(model, ema, opt, batch, n_updates) -> loss: value and grad of
     the focal CTC loss, one optimizer update, one EMA update.
+
+    ``data_parallel``: each rank of the initialised process group feeds its
+    rows of the global batch; the step is the global batch's, as the JAX
+    package's GSPMD step over a mesh: batch-norm moments over the ranks
+    (``parallel.dist.global_moments``), gradients averaged over the ranks
+    before the update, and the returned loss the ranks' mean.
 
     The step runs in full float32: TF32 is turned off for matmuls and cuDNN
     here (``utils/device.py:float32_strict``)."""
     float32_strict()
 
     def step(model: Basecaller, ema: Basecaller, opt: Optimizer, batch, n_updates):
-        logits = model(batch["signal"], batch["seq_len"], training=True)
-        loss = ctc_focal_loss(logits, batch["seq_len"], batch["label"], batch["label_len"],
-                              fl_gamma=fl_gamma)
-        opt.zero_grad()
-        loss.backward()
+        with _moments(data_parallel):
+            logits = model(batch["signal"], batch["seq_len"], training=True)
+            loss = ctc_focal_loss(logits, batch["seq_len"], batch["label"], batch["label_len"],
+                                  fl_gamma=fl_gamma)
+            opt.zero_grad()
+            loss.backward()
+        if data_parallel:
+            average_gradients(opt.params)
+            loss = all_mean(loss)
         opt.step()
         ema_update(ema, model, n_updates)
         return loss.detach()
@@ -163,12 +183,15 @@ def make_train_step(config: Dict[str, Any], fl_gamma: float):
     return step
 
 
-def make_eval_step(model: Basecaller):
-    """batch -> greedy decode (decoded, lengths, neg_sum) of inference logits."""
+def make_eval_step(model: Basecaller, data_parallel: bool = False):
+    """batch -> greedy decode (decoded, lengths, neg_sum) of inference logits
+    (``data_parallel``: batch-norm moments over the ranks' global batch, as
+    the JAX package's eval step over a mesh)."""
 
     def step(batch):
-        logits = model(batch["signal"], batch["seq_len"])
-        return greedy_decode(logits, batch["seq_len"])
+        with torch.no_grad(), _moments(data_parallel):
+            logits = model(batch["signal"], batch["seq_len"])
+            return greedy_decode(logits, batch["seq_len"])
 
     return step
 
@@ -259,7 +282,7 @@ class Dataset:
 
 
 def load_dataset(data_dir, seq_len, k_mer=1, max_segments=None, skip_start=10,
-                 sig_norm=None, tfrecord=None, cache_dir=None):
+                 sig_norm=None, tfrecord=None, cache_dir=None, file_shard=None):
     """Training segments from .signal/.label pairs, a .bin folder, a TFRecord
     file or the out-of-core window cache, in the JAX package's order.
 
@@ -270,10 +293,16 @@ def load_dataset(data_dir, seq_len, k_mer=1, max_segments=None, skip_start=10,
     (chiron_input.py:318). A folder with a ``data.meta`` descriptor is the
     fixed-record .bin layout (file_batch output, chiron_queue_input's
     source). Anything else is walked for .signal/.label pairs.
+
+    ``file_shard=(index, count)`` keeps one process's share of a
+    multi-process run: the files of its hash shard, or, for the .bin and
+    TFRecord sources, whose read is the whole corpus, every count-th row
+    (the TFRecord's after ``max_segments``, the .bin's before it).
     """
     if cache_dir:
         return cached_dataset(data_dir, cache_dir, seq_len, k_mer=k_mer, skip_start=skip_start,
-                              sig_norm=sig_norm, max_segments=max_segments)
+                              sig_norm=sig_norm, max_segments=max_segments,
+                              file_shard=file_shard)
     if not tfrecord and os.path.isfile(data_dir) and data_dir.endswith(
             (".tfrecord", ".tfrecords")):
         # a tfrecord FILE given directly (the reference's --validation takes
@@ -281,21 +310,27 @@ def load_dataset(data_dir, seq_len, k_mer=1, max_segments=None, skip_start=10,
         tfrecord = os.path.abspath(data_dir)
     if tfrecord:
         path = tfrecord if os.path.isabs(tfrecord) else os.path.join(data_dir, tfrecord)
-        return Dataset(*read_tfrecord_data_sets(path, seq_length=seq_len, k_mer=k_mer,
-                                                max_segments_num=max_segments,
-                                                skip_start=skip_start, sig_norm=sig_norm))
+        arrays = read_tfrecord_data_sets(path, seq_length=seq_len, k_mer=k_mer,
+                                         max_segments_num=max_segments, skip_start=skip_start,
+                                         sig_norm=sig_norm)
+        if file_shard is not None:
+            idx, count = file_shard
+            arrays = tuple(a[idx::count] for a in arrays)
+        return Dataset(*arrays)
     if os.path.exists(os.path.join(data_dir, "data.meta")):
-        events, event_lens, labels, label_lens = read_bin_folder(data_dir)
-        if events.shape[1] != seq_len:
-            raise ValueError(f".bin records have signal_length {events.shape[1]}; "
+        arrays = read_bin_folder(data_dir)
+        if arrays[0].shape[1] != seq_len:
+            raise ValueError(f".bin records have signal_length {arrays[0].shape[1]}; "
                              f"--sequence_len {seq_len} must match")
+        if file_shard is not None:
+            idx, count = file_shard
+            arrays = tuple(a[idx::count] for a in arrays)
         if max_segments:
-            events, event_lens = events[:max_segments], event_lens[:max_segments]
-            labels, label_lens = labels[:max_segments], label_lens[:max_segments]
-        return Dataset(events, event_lens, labels, label_lens)
+            arrays = tuple(a[:max_segments] for a in arrays)
+        return Dataset(*arrays)
     return Dataset(*read_raw_data_sets(data_dir, seq_length=seq_len, k_mer=k_mer,
                                        max_segments_num=max_segments, skip_start=skip_start,
-                                       sig_norm=sig_norm))
+                                       sig_norm=sig_norm, file_shard=file_shard))
 
 
 def batch_to_device(batch, ratio: float, device: torch.device):
@@ -310,10 +345,54 @@ def batch_to_device(batch, ratio: float, device: torch.device):
 
 
 def train(hparams) -> Dict[str, Any]:
-    """Main training loop (parity: chiron/chiron_rcnn_train.py:66-136)."""
+    """Main training loop (parity: chiron/chiron_rcnn_train.py:66-136).
+
+    Data parallel as the JAX package's trainer over a mesh, one rank per GPU:
+
+    - No process group initialised: ``--n_devices k`` > 1 starts k ranks on
+      this host, rank r on ``cuda:r`` (NCCL; gloo with ``--device cpu``),
+      after building the kernels once; fewer than k visible GPUs raise. Each
+      rank loads the whole corpus, draws the same global batches in the same
+      order and feeds its rows [r B/k, (r+1) B/k): the JAX package's
+      one-process mesh. ``--n_devices`` 0 or 1: one process on ``--device``
+      (the JAX package's 0 takes every device).
+    - Inside an initialised group of W ranks (``parallel.mesh.
+      initialize_distributed``, e.g. under ``torchrun``): each rank loads its
+      file shard and draws B/W rows, the JAX package's multi-process rule,
+      its caches under ``<cache>/shard<rank>``.
+
+    Either way the batch size is rounded up to a multiple of the ranks, each
+    step is the global batch's (``make_train_step(data_parallel=True)``), and
+    only rank 0 writes model.json, train_config, checkpoints and metrics.
+    """
     device = resolve_device(getattr(hparams, "device", "cuda"))
-    if int(getattr(hparams, "n_devices", 0) or 0) > 1:
-        raise NotImplementedError("multi-GPU training is not ported yet (ROADMAP A10)")
+    n_devices = int(getattr(hparams, "n_devices", 0) or 0)
+    if dist.is_available() and dist.is_initialized():
+        world = dist.get_world_size()
+        if n_devices > 1 and n_devices != world:
+            raise ValueError(f"--n_devices {n_devices} inside a process group of {world} "
+                             "ranks: one rank drives one device")
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+        return _train(hparams, device, one_host=False, data_parallel=True)
+    if n_devices <= 1:
+        return _train(hparams, device, one_host=False, data_parallel=False)
+    devices = make_mesh(n_devices, device=device)
+    if device.type == "cuda":
+        cuda_build.build_all()  # once here, not in k parallel nvcc runs
+    threads = max(1, torch.get_num_threads() // len(devices))
+    return run_ranks(_train_rank, devices, args=(hparams,), threads=threads, timeout=None)[0]
+
+
+def _train_rank(rank: int, world: int, device: torch.device, hparams):
+    """One rank of a one-host data-parallel run; rank 0 returns the result."""
+    result = _train(hparams, device, one_host=True, data_parallel=True)
+    return result if rank == 0 else None
+
+
+def _train(hparams, device: torch.device, one_host: bool, data_parallel: bool):
+    rank, world = process_info()
+    writer = rank == 0
     model_dir = os.path.join(hparams.log_dir, hparams.model_name)
     os.makedirs(model_dir, exist_ok=True)
     config_path = os.path.join(model_dir, "model.json")
@@ -321,28 +400,61 @@ def train(hparams) -> Dict[str, Any]:
         config = C.read_config(config_path)
     else:
         config = C.read_config(getattr(hparams, "configure", None))
-    C.save_config(config_path, config)
-    # the run flags beside the model (chiron_rcnn_train.py:77-81)
-    with open(os.path.join(model_dir, "train_config"), "w") as f:
-        json.dump({k: str(v) for k, v in vars(hparams).items()}, f, indent=2)
+    if data_parallel:
+        dist.barrier()  # every rank has read model.json before rank 0 writes it
+    if writer:
+        C.save_config(config_path, config)
+        # the run flags beside the model (chiron_rcnn_train.py:77-81)
+        with open(os.path.join(model_dir, "train_config"), "w") as f:
+            json.dump({k: str(v) for k, v in vars(hparams).items()}, f, indent=2)
 
     batch_size = hparams.batch_size
+    if batch_size % world:
+        batch_size += world - batch_size % world
+        print(f"Rounded batch size up to {batch_size} for {world} ranks")
+    # one host: every rank draws the global batch and keeps its rows; a
+    # multi-process group: each rank draws its own rows from its file shard
+    local_batch = batch_size if one_host else batch_size // world
+    file_shard = (rank, world) if world > 1 and not one_host else None
+
+    def rows(batch):
+        return shard_batch(batch, rank, world) if one_host else batch
+
+    def shard_cache(cache_dir):
+        # each process's cache holds only its file shard, in a directory of its own
+        if cache_dir and file_shard is not None:
+            return os.path.join(cache_dir, f"shard{rank}")
+        return cache_dir
+
+    def rank0_first(cache_dir, load):
+        # one host: the ranks share a cache directory, which rank 0 builds first
+        shared = one_host and bool(cache_dir)
+        if shared and rank > 0:
+            dist.barrier()
+        out = load()
+        if shared and rank == 0:
+            dist.barrier()
+        return out
+
     seq_len = hparams.sequence_len
     ratio = model_ratio(config, seq_len)
     sig_norm = getattr(hparams, "sig_norm", None)
     k_mer = int(getattr(hparams, "k_mer", 1))
     max_segments = getattr(hparams, "segments_num", None)
     tfrecord = getattr(hparams, "tfrecord", None)
-    train_cache = getattr(hparams, "train_cache", None)
-    dataset = load_dataset(hparams.data_dir, seq_len, k_mer=k_mer, max_segments=max_segments,
-                           sig_norm=sig_norm, tfrecord=tfrecord, cache_dir=train_cache)
+    train_cache = shard_cache(getattr(hparams, "train_cache", None))
+    dataset = rank0_first(train_cache, lambda: load_dataset(
+        hparams.data_dir, seq_len, k_mer=k_mer, max_segments=max_segments, sig_norm=sig_norm,
+        tfrecord=tfrecord, cache_dir=train_cache, file_shard=file_shard))
     if dataset.n == 0:
         raise ValueError(f"No training segments found under {hparams.data_dir}")
     print(f"Loaded {dataset.n} training segments")
     valid = None
     if getattr(hparams, "validation", None):
-        valid = load_dataset(hparams.validation, seq_len, sig_norm=sig_norm,
-                             cache_dir=getattr(hparams, "valid_cache", None))
+        valid_cache = shard_cache(getattr(hparams, "valid_cache", None))
+        valid = rank0_first(valid_cache, lambda: load_dataset(
+            hparams.validation, seq_len, sig_norm=sig_norm, cache_dir=valid_cache,
+            file_shard=file_shard))
 
     tree, start_step = (None, None)
     if getattr(hparams, "retrain", False):
@@ -351,23 +463,29 @@ def train(hparams) -> Dict[str, Any]:
         tree = init_model(torch.Generator().manual_seed(0), config)
         start_step = 0
     start_step = start_step or 0
-    model = from_jax_params(tree, config, device).requires_grad_(True)
+    model = replicate(from_jax_params(tree, config, device)).requires_grad_(True)
     ema = from_jax_params(to_numpy_tree(model), config, device)
 
     opt = make_optimizer(config.get("opt_method", "Adam"), hparams.step_rate, hparams.max_steps,
                          model.parameters())
-    step_fn = make_train_step(config, float(config.get("fl_gamma", 0)))
-    eval_fn = make_eval_step(model)
+    step_fn = make_train_step(config, float(config.get("fl_gamma", 0)), data_parallel)
+    eval_fn = make_eval_step(model, data_parallel)
 
     # Host-RSS guard: when the process's peak RSS crosses the limit the loop
     # checkpoints (params and EMA) and returns restart=True, so a wrapper can
-    # relaunch with --retrain instead of the run dying mid-schedule.
+    # relaunch with --retrain instead of the run dying mid-schedule. Under a
+    # group the ranks stop together.
     max_rss_gb = float(getattr(hparams, "max_rss_gb", 0) or 64.0)
 
-    def _rss_gb() -> float:
+    def over_rss() -> bool:
         import resource
 
-        return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+        over = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6 > max_rss_gb
+        if data_parallel:
+            flag = torch.tensor([float(over)], device=device)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+            over = bool(flag.item())
+        return over
 
     metrics_path = os.path.join(model_dir, "metrics.jsonl")
     lr_schedule = make_lr_schedule(hparams.step_rate, hparams.max_steps)
@@ -387,50 +505,58 @@ def train(hparams) -> Dict[str, Any]:
             skip_start += offset_inc
             if hasattr(dataset, "close"):
                 dataset.close()
-            dataset = load_dataset(hparams.data_dir, seq_len, k_mer=k_mer,
-                                   max_segments=max_segments, skip_start=skip_start,
-                                   sig_norm=sig_norm, tfrecord=tfrecord, cache_dir=train_cache)
-        batch = batch_to_device(dataset.next_batch(batch_size), ratio, device)
+            dataset = rank0_first(train_cache, lambda: load_dataset(
+                hparams.data_dir, seq_len, k_mer=k_mer, max_segments=max_segments,
+                skip_start=skip_start, sig_norm=sig_norm, tfrecord=tfrecord,
+                cache_dir=train_cache, file_shard=file_shard))
+        batch = batch_to_device(rows(dataset.next_batch(local_batch)), ratio, device)
         loss = step_fn(model, ema, opt, batch, i - start_step)  # EMA updates since (re)init
         if (i + 1) % save_every == 0 or (i + 1) == hparams.max_steps:
             last_loss = float(loss)
             losses.append(last_loss)
             err = None
             if valid is not None:
-                vbatch = valid.next_batch(batch_size)
+                vbatch = rows(valid.next_batch(local_batch))
                 dec, dlens, _ = eval_fn(batch_to_device(vbatch, ratio, device))
-                err = mean_edit_distance(dec.cpu().numpy(), dlens.cpu().numpy(),
-                                         vbatch["label"], vbatch["label_len"])
-            save_checkpoint(model_dir, to_numpy_tree(model), i + 1)
+                err = mean_edit_distance(local_rows(dec), local_rows(dlens), vbatch["label"],
+                                         vbatch["label_len"])
+                if one_host:  # the global batch's mean, as the JAX package's one-process mesh
+                    err = float(all_mean(torch.tensor(err, dtype=torch.float64, device=device)))
+            if writer:
+                save_checkpoint(model_dir, to_numpy_tree(model), i + 1)
             dt = time.time() - t0
             msg = f"step {i + 1} loss {last_loss:.4f} {dt / save_every:.3f}s/step"
             if err is not None:
                 msg += f" valid_edit_dist {err:.4f}"
             print(msg)
-            with open(metrics_path, "a") as mf:
-                mf.write(json.dumps({
-                    "step": i + 1,
-                    "loss": last_loss,
-                    "learning_rate": float(lr_schedule(i + 1)),
-                    "valid_edit_distance": err,
-                    "seconds_per_step": dt / save_every,
-                }) + "\n")
+            if writer:
+                with open(metrics_path, "a") as mf:
+                    mf.write(json.dumps({
+                        "step": i + 1,
+                        "loss": last_loss,
+                        "learning_rate": float(lr_schedule(i + 1)),
+                        "valid_edit_distance": err,
+                        "seconds_per_step": dt / save_every,
+                    }) + "\n")
             t0 = time.time()
-            if ema_save_every and (i + 1) % ema_save_every == 0 and (i + 1) != hparams.max_steps:
+            if writer and ema_save_every and (i + 1) % ema_save_every == 0 \
+                    and (i + 1) != hparams.max_steps:
                 save_checkpoint(model_dir, to_numpy_tree(ema), i + 1, prefix="ema",
                                 update_state=False, max_to_keep=2)
-            if max_rss_gb and _rss_gb() > max_rss_gb:
+            if max_rss_gb and over_rss():
                 # update_state=False: a restart resumes from the raw
                 # model-<step> params saved above, not from this EMA snapshot
-                save_checkpoint(model_dir, to_numpy_tree(ema), i + 1, prefix="rss-ema",
-                                update_state=False)
-                print(f"RSS {_rss_gb():.1f} GB > {max_rss_gb} GB limit at step {i + 1}; "
+                if writer:
+                    save_checkpoint(model_dir, to_numpy_tree(ema), i + 1, prefix="rss-ema",
+                                    update_state=False)
+                print(f"RSS over the {max_rss_gb} GB limit at step {i + 1}; "
                       f"exiting for --retrain restart")
                 return {"final_loss": last_loss, "losses": losses, "model_dir": model_dir,
                         "restart": True, "step": i + 1}
     # the EMA first, as a side snapshot: the pointer must name the raw final
     # params even if the process dies between the two saves
-    save_checkpoint(model_dir, to_numpy_tree(ema), hparams.max_steps, prefix="ema",
-                    update_state=False)
-    save_checkpoint(model_dir, to_numpy_tree(model), hparams.max_steps, prefix="final")
+    if writer:
+        save_checkpoint(model_dir, to_numpy_tree(ema), hparams.max_steps, prefix="ema",
+                        update_state=False)
+        save_checkpoint(model_dir, to_numpy_tree(model), hparams.max_steps, prefix="final")
     return {"final_loss": last_loss, "losses": losses, "model_dir": model_dir}

@@ -679,3 +679,92 @@ def test_bf16_wrappers_raise_on_the_card(cuda):
     raw, one = torch.zeros(2, 8, 4, device=cuda), torch.ones(4, device=cuda)
     with pytest.raises(ValueError):  # bf16 raw to a float32 y: no such instance
         tconv.conv_bn([(raw.to(BF16), one, one)], torch.zeros(3, 4, 4, device=cuda), False)
+
+
+# ---- data parallelism on the card (chiron_tpu_torch/parallel) -----------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("beam", [0, 5])
+def test_sharded_decode_on_the_card_equals_a_step_per_shard(cuda, beam):
+    """The sharded decode over [cuda:0] * 4 equals four decode_steps on
+    contiguous rows bit for bit (each shard normalised by its own moments),
+    and over [cuda:0] the one decode_step; every kernel of the step ran."""
+    import functools
+
+    from chiron_tpu_torch.eval.pipeline import decode_step
+    from chiron_tpu_torch.models.model import init_model
+    from chiron_tpu_torch.parallel.dist import make_sharded_decode_step
+    from chiron_tpu_torch.params import from_jax_params
+
+    config = {"cnn": {"model": "dna_model1"},
+              "rnn": {"layer_num": 1, "hidden_num": 16, "cell_type": "LSTM",
+                      "layer_type": "normal"}}
+    tree = init_model(torch.Generator().manual_seed(0), config)
+    model = from_jax_params(tree, config, cuda)
+    rng = np.random.RandomState(0)
+    x = torch.tensor(rng.randn(16, 64).astype(np.float32), device=cuda)
+    sl = torch.tensor(rng.randint(1, 65, 16).astype(np.int32), device=cuda)
+    step = functools.partial(decode_step, beam=beam)
+    before = tconv.launches
+    got = make_sharded_decode_step(step, [cuda] * 4)(model, x, sl)
+    assert tconv.launches - before == 4 * 12  # dna_model1's twelve convs, per shard
+    want = torch.cat([step(model, x[i:i + 4], sl[i:i + 4]) for i in range(0, 16, 4)])
+    one = make_sharded_decode_step(step, [cuda])(model, x, sl)
+    # a model held elsewhere is replicated onto the shards' device once
+    on_host = make_sharded_decode_step(step, [cuda] * 4)
+    replicated = [on_host(from_jax_params(tree, config, "cpu"), x, sl) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(one, step(model, x, sl))
+    assert all(torch.equal(r, got) for r in replicated)
+    # nothing in the sharded step waits on the host (a sync there would
+    # serialise the shards on k cards): torch raises at any sync
+    sharded = make_sharded_decode_step(step, [cuda] * 4)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = sharded(model, x, sl)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_one_gpu_through_nccl(cuda):
+    """One data-parallel train step in a one-rank NCCL group and the sharded
+    decode at beam 0 and 4 (parallel/dryrun.py)."""
+    from chiron_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    assert np.isfinite(dryrun_multichip(1, device="cuda"))
+
+
+@pytest.mark.cuda
+def test_bnlstm_validation_in_a_group_runs_the_recurrence_on_the_card(cuda):
+    """Inside global_moments (a group of one) a BNLSTM model's inference
+    forward launches no BNLSTM kernel (their moments are their own rows') and
+    gives the kernels' logits within the BNLSTM tolerance."""
+    import torch.distributed as dist
+
+    from chiron_tpu_torch.models.model import init_model
+    from chiron_tpu_torch.parallel.dist import free_port, global_moments
+    from chiron_tpu_torch.params import from_jax_params
+
+    config = {"cnn": {"model": "dna_model1"},
+              "rnn": {"layer_num": 1, "hidden_num": 16, "cell_type": "BNLSTM",
+                      "layer_type": "normal"}}
+    model = from_jax_params(init_model(torch.Generator().manual_seed(0), config), config, cuda)
+    rng = np.random.RandomState(0)
+    x = torch.tensor(rng.randn(16, 64).astype(np.float32), device=cuda)
+    sl = torch.tensor(np.full(16, 64, np.int32), device=cuda)
+    with torch.no_grad():
+        want = model(x, sl)
+        before = dict(tbn.launches)
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
+                                world_size=1, rank=0)
+        try:
+            with global_moments():
+                got = model(x, sl)
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.synchronize()
+    assert tbn.launches == before
+    assert float((got - want).abs().max()) <= 5e-4 * float(want.abs().max())

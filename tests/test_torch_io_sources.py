@@ -265,9 +265,16 @@ def test_cache_rebuilds_on_param_change_and_regenerated_data(tmp_path):
     d4 = tcache.cached_dataset(data, cache, 200, skip_start=25)
     assert d4.n > d3.n
     assert tcache.read_meta(cache)["build"]["signature"]["n_files"] == 6
-    d4.close()
-    with pytest.raises(NotImplementedError, match="A10"):
-        tcache.cached_dataset(data, cache, 200, file_shard=(0, 2))
+    # a process's shard of the files: the two shards' caches partition this one
+    parts = [tcache.cached_dataset(data, os.path.join(str(tmp_path), f"shard{i}"), 200,
+                                   skip_start=25, file_shard=(i, 2)) for i in range(2)]
+    assert [tcache.read_meta(os.path.join(str(tmp_path), f"shard{i}"))["build"]["file_shard"]
+            for i in range(2)] == [[0, 2], [1, 2]]
+    assert parts[0].n + parts[1].n == d4.n and parts[0].n and parts[1].n
+    rows = sorted(r.tobytes() for p in parts for r in p.next_batch(p.n, shuffle=False)["signal"])
+    assert rows == sorted(r.tobytes() for r in d4.next_batch(d4.n, shuffle=False)["signal"])
+    for p in (d4, *parts):
+        p.close()
 
 
 def test_cached_dataset_batches_match_jax_and_in_ram(tmp_path):
@@ -339,6 +346,26 @@ def test_load_dataset_matches_jax_for_each_source(sources, source):
     data, kw = sources[source]
     got = tloop.load_dataset(data, SEQ, max_segments=20, **kw)
     want = jloop.load_dataset(data, SEQ, max_segments=20, **kw)
+    assert got.n == want.n > 0
+    for _ in range(4):
+        a, b = got.next_batch(8), want.next_batch(8)
+        for key in KEYS:
+            np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    for ds in (got, want):
+        if hasattr(ds, "close"):
+            ds.close()
+
+
+@pytest.mark.parametrize("source", ["signal", "bin", "tfrecord", "tfrecord_path", "cache"])
+def test_load_dataset_file_shard_matches_jax_for_each_source(sources, source):
+    """A process's share of a multi-process run: the files of its hash shard
+    (.signal, cache) or every second row (.bin: before max_segments,
+    TFRecord: after it), as the JAX package's load_dataset takes them."""
+    data, kw = sources[source]
+    if "cache_dir" in kw:
+        kw = {"cache_dir": os.path.join(kw["cache_dir"], "shard1")}
+    got = tloop.load_dataset(data, SEQ, max_segments=20, file_shard=(1, 2), **kw)
+    want = jloop.load_dataset(data, SEQ, max_segments=20, file_shard=(1, 2), **kw)
     assert got.n == want.n > 0
     for _ in range(4):
         a, b = got.next_batch(8), want.next_batch(8)

@@ -29,6 +29,17 @@ CONFIG = {"cnn": {"model": "dna_model1"},
           "opt_method": "Adam", "fl_gamma": 2}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this file's torch ops on one thread: the plain kernels run many
+    small ops, and several test workers' torch thread pools competing for the
+    cores made the 30-step CLI run ~30x slower than alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _write_config(tmp_path):
     path = os.path.join(str(tmp_path), "config.json")
     with open(path, "w") as f:
@@ -106,8 +117,10 @@ def test_train_without_gpu_raises_and_each_source_loads_or_raises_as_jax(tmp_pat
     args = _train_args(tmp_path, 2)
     with pytest.raises(RuntimeError):
         cli.main(args[:-2])  # default --device cuda
-    with pytest.raises(NotImplementedError):
-        cli.main(args + ["--n_devices", "2"])  # multi-GPU: ROADMAP A10
+    # data parallel on the CPU: two gloo ranks (one torch thread each), rank 0 writes
+    two = cli.main(args + ["--n_devices", "2", "-o", os.path.join(str(tmp_path), "log2")])
+    assert len(two["losses"]) == 1 and np.isfinite(two["losses"][0])
+    assert "final-2.npz" in os.listdir(two["model_dir"])
     # a missing TFRecord, named by -f or by path, fails as in the JAX package
     with pytest.raises(FileNotFoundError):
         cli.main(args + ["-f", "x.tfrecord"])
