@@ -4,7 +4,9 @@
     python3 chip_smoke.py [--out DIR]
 
 DIR (default chiron_tpu_torch/_build/chip_smoke, gitignored) receives the
-windows of a call step that decode differently on the card and on the CPU.
+windows of a call step that decode differently on the card and on the CPU,
+and phase 10's work directory (its configs, metrics and rankings; its
+corpora, caches and checkpoints are removed at the end of the phase).
 
 Phases (any failure exits non-zero and prints no result line):
   1. print the card's name and power limit; build every CUDA kernel from
@@ -136,7 +138,26 @@ Phases (any failure exits non-zero and prints no result line):
      group of one rank through initialize_distributed, equal bit for bit to
      the step without a group; `call --n_devices` past the visible GPUs
      raising with the device count;
- 10. print the per-kernel JSON line, then {"ok": true, "device": ...}.
+ 10. the model tools (chiron_tpu_torch/tools/{net2wide,make_bundled_models,
+     grid_search,mfu}.py), each run with every count set to 0 just before
+     and read just after, its counts added to the kernel line's: RNA_default
+     widened from H = 100 to 128 and DNA_default from 128 to 256 (noise 0),
+     one full rna-pre / dna-pre batch of each at beam 30 against the
+     original's card logits (1e-4 of max |logit|, >= 99% identical decodes),
+     the gap at the default noise printed, and the BiLSTM kernel at H = 256
+     and a full batch timed beside row 2; the bundled-model recipe in DIR:
+     the DNA corpus at each of its variants (RECIPE_READS reads a variant),
+     `_train dna` at its width (400 x 400, the window cache) with its first
+     step's loss card vs CPU (1e-4 relative), `stage_finetune` from the
+     bundled DNA_default, the RNA corpus and `_train rna` (2000 x 100),
+     `stage_install` into DIR, `call -p dna-pre --beam 30` with the
+     installed model and `_read_logits` card vs CPU (1e-4 of max); each
+     training run's windows/s; `grid_search` over its 16 candidates at its
+     widths (64 x 300, GRID_STEPS steps each) on phase 4's reads, every loss
+     finite, each candidate's s/step; the analytic FLOPs a sample of the
+     three bundled models and the share of the bf16 peak at phase 6's device
+     samples/s, beside the card's name and power limit;
+ 11. print the per-kernel JSON line, then {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -235,6 +256,11 @@ ZOO = {
 }
 ZOO_TRAIN = ("gate_conv_net", "cnn_logit")
 ZOO_TRAIN_STEPS = 30
+# phase 10, the model tools: the recipe's corpora cut to RECIPE_READS reads a
+# variant (4,000 bases a DNA read, 2,500 an RNA read, as the recipe has them),
+# its schedules to these step counts, grid_search's to GRID_STEPS a candidate
+RECIPE_READS = 2
+RECIPE_DNA_STEPS, RECIPE_FINETUNE_STEPS, RECIPE_RNA_STEPS, GRID_STEPS = 20, 10, 5, 10
 
 
 def log(*a):
@@ -892,6 +918,315 @@ def multi_gpu(torch, work, gpu_model, tree, config, batch, lb, phase3_step, trai
     else:
         fail("9d: call --n_devices past the visible GPUs did not raise")
     return numbers
+
+
+def model_tools(torch, work, out_dir, sig_dir, train_dir, dna, rna, reset, counts,
+                check_counts, smi, bench_line, row2_ms, device="cuda"):
+    """Phase 10: the model tools (chiron_tpu_torch/tools/{net2wide,
+    make_bundled_models,grid_search,mfu}.py) on the card. ``dna`` / ``rna``:
+    (model, the float32 (x, seq_len) of phase 3's first dna-pre / rna-pre
+    batch on the card, length bonus); ``sig_dir`` / ``train_dir``: phase 3's
+    and phase 4's reads; ``bench_line``: phase 6's bench line; ``row2_ms``:
+    phase 5's time of the BiLSTM kernel at H = 128. Returns the numbers and
+    the launches of the tools' runs by kernel-line name."""
+    import contextlib
+    import io
+
+    from chiron_tpu_torch import cli
+    from chiron_tpu_torch import config as C
+    from chiron_tpu_torch.eval import pipeline
+    from chiron_tpu_torch.models.model import init_model, model_ratio
+    from chiron_tpu_torch.ops import bilstm, lstm_grad
+    from chiron_tpu_torch.ops.ctc_loss import ctc_focal_loss
+    from chiron_tpu_torch.params import from_jax_params
+    from chiron_tpu_torch.tools import grid_search, mfu, net2wide
+    from chiron_tpu_torch.tools import make_bundled_models as mbm
+    from chiron_tpu_torch.tools.simulate import KmerModel, SimConfig, simulate_corpus
+    from chiron_tpu_torch.train import loop
+    from chiron_tpu_torch.train.checkpoint import restore_latest
+
+    numbers, launches = {"card": smi}, {}
+    kernel_names = {"conv_bn_float32": "conv_bn", "bilstm_float32": "bilstm",
+                    "beam_search": "beam_search", "beam_traceback": "beam_traceback",
+                    "lstm_fwd_residuals": "lstm_fwd_residuals", "lstm_bwd": "lstm_bwd"}
+
+    def counted(label, fn, want):
+        """fn() with every count set to 0 just before and read just after;
+        each count must be the expected one (0 where none is named). The
+        counts are added to the kernel line's."""
+        reset()
+        for k in lstm_grad.launches:
+            lstm_grad.launches[k] = 0
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        cnt = counts()
+        check_counts(label, cnt, {k: n for k, n in want.items() if k not in lstm_grad.launches})
+        got_t = dict(lstm_grad.launches)
+        want_t = {k: want.get(k, 0) for k in got_t}
+        if got_t != want_t:
+            fail(f"{label}: training LSTM launches {got_t}, expected {want_t}")
+        for k, n in {**cnt, **got_t}.items():
+            if n:
+                launches[kernel_names[k]] = launches.get(kernel_names[k], 0) + n
+        log(f"  {label}: {wall:.2f} s; launches {dict((k, n) for k, n in {**cnt, **got_t}.items() if n)}")
+        return out, wall
+
+    def decodes_alike(a, b):
+        return sum(bool(a[1][i] == b[1][i] and (a[0][i, :a[1][i]] == b[0][i, :b[1][i]]).all())
+                   for i in range(len(a[1])))
+
+    def step_out(model, x, sl, lb):
+        return pipeline.unpack_step_outputs(
+            pipeline.decode_step(model, x, sl, BEAM, lb).cpu().numpy())
+
+    # ---- 10a. net2wide: RNA_default 100 -> 128 and DNA_default 128 -> 256 -------
+    for name, (model, (x, sl), lb), h_new, n_conv in (("RNA_default", rna, 128, 13),
+                                                      ("DNA_default", dna, 256, 12)):
+        src = os.path.join(cli.MODEL_ROOT, name)
+        wdir = os.path.join(work, f"wide_{name}")
+        net2wide.widen_model_dir(src, wdir, h_new, noise=0.0)
+        wcfg = C.read_config(os.path.join(wdir, "model.json"))
+        wide = from_jax_params(restore_latest(wdir)[0], wcfg, device)
+        with torch.no_grad():
+            ref = model(x, sl)
+            ref_step = step_out(model, x, sl, lb)
+            wide_step, _ = counted(f"10a widened {name} decode_step (H = {h_new})",
+                                   lambda: step_out(wide, x, sl, lb),
+                                   {"conv_bn_float32": n_conv, "bilstm_float32": 3,
+                                    "beam_search": 1, "beam_traceback": 1})
+            gap = float((wide(x, sl) - ref).abs().max()) / float(ref.abs().max())
+            noisy_tree = net2wide.widen_params(restore_latest(src)[0],
+                                               int(model.config["rnn"]["hidden_num"]), h_new)
+            noisy = from_jax_params(noisy_tree, wcfg, device)
+            noisy_gap = float((noisy(x, sl) - ref).abs().max()) / float(ref.abs().max())
+        same = decodes_alike(wide_step, ref_step)
+        bsz = x.shape[0]
+        log(f"  10a {name} widened to H = {h_new} (noise 0): logits {gap:.3e} of max |logit| "
+            f"from the original's on the card (must be <= 1e-4), {same}/{bsz} decodes "
+            f"identical (must be >= 99%); at the default noise 1e-2 the gap is "
+            f"{noisy_gap:.3e} of max |logit|")
+        if not (gap <= 1e-4 and same >= 0.99 * bsz):
+            fail(f"10a: the widened {name} does not compute the original's function")
+        numbers[f"net2wide_{name}"] = {"hidden": h_new, "logit_gap": gap,
+                                       "identical_decodes": same, "windows": bsz,
+                                       "logit_gap_noise_1e-2": noisy_gap}
+    # the resident BiLSTM instance at H = 256 and a full dna-pre batch (the
+    # widened DNA_default's layers), beside row 2 at H = 128
+    t_len, h = SEG, 256
+    gen = torch.Generator().manual_seed(SEED)
+    ws = (6 / (5 * h)) ** 0.5 / 2
+    full = torch.full((BATCH,), t_len, dtype=torch.int32, device=device)
+    args256 = (torch.randn(t_len, BATCH, 4 * h, generator=gen).to(device),
+               torch.randn(t_len, BATCH, 4 * h, generator=gen).to(device),
+               (torch.randn(h, 4 * h, generator=gen) * ws).to(device),
+               (torch.randn(h, 4 * h, generator=gen) * ws).to(device), full,
+               torch.zeros(BATCH, dtype=torch.int32, device=device))
+    lstm_lib = torch.nn.LSTM(256, h, bidirectional=True).to(device)
+    x_lib = torch.randn(t_len, BATCH, 256, generator=gen).to(device)
+    with torch.no_grad():
+        ms256 = time_ms(torch, lambda: bilstm.bilstm_layer(*args256), 5)
+        plain256 = time_ms(torch, lambda: bilstm.bilstm_layer_plain(*args256), 2, 1)
+        lib256 = time_ms(torch, lambda: lstm_lib(x_lib), 5)
+    b256, by256 = recurrent_bound("lstm", t_len * BATCH, t_len, BATCH, h, dirs=2)
+    cl, rows, smem = lstm_grad.cluster_geometry(
+        "infer", BATCH, h, 2, torch.cuda.get_device_properties(0).multi_processor_count)
+    log(f"  10a bilstm at H = 256, T = B = {BATCH} (cluster {cl}, rows {rows}, shared bytes "
+        f"{smem}): {ms256:.3f} ms (bound {b256:.3f} by {by256}, plain {plain256:.3f}, "
+        f"nn.LSTM bidirectional {lib256:.3f}); row 2 at H = 128: {row2_ms:.3f} ms")
+    if ms256 < b256:
+        fail(f"10a: bilstm at H = 256 reads {ms256:.4f} ms, below its bound {b256:.4f} ms")
+    numbers["bilstm_h256_ms"] = {"ms": ms256, "plain_ms": plain256, "library_ms": lib256,
+                                 "bound_ms": b256, "bound_by": by256, "row2_h128_ms": row2_ms,
+                                 "cluster": cl, "rows": rows}
+
+    # ---- 10b. the recipe: corpus, _train dna at 400 x 400, finetune, install -----
+    rwork = os.path.join(out_dir, "model_tools")
+    shutil.rmtree(rwork, ignore_errors=True)
+    os.makedirs(rwork)
+    # the bundled table seeds the work directory: the recipe's rule that an
+    # existing dna_pore_model.tsv skips the EM estimate
+    shutil.copy2(os.path.join(cli.MODEL_ROOT, "DNA_default", "pore_model.tsv"),
+                 os.path.join(rwork, "dna_pore_model.tsv"))
+    t = time.time()
+    dna_km = KmerModel.load(os.path.join(rwork, "dna_pore_model.tsv"))
+    for i, (kw, seed) in enumerate(zip(mbm.DNA_VARIANTS, mbm.DNA_SEEDS)):
+        kw = {k: v for k, v in kw.items() if k != "n_reads"}
+        simulate_corpus(os.path.join(rwork, "train_dna", f"v{i}"), RECIPE_READS, 4000,
+                        seed=seed, model=dna_km, cfg=SimConfig(**kw))
+    simulate_corpus(os.path.join(rwork, "valid_dna"), RECIPE_READS, 4000,
+                    seed=mbm.DNA_VALID_SEED, model=dna_km, cfg=SimConfig())
+    log(f"  10b DNA corpus: {len(mbm.DNA_VARIANTS)} variants x {RECIPE_READS} reads of 4,000 "
+        f"bases, {RECIPE_READS} validation reads, in {time.time() - t:.1f} s")
+
+    def train_counts(steps, validations, n_conv=12):
+        return {"lstm_fwd_residuals": 6 * steps, "lstm_bwd": 6 * steps,
+                "conv_bn_float32": n_conv * validations, "bilstm_float32": 3 * validations}
+
+    def rate(result, batch):
+        """s/step and windows/s over the run's last metrics interval. The
+        trainer writes the interval's seconds / save_every (10: the recipe
+        sets none), also for a shorter interval."""
+        with open(os.path.join(result["model_dir"], "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        steps = rows[-1]["step"] - (rows[-2]["step"] if len(rows) > 1 else 0)
+        sps = rows[-1]["seconds_per_step"] * 10 / steps
+        return {"losses": result["losses"], "seconds_per_step": sps,
+                "windows_per_s": batch / sps, "interval_steps": steps}
+
+    recipe = {}
+    result, wall = counted(f"10b _train dna ({RECIPE_DNA_STEPS} steps, 400 x 400)",
+                           lambda: mbm._train(rwork, "dna", RECIPE_DNA_STEPS, device=device),
+                           train_counts(RECIPE_DNA_STEPS, -(-RECIPE_DNA_STEPS // 10)))
+    recipe["train_dna"] = {**rate(result, 400), "wall_seconds": wall}
+    if not np.all(np.isfinite(result["losses"])):
+        fail(f"10b: _train dna losses {result['losses']}")
+    # the first step's loss on CPU_STEP_BATCH windows, card vs CPU (its weights:
+    # the trainer's seed-0 init; the windows: a batch of the run's cache)
+    dcfg = C.read_config(os.path.join(result["model_dir"], "model.json"))
+    init_tree = init_model(torch.Generator().manual_seed(0), dcfg)
+    data = loop.load_dataset(os.path.join(rwork, "train_dna"), SEG, sig_norm=1,
+                             cache_dir=os.path.join(rwork, "cache_train_dna"))
+    first = data.next_batch(CPU_STEP_BATCH, shuffle=False)
+    if hasattr(data, "close"):
+        data.close()
+
+    def first_loss(dev):
+        m = from_jax_params(init_tree, dcfg, dev)
+        b = loop.batch_to_device(first, model_ratio(dcfg, SEG), torch.device(dev))
+        with torch.no_grad():
+            return float(ctc_focal_loss(m(b["signal"], b["seq_len"], training=True),
+                                        b["seq_len"], b["label"], b["label_len"],
+                                        float(dcfg["fl_gamma"])))
+
+    loss_g, loss_c = first_loss(device), first_loss("cpu")
+    rel = abs(loss_g - loss_c) / abs(loss_c)
+    log(f"  10b first step's loss on {CPU_STEP_BATCH} windows: card {loss_g:.6f}, CPU "
+        f"{loss_c:.6f}, relative {rel:.3e} (must be <= 1e-4)")
+    if not rel <= 1e-4:
+        fail("10b: the recipe's first-step loss on the card disagrees with the CPU")
+    recipe["first_step_loss"] = {"card": loss_g, "cpu": loss_c, "relative": rel}
+    # the scratch run's directory is the one stage_finetune seeds: keep it apart
+    os.replace(os.path.join(rwork, "models", "DNA_retrain"),
+               os.path.join(rwork, "models", "DNA_scratch"))
+    result, wall = counted(f"10b stage_finetune dna ({RECIPE_FINETUNE_STEPS} steps)",
+                           lambda: mbm.stage_finetune(rwork, "dna", RECIPE_FINETUNE_STEPS,
+                                                      device=device),
+                           train_counts(RECIPE_FINETUNE_STEPS, -(-RECIPE_FINETUNE_STEPS // 10)))
+    recipe["finetune_dna"] = {**rate(result, 400), "wall_seconds": wall}
+    # RNA: the synthetic k-mer model at the recipe's base settings and each variant
+    t = time.time()
+    rna_km = KmerModel.synthetic()
+    for i, (kw, seed) in enumerate(zip(mbm.RNA_VARIANTS, mbm.RNA_SEEDS)):
+        simulate_corpus(os.path.join(rwork, "train_rna", f"v{i}"), RECIPE_READS, 2500,
+                        seed=seed, model=rna_km, cfg=SimConfig(**{**mbm._RNA_BASE, **kw}))
+    simulate_corpus(os.path.join(rwork, "valid_rna"), RECIPE_READS, 2500,
+                    seed=mbm.RNA_VALID_SEED, model=rna_km, cfg=SimConfig(**mbm._RNA_BASE))
+    log(f"  10b RNA corpus: {len(mbm.RNA_VARIANTS)} variants x {RECIPE_READS} reads of 2,500 "
+        f"bases in {time.time() - t:.1f} s")
+    result, wall = counted(f"10b _train rna ({RECIPE_RNA_STEPS} steps, 2000 x 100, H = 100)",
+                           lambda: mbm._train(rwork, "rna", RECIPE_RNA_STEPS, device=device),
+                           train_counts(RECIPE_RNA_STEPS, 1, n_conv=13))
+    recipe["train_rna"] = {**rate(result, 100), "wall_seconds": wall}
+    if not np.all(np.isfinite(result["losses"])):
+        fail(f"10b: _train rna losses {result['losses']}")
+    installed = os.path.join(rwork, "installed")
+    for name in ("DNA_default", "RNA_default"):
+        os.makedirs(os.path.join(installed, name))
+    mbm.stage_install(rwork, model_root=installed)
+    inst = os.path.join(installed, "DNA_default")
+    if sorted(os.listdir(inst)) != ["checkpoint", f"ema-{RECIPE_FINETUNE_STEPS}.npz",
+                                    f"final-{RECIPE_FINETUNE_STEPS}.npz", "model.json",
+                                    "pore_model.tsv"]:
+        fail(f"10b: stage_install wrote {sorted(os.listdir(inst))}")
+    n_reads = len(os.listdir(sig_dir))
+    n_windows = n_reads * (-(-(40 * JUMP + 10) // JUMP))
+    n_batches = -(-n_windows // BATCH)
+    res, _ = counted("10b call -p dna-pre --beam 30 with the installed DNA_default",
+                     lambda: cli.main(["call", "-i", sig_dir, "-o", os.path.join(work, "out_10b"),
+                                       "-p", "dna-pre", "-m", inst, "--sig_norm", "1",
+                                       "--beam", str(BEAM), "--device", device]),
+                     {"conv_bn_float32": 12 * n_batches, "bilstm_float32": 3 * n_batches,
+                      "beam_search": n_batches, "beam_traceback": n_batches})
+    if res["n_files"] != n_reads or res["total_windows"] != n_windows \
+            or len(os.listdir(os.path.join(work, "out_10b", "result"))) != n_reads:
+        fail(f"10b: the installed model's call gave {res}")
+    # _read_logits of one read, card vs CPU: gated with the bundled DNA_default
+    # (stage_realdata's align model; fixed weights, so a fixed gap on a given
+    # card), printed with the installed model, whose weights the card's
+    # training steps made in this run
+    read = np.loadtxt(os.path.join(sig_dir, sorted(os.listdir(sig_dir))[0]), dtype=np.float32)
+    lp_errs = {}
+    for tag, mdir in (("bundled DNA_default", os.path.join(cli.MODEL_ROOT, "DNA_default")),
+                      ("installed DNA_default", inst)):
+        mcfg, mtree = C.read_config(os.path.join(mdir, "model.json")), restore_latest(mdir)[0]
+        lp_g = mbm._read_logits(mtree, mcfg, read, device=device)
+        lp_c = mbm._read_logits(mtree, mcfg, read, device="cpu")
+        if lp_g.shape != (len(read), 5):
+            fail(f"10b: _read_logits gave {lp_g.shape} for a {len(read)}-sample read")
+        lp_errs[tag] = float(np.abs(lp_g - lp_c).max()) / float(np.abs(lp_c).max())
+    log(f"  10b _read_logits of a {len(read)}-sample read, card vs CPU, relative to max "
+        f"|log-prob|: {json.dumps(lp_errs)} (the bundled model's must be <= 1e-4)")
+    if not lp_errs["bundled DNA_default"] <= 1e-4:
+        fail("10b: _read_logits on the card disagrees with the CPU")
+    recipe["read_logits_error"] = lp_errs
+    for k in ("train_dna", "finetune_dna", "train_rna"):
+        log(f"  10b {k}: {json.dumps(recipe[k])}")
+    numbers["recipe"] = recipe
+
+    # ---- 10c. grid_search over DEFAULT_GRID on phase 4's reads -----------------
+    gdir = os.path.join(rwork, "grid")
+    n_cand = len(grid_search.generate_configs())
+    results, wall = counted(f"10c grid_search ({n_cand} candidates x {GRID_STEPS} steps, "
+                            "64 x 300)",
+                            lambda: grid_search.search(train_dir, gdir, max_steps=GRID_STEPS,
+                                                       device=device),
+                            train_counts(n_cand * GRID_STEPS, 0))
+    bad = [r for r in results if "error" in r or not np.isfinite(r["final_loss"])]
+    if bad or len(results) != n_cand or not os.path.exists(os.path.join(gdir, "ranking.json")):
+        fail(f"10c: grid_search candidates failed: {bad}")
+    grid = {}
+    for r in sorted(results, key=lambda r: r["index"]):
+        with open(os.path.join(gdir, "runs", f"cand_{r['index']:03d}", "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        with open(r["config"]) as f:
+            cfg = json.load(f)
+        grid[f"cand_{r['index']:03d}"] = {
+            "hu": cfg["cnn"]["hu"][0], "kw": cfg["cnn"]["kw"], "st": cfg["cnn"]["st"],
+            "rnn_hidden": cfg["rnn"]["hidden_num"], "final_loss": r["final_loss"],
+            "seconds_per_step": rows[-1]["seconds_per_step"]}
+    log(f"  10c s/step a candidate (the last {GRID_STEPS // 2} steps): " + json.dumps(
+        {k: round(v["seconds_per_step"], 4) for k, v in grid.items()}))
+    numbers["grid_search"] = {"seconds": wall, "candidates": grid}
+
+    # ---- 10d. mfu: the analytic count and the share of the bf16 peak -----------
+    # the tool's entry point at phase 6's device rates, beside each count's terms
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        mfu.main(["--samples_per_s_fast", str(bench_line["device_samples_per_second_batch2000"]),
+                  "--samples_per_s_slow",
+                  str(bench_line["device_samples_per_second_slow_batch400"]), "--device", device])
+    counts_mfu = {}
+    for line in printed.getvalue().splitlines():
+        row = json.loads(line)
+        cfg = C.read_config(os.path.join(cli.MODEL_ROOT, row["model"], "model.json"))
+        row["terms_per_sample"] = {k: v / row["window"]
+                                   for k, v in mfu.flop_terms(cfg, row["window"]).items()}
+        name = row.pop("model")
+        counts_mfu[name] = row
+        log(f"  10d {name}: " + json.dumps(row))
+    if any("share_of_bf16_peak" not in counts_mfu[m] or counts_mfu[m]["card"] != smi
+           for m in ("DNA_default", "DNA_slow")):
+        fail(f"10d: mfu printed no share beside the card for a device axis: {counts_mfu}")
+    numbers["mfu"] = counts_mfu
+    # what comes back through --out stays small: the corpora, caches and
+    # checkpoints go, the configs, metrics and ranking stay
+    for root, dirs, names in os.walk(rwork, topdown=False):
+        for n in names:
+            if not n.endswith((".json", ".jsonl")):
+                os.remove(os.path.join(root, n))
+    return numbers, launches
 
 
 def main(out_dir=OUT_DIR):
@@ -3114,6 +3449,19 @@ def main(out_dir=OUT_DIR):
                       steps["float32"]["step_g"], train_dir, reset, counts, check_counts, smi)
     log(json.dumps({"multi_gpu": multi}))
     log(f"phase 9 took {time.time() - t9:.1f} s")
+
+    # ---- 10. the model tools: net2wide, the recipe, grid_search, mfu ------------
+    phase("10. model tools")
+    t10 = time.time()
+    rna_gpu, rna_batch, rna_lb = model_steps["RNA_default"]
+    tools, tool_launches = model_tools(
+        torch, work, out_dir, sig_dir, train_dir, (gpu_model, (xg, slg), lb),
+        (rna_gpu, rna_batch["float32"][:2], rna_lb), reset, counts, check_counts, smi,
+        bench_line, timing["bilstm"][0])
+    for k in kernels:  # the kernel line's counts take in the tools' runs
+        k["launches"] += tool_launches.get(k["name"], 0)
+    log(json.dumps({"model_tools": tools, "model_tools_launches": tool_launches}))
+    log(f"phase 10 took {time.time() - t10:.1f} s")
     shutil.rmtree(work, ignore_errors=True)
     log(json.dumps({**{f"call_{k}": r for k, r in call_rates.items()},
                     "train_s400_b300": train_rate,

@@ -36,6 +36,12 @@ _DECLARE: Dict[str, Callable[[ctypes.CDLL], None]] = {}
 _LOCK = threading.Lock()
 
 
+class KernelError(RuntimeError):
+    """A kernel library that does not build or load, or a launch that
+    returned a CUDA error: a fault of the card or the kernels, never of the
+    model a caller asked for."""
+
+
 def register(name: str, declare: Callable[[ctypes.CDLL], None]) -> None:
     """Record how to set argtypes/restype of ``lib<name>.so`` once loaded."""
     _DECLARE[name] = declare
@@ -49,7 +55,7 @@ def nvcc_path() -> str:
     for c in cand:
         if os.path.exists(c):
             return c
-    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    raise KernelError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
 def _paths(name: str):
@@ -82,7 +88,7 @@ def _finish_build(name: str, started) -> None:
     rc = proc.wait()
     if rc != 0:
         with open(_paths(name)[2]) as f:
-            raise RuntimeError(f"nvcc failed for {name} (rc {rc}):\n{f.read()}")
+            raise KernelError(f"nvcc failed for {name} (rc {rc}):\n{f.read()}")
     os.replace(tmp, _paths(name)[1])
 
 
@@ -118,7 +124,10 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _LIBS:
             if _stale(name):
                 _finish_build(name, _start_build(name))
-            lib = ctypes.CDLL(_paths(name)[1])
+            try:
+                lib = ctypes.CDLL(_paths(name)[1])
+            except OSError as e:
+                raise KernelError(f"cannot load the {name} kernels: {e}") from e
             _DECLARE[name](lib)
             _LIBS[name] = lib
         return _LIBS[name]
@@ -135,4 +144,4 @@ def on_device(dev: torch.device):
 def check(rc: int, what: str) -> None:
     """Raise when a launch returned a CUDA error code."""
     if rc != 0:
-        raise RuntimeError(f"CUDA launch of {what} failed: cudaError {rc}")
+        raise KernelError(f"CUDA launch of {what} failed: cudaError {rc}")
