@@ -157,7 +157,24 @@ Phases (any failure exits non-zero and prints no result line):
      finite, each candidate's s/step; the analytic FLOPs a sample of the
      three bundled models and the share of the bf16 peak at phase 6's device
      samples/s, beside the card's name and power limit;
- 11. print the per-kernel JSON line, then {"ok": true, "device": ...}.
+ 11. the last modules, each run counted and added to the kernel line's counts:
+     11a `ops/ctc_mc.mc_decode` at S = 300 on phase 3's first dna-pre batch's
+     logits, twice with one seed (identical), its sampled class frequencies
+     within 5 binomial SD of the softmax, its mode strings equal to the CPU's
+     wherever the CPU's top path holds >= 60% of the samples, its agreement
+     with phase 3's beam-30 decode, device and host ms; 11b `section_decoding`
+     on the same logits (frames past each window's length set to blank), gated
+     the same way section by section; 11c the attention decoder (hidden 128,
+     64 steps, seeded weights carried across by `params.attention_from_jax`)
+     over DNA_default's encoder features of that batch: greedy tokens card vs
+     CPU on >= 99% of the windows, teacher-forced logits 1e-4 of max |logit|,
+     loss 1e-5, gradients 1e-4 of each leaf's max, device ms; 11d the native
+     host library built with g++ (fails otherwise), phase 3's reads parsed and
+     glued natively and on the numpy paths (equal, host ms a read), and one
+     `call -p dna-pre` on the numpy paths whose fastq equals phase 3's; 11e the
+     fast5 tools are not run (no h5py on the card's machine: the CPU tests hold
+     them);
+ 12. print the per-kernel JSON line, then {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -1226,6 +1243,278 @@ def model_tools(torch, work, out_dir, sig_dir, train_dir, dna, rna, reset, count
         for n in names:
             if not n.endswith((".json", ".jsonl")):
                 os.remove(os.path.join(root, n))
+    return numbers, launches
+
+
+def last_modules(torch, work, sig_dir, gpu_model, batch, phase3_step, reset, counts,
+                 check_counts, smi):
+    """Phase 11: the last modules of the port on the card. ``batch``: phase
+    3's first dna-pre batch (x, seq_len) on the card; ``phase3_step``: its
+    beam-30 step outputs (tokens, lengths, ...); ``sig_dir``: phase 3's reads,
+    whose beam-30 call wrote <work>/out_beam30. Returns the numbers and the
+    launches of the phase's runs by kernel-line name."""
+    import importlib.util
+
+    from chiron_tpu_torch import cli
+    from chiron_tpu_torch.eval import pipeline
+    from chiron_tpu_torch.io import signal as sigio
+    from chiron_tpu_torch.models.attention import init_attention_decoder
+    from chiron_tpu_torch.ops import ctc_mc, host_build
+    from chiron_tpu_torch.params import attention_from_jax
+    from chiron_tpu_torch.train.loop import edit_distance
+
+    xg, slg = batch
+    numbers, launches = {"card": smi}, {}
+    kernel_names = {"conv_bn_float32": "conv_bn", "bilstm_float32": "bilstm",
+                    "beam_search": "beam_search", "beam_traceback": "beam_traceback"}
+    encoder_launches = {"conv_bn_float32": 12, "bilstm_float32": 3}
+    failures = []
+
+    def counted(label, fn, want):
+        """fn() with every count set to 0 just before and read just after;
+        each count must be the expected one; added to the kernel line's."""
+        reset()
+        out = fn()
+        torch.cuda.synchronize()
+        cnt = counts()
+        check_counts(label, cnt, want)
+        for k, n in cnt.items():
+            if n:
+                launches[kernel_names[k]] = launches.get(kernel_names[k], 0) + n
+        log(f"  {label}: launches {dict((k, n) for k, n in cnt.items() if n)}")
+        return out
+
+    def hold(name, value, limit, sense="<="):
+        ok = value <= limit if sense == "<=" else value >= limit
+        log(f"  {name}: {value:.4g} ({sense} {limit:.4g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(name)
+
+    def host_ms(fn, reps=3):
+        fn()
+        t = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        return 1e3 * (time.perf_counter() - t) / reps, out
+
+    def top_shares(decoded, s):
+        return np.asarray([ctc_mc._mode_and_qs(decoded[:, i, :], s)[1] / s
+                           for i in range(decoded.shape[1])])
+
+    def mc_on(logits, lens, gen, s):
+        """(strings, decoded on the host, device ms, host ms) of one mc_decode."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        decoded, _ = ctc_mc._sample_and_collapse(logits, lens, gen, s)
+        end.record()
+        end.synchronize()
+        t = time.perf_counter()
+        host = decoded.cpu().numpy()
+        strings, _ = ctc_mc.modes_to_strings(host, s)
+        return strings, host, start.elapsed_time(end), 1e3 * (time.perf_counter() - t)
+
+    def cpu_mc(logits, lens, s):
+        gen = torch.Generator().manual_seed(0)
+        decoded, _ = ctc_mc._sample_and_collapse(logits.cpu(), lens.cpu(), gen, s)
+        decoded = decoded.numpy()
+        return ctc_mc.modes_to_strings(decoded, s)[0], top_shares(decoded, s)
+
+    # ---- 11a. mc_decode at S = 300 on phase 3's first batch ----------------------
+    s = 300
+    with torch.no_grad():
+        logits = counted("11a DNA_default forward (the batch's logits)",
+                         lambda: gpu_model(xg, slg), encoder_launches)
+    lens = slg.to(torch.int32)
+    runs = [mc_on(logits, lens, torch.Generator(device="cuda").manual_seed(SEED), s)
+            for _ in range(2)]
+    same_runs = runs[0][0] == runs[1][0] and np.array_equal(runs[0][1], runs[1][1])
+    log(f"  11a mc_decode twice with one seed: identical {same_runs}")
+    if not same_runs:
+        failures.append("11a mc_decode repeat")
+    paths = ctc_mc.sample_paths(logits, torch.Generator(device="cuda").manual_seed(SEED), s)
+    p = torch.softmax(logits.double(), -1).reshape(-1, logits.shape[-1])
+    freq = torch.bincount(paths.reshape(-1).long(), minlength=p.shape[1]).double()
+    z = ((freq - s * p.sum(0)).abs() / torch.sqrt(s * (p * (1 - p)).sum(0))).max().item()
+    hold("11a sampled class frequencies vs softmax (worst class, binomial SDs)", z, 5.0)
+    cpu_strings, cpu_shares = cpu_mc(logits, lens, s)
+    held = np.flatnonzero(cpu_shares >= 0.6)
+    mismatched = [int(i) for i in held if runs[0][0][i] != cpu_strings[i]]
+    log(f"  11a windows where the CPU's top path holds >= 60% of {s} samples: {len(held)} of "
+        f"{len(lens)} (largest share {cpu_shares.max():.3f}); card != CPU there: {mismatched}")
+    if mismatched:
+        failures.append("11a mode strings card vs CPU")
+    beam_strs = ["".join("ACGT"[c] for c in phase3_step[0][i, :phase3_step[1][i]])
+                 for i in range(len(lens))]
+    mc_strs = runs[0][0]
+    ident = [1 - edit_distance([ord(c) for c in a], [ord(c) for c in b]) / max(len(a), len(b), 1)
+             for a, b in zip(mc_strs, beam_strs)]
+    numbers["mc_decode"] = {
+        "windows": len(lens), "samples": s, "device_ms": runs[1][2], "host_ms": runs[1][3],
+        "held_windows_cpu": int(len(held)), "same_as_beam30": sum(
+            a == b for a, b in zip(mc_strs, beam_strs)), "identity_to_beam30": float(np.mean(
+                ident)), "mean_bases_mc": float(np.mean([len(a) for a in mc_strs])),
+        "mean_bases_beam30": float(np.mean([len(b) for b in beam_strs])), "worst_z": z}
+    log(f"  11a mc_decode: {json.dumps(numbers['mc_decode'])}")
+
+    # ---- 11b. section_decoding on the same logits --------------------------------
+    # section_decoding reads no lengths: the frames past each window's length
+    # (a read's last window is mostly padding) get the blank logit its pad
+    # frames get, or one ~390-frame section would pad every section to 390
+    past = torch.arange(logits.shape[1], device=logits.device)[None, :] >= lens[:, None]
+    blank_frame = torch.zeros(logits.shape[-1], device=logits.device)
+    blank_frame[-1] = 30.0
+    logits = torch.where(past[..., None], blank_frame, logits)
+    t = time.perf_counter()
+    sections = [ctc_mc.section_decoding(logits, generator=torch.Generator(
+        device="cuda").manual_seed(SEED), sample_n=s) for _ in range(2)]
+    sec_ms = 1e3 * (time.perf_counter() - t) / 2
+    if sections[0] != sections[1]:
+        failures.append("11b section_decoding repeat")
+    sec_batch, sec_lens, spans = ctc_mc.section_spans(logits.cpu().numpy(), 0.6)
+    sec_g = torch.from_numpy(sec_batch).cuda()
+    sec_l = torch.from_numpy(sec_lens).cuda()
+    g_strings, _, sec_dev_ms, sec_host_ms = mc_on(
+        sec_g, sec_l, torch.Generator(device="cuda").manual_seed(SEED), s)
+    c_strings, c_shares = cpu_mc(sec_g, sec_l, s)
+    sec_held = np.flatnonzero(c_shares >= 0.6)
+    sec_bad = [int(k) for k in sec_held if g_strings[k] != c_strings[k]]
+    joined = [""] * len(lens)
+    for k, (i, _, _) in enumerate(spans):
+        joined[i] += g_strings[k]
+    log(f"  11b section_decoding: {len(spans)} sections (longest {sec_batch.shape[1]} frames); "
+        f"repeat identical {sections[0] == sections[1]}; equal to the joined section "
+        f"strings {joined == sections[0]}; sections the CPU's top path holds >= 60%: "
+        f"{len(sec_held)}; card != CPU there: {sec_bad[:20]} ({len(sec_bad)})")
+    if sec_bad or joined != sections[0] or len(sec_held) < len(spans) // 2:
+        failures.append("11b sections card vs CPU")
+    numbers["section_decoding"] = {
+        "sections": len(spans), "longest": int(sec_batch.shape[1]), "wall_ms": sec_ms,
+        "mc_device_ms": sec_dev_ms, "mc_host_ms": sec_host_ms, "held_sections": int(len(
+            sec_held)), "same_as_beam30": sum(a == b for a, b in zip(sections[0], beam_strs))}
+    log(f"  11b section_decoding: {json.dumps(numbers['section_decoding'])}")
+
+    # ---- 11c. the attention decoder over DNA_default's encoder features ------------
+    hidden, steps = 128, 64
+    with torch.no_grad():
+        enc = counted("11c DNA_default encoder (the features that feed the head)",
+                      lambda: gpu_model.encode(xg, slg), encoder_launches)
+    tree = {k: v.numpy() for k, v in init_attention_decoder(
+        torch.Generator().manual_seed(SEED), enc.shape[-1], hidden).items()}
+    dec_g, dec_c = attention_from_jax(tree, "cuda"), attention_from_jax(tree, "cpu")
+    enc_c, lens_c = enc.cpu(), slg.cpu()
+    with torch.no_grad():
+        tok_g, lg_g = dec_g.decode(enc, slg, steps)
+        tok_c, lg_c = dec_c.decode(enc_c, lens_c, steps)
+        decode_ms = time_ms(torch, lambda: dec_g.decode(enc, slg, steps), 3, warm=1)
+    same_tok = float((tok_g.cpu() == tok_c).all(1).float().mean())
+    hold("11c greedy tokens card vs CPU (share of windows all equal)", same_tok, 0.99, ">=")
+    tgt = torch.full((len(lens), steps), -1, dtype=torch.int64)
+    for i in range(len(lens)):
+        n = min(int(phase3_step[1][i]), steps)
+        tgt[i, :n] = torch.from_numpy(phase3_step[0][i, :n].astype(np.int64))
+    tlen = (tgt >= 0).sum(1)
+
+    def forced(dec, e, ln, dev):
+        dec.requires_grad_(True)
+        for prm in dec.parameters():
+            prm.grad = None
+        tf_logits = dec.teacher_forced_logits(e, ln, tgt.to(dev))
+        loss = dec.loss(e, ln, tgt.to(dev), tlen.to(dev))
+        loss.backward()
+        return (tf_logits.detach().cpu(), float(loss.detach()),
+                {k: prm.grad.cpu() for k, prm in dec.flat.items()})
+
+    lg_tf_g, loss_g, grads_g = forced(dec_g, enc, slg, "cuda")
+    lg_tf_c, loss_c, grads_c = forced(dec_c, enc_c, lens_c, "cpu")
+    hold("11c teacher-forced logits card vs CPU (/ max |logit|)",
+         float((lg_tf_g - lg_tf_c).abs().max()) / float(lg_tf_c.abs().max()), 1e-4)
+    hold("11c teacher-forced loss card vs CPU (relative)", abs(loss_g - loss_c) / abs(loss_c),
+         1e-5)
+    hold("11c gradients card vs CPU (worst leaf, / its max)",
+         max(float((grads_g[k] - g).abs().max()) / float(g.abs().max()) for k, g in
+             grads_c.items()), 1e-4)
+    loss_ms = time_ms(torch, lambda: forced(dec_g, enc, slg, "cuda"), 3, warm=1)
+    numbers["attention"] = {"windows": len(lens), "frames": int(enc.shape[1]),
+                            "enc_dim": int(enc.shape[-1]), "hidden": hidden, "steps": steps,
+                            "decode_ms": decode_ms, "loss_backward_ms": loss_ms,
+                            "same_tokens": same_tok, "loss": loss_c,
+                            "max_logit_decode_gap": float((lg_g.cpu() - lg_c).abs().max())}
+    log(f"  11c attention: {json.dumps(numbers['attention'])}")
+
+    # ---- 11d. the native host library: parse and glue against the numpy paths -------
+    try:
+        lib_path = host_build.build()
+    except host_build.NativeBuildError as e:
+        fail(f"11d: the native host library does not build: {e}")
+    if not host_build.native_available():
+        fail("11d: the native host library does not load")
+    log(f"  11d native host library built with g++ -> {lib_path}")
+    files = sorted(f for f in os.listdir(sig_dir) if f.endswith(".signal"))
+    parse = {"native": 0.0, "numpy": 0.0}
+    for f in files:
+        with open(os.path.join(sig_dir, f), "rb") as fh:
+            raw = fh.read()
+        ms, native = host_ms(lambda: sigio.parse_signal_text(raw))
+        parse["native"] += ms
+        with host_build.numpy_paths():
+            ms, plain = host_ms(lambda: sigio.parse_signal_text(raw))
+        parse["numpy"] += ms
+        if native.tobytes() != plain.tobytes():
+            fail(f"11d: {f} parses differently native vs numpy")
+    recorded = []
+    assemble = pipeline.simple_assembly_qs
+
+    def recording(*args, **kw):
+        recorded.append((args, kw))
+        return assemble(*args, **kw)
+
+    out_numpy = os.path.join(work, "out_beam30_numpy_paths")
+    n_batches = -(-sum(len(range(0, sigio.read_signal(os.path.join(sig_dir, f)).size, JUMP))
+                       for f in files) // BATCH)
+    pipeline.simple_assembly_qs = recording
+    try:
+        with host_build.numpy_paths():
+            counted("11d call -p dna-pre --beam 30 on the numpy paths", lambda: cli.main(
+                ["call", "-i", sig_dir, "-o", out_numpy, "-p", "dna-pre", "--mode", "dna",
+                 "--sig_norm", "1", "--beam", str(BEAM), "--device", "cuda"]),
+                {"conv_bn_float32": 12 * n_batches, "bilstm_float32": 3 * n_batches,
+                 "beam_search": n_batches, "beam_traceback": n_batches})
+    finally:
+        pipeline.simple_assembly_qs = assemble
+    for sub in ("result", "segments"):
+        native_dir, numpy_dir = (os.path.join(work, "out_beam30", sub),
+                                 os.path.join(out_numpy, sub))
+        for f in sorted(os.listdir(native_dir)):
+            with open(os.path.join(native_dir, f), "rb") as a, \
+                    open(os.path.join(numpy_dir, f), "rb") as b:
+                if a.read() != b.read():
+                    fail(f"11d: {sub}/{f} differs between phase 3's call (native host code) "
+                         "and the call on the numpy paths")
+    glue = {"native": 0.0, "numpy": 0.0}
+    for args, kw in recorded:
+        ms, native = host_ms(lambda: assemble(*args, **kw))
+        glue["native"] += ms
+        with host_build.numpy_paths():
+            ms, plain = host_ms(lambda: assemble(*args, **kw))
+        glue["numpy"] += ms
+        if any(a.tobytes() != b.tobytes() for a, b in zip(native, plain)):
+            fail("11d: the glue assembler's counts differ native vs numpy")
+    numbers["native"] = {
+        "reads": len(files), "assembled_reads": len(recorded),
+        "parse_ms_per_read": {k: v / len(files) for k, v in parse.items()},
+        "glue_ms_per_read": {k: v / max(len(recorded), 1) for k, v in glue.items()},
+        "fastq_equal_to_phase3": True}
+    log(f"  11d native host code: {json.dumps(numbers['native'])}")
+
+    # ---- 11e. the fast5 tools -------------------------------------------------------
+    log("  11e: chiron export, tools/file_batch, tools/labeler, tools/regen_goldens and the "
+        "fast5 half of io/labels run on the host and read fast5 with h5py "
+        f"(h5py here: {importlib.util.find_spec('h5py') is not None}); "
+        "tests/test_torch_fast5_export.py and tests/test_torch_regen_goldens.py hold them "
+        "to the JAX package on the CPU, and phase 8 trains from the .bin / TFRecord / "
+        ".signal sources they write")
+    if failures:
+        fail(f"phase 11: {failures}")
     return numbers, launches
 
 
@@ -3462,6 +3751,17 @@ def main(out_dir=OUT_DIR):
         k["launches"] += tool_launches.get(k["name"], 0)
     log(json.dumps({"model_tools": tools, "model_tools_launches": tool_launches}))
     log(f"phase 10 took {time.time() - t10:.1f} s")
+
+    # ---- 11. the last modules: mc / section / attention decoders, native host code --
+    phase("11. the last modules")
+    t11 = time.time()
+    last, last_launches = last_modules(torch, work, sig_dir, gpu_model, (xg, slg),
+                                       steps["float32"]["step_g"], reset, counts,
+                                       check_counts, smi)
+    for k in kernels:  # the kernel line's counts take in phase 11's runs
+        k["launches"] += last_launches.get(k["name"], 0)
+    log(json.dumps({"last_modules": last, "last_modules_launches": last_launches}))
+    log(f"phase 11 took {time.time() - t11:.1f} s")
     shutil.rmtree(work, ignore_errors=True)
     log(json.dumps({**{f"call_{k}": r for k, r in call_rates.items()},
                     "train_s400_b300": train_rate,

@@ -1,9 +1,11 @@
 """Overlap-consensus assembly of per-window decoded reads.
 
-A copy of ``chiron_tpu/assembly/consensus.py``'s pure-Python path (the JAX
-package's native path is documented as bit-identical to it). Re-implements
-the reference assembly kernels (chiron/utils/easy_assembler.py) with
-numpy-vectorised inner loops:
+A copy of ``chiron_tpu/assembly/consensus.py``. Re-implements the
+reference assembly kernels (chiron/utils/easy_assembler.py) with
+numpy-vectorised inner loops, and runs the native host library's copies of
+them (``native/assembly.cc``, built by ``ops/host_build.py``) where it
+builds: one pass over all windows for glue / stick, the DP of ``global``
+and the matching blocks of ``simple``. The two paths give the same counts:
 
 * ``glue``  — suffix/prefix overlap scoring for jump ≈ segment_len
   (easy_assembler.py:276-294). This is the default at the standard presets
@@ -23,11 +25,14 @@ to simple_assembly / simple_assembly_qs (easy_assembler.py:302-335,393-432).
 
 from __future__ import annotations
 
+import ctypes
 import difflib
 import math
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+from chiron_tpu_torch.ops import host_build
 
 _BASE_INDEX = {"A": 0, "C": 1, "G": 2, "T": 3, "a": 0, "c": 1, "g": 2, "t": 3}
 _BASES = "ACGT"
@@ -74,7 +79,20 @@ def stick_kernel(bpread: str, prev_bpread: str) -> int:
 
 
 def _matching_blocks(a: str, b: str):
-    """difflib.SequenceMatcher(a, b).get_matching_blocks()."""
+    """difflib.SequenceMatcher(a, b).get_matching_blocks() semantics.
+
+    Short pairs (the per-window case) run in the native kernel
+    (``chiron_simple_blocks``); len(b) >= 200 defers to difflib itself,
+    whose autojunk heuristic changes block selection there.
+    """
+    if len(b) < 200 and len(a) < (1 << 20):
+        lib = host_build.load()
+        if lib is not None:
+            cap = min(len(a), len(b)) + 2
+            out = np.empty((cap, 3), np.int64)
+            cnt = lib.chiron_simple_blocks(a.encode(), len(a), b.encode(), len(b), out, cap)
+            if cnt > 0:
+                return [tuple(row) for row in out[:cnt]]
     return difflib.SequenceMatcher(a=a, b=b).get_matching_blocks()
 
 
@@ -196,8 +214,20 @@ def _match_blocks(align_a: str, align_b: str):
     return blocks
 
 
+_INT64_MIN = -(1 << 63)
+
+
 def global_kernel(bpread: str, prev_bpread: str) -> int:
     """Displacement from the longest gap-free block of a global alignment."""
+    if len(bpread) * len(prev_bpread) < (1 << 22):
+        # native DP (chiron_global_disp), cell for cell the numpy path's
+        lib = host_build.load()
+        if lib is not None:
+            disp = lib.chiron_global_disp(prev_bpread.encode(), len(prev_bpread),
+                                          bpread.encode(), len(bpread))
+            if disp == _INT64_MIN:
+                raise ValueError("Alignment not found")
+            return disp
     align_prev, align_cur = _nw_align(prev_bpread, bpread)
     blocks = _match_blocks(align_prev, align_cur)
     if not blocks:
@@ -232,6 +262,33 @@ def _encode(segment: str, alphabet: str = _BASES) -> np.ndarray:
     return out
 
 
+def _native_assembly(bpreads, qs_vals, kernel):
+    """One native pass over all windows (glue / stick kernels only,
+    ``chiron_assemble_glue``): (consensus, consensus_qs), or None where the
+    native library does not run. Bit-identical to the numpy loop (same
+    scoring, same float64 accumulation order)."""
+    lib = host_build.load()
+    if lib is None:
+        return None
+    blob = "".join(bpreads).encode()
+    offsets = np.zeros(len(bpreads) + 1, np.int64)
+    np.cumsum([len(b) for b in bpreads], out=offsets[1:])
+    qs_ptr = None
+    if qs_vals is not None:
+        qs_arr = np.ascontiguousarray(qs_vals, np.float32)
+        qs_ptr = qs_arr.ctypes.data_as(ctypes.c_void_p)
+    cap = int(offsets[-1]) + 1
+    while True:
+        consensus = np.zeros((4, cap))
+        consensus_qs = np.zeros((4, cap))
+        n = lib.chiron_assemble_glue(blob, offsets, len(bpreads), qs_ptr,
+                                     1 if kernel == "stick" else 0, consensus,
+                                     consensus_qs, cap)
+        if n >= 0:
+            return consensus[:, :n], consensus_qs[:, :n]
+        cap = -int(n)
+
+
 def simple_assembly(
     bpreads: Sequence[str],
     jump_step_ratio: float,
@@ -240,6 +297,11 @@ def simple_assembly(
     alphabet: str = _BASES,
 ) -> np.ndarray:
     """Stitch window reads into a [len(alphabet), L] base-count matrix."""
+    if kernel in ("glue", "stick") and alphabet == _BASES:
+        # the native kernel is fixed at 4 rows; ACGTX takes the numpy path
+        native = _native_assembly(bpreads, None, kernel)
+        if native is not None:
+            return native[0]
     census_len = 1000
     consensus = np.zeros((len(alphabet), census_len))
     pos = 0
@@ -276,6 +338,11 @@ def simple_assembly_qs(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Same as simple_assembly, also accumulating per-base quality mass."""
     assert len(bpreads) == len(qs_list)
+    if kernel in ("glue", "stick") and alphabet == _BASES:
+        qs_vals = np.asarray([float(np.asarray(q).ravel()[0]) for q in qs_list], np.float32)
+        native = _native_assembly(bpreads, qs_vals, kernel)
+        if native is not None:
+            return native
     census_len = 1000
     consensus = np.zeros((len(alphabet), census_len))
     consensus_qs = np.zeros((len(alphabet), census_len))

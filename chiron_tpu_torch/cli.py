@@ -1,4 +1,4 @@
-"""`chiron`-compatible CLI for the PyTorch port: `call` and `train`.
+"""`chiron`-compatible CLI for the PyTorch port: `call`, `export` and `train`.
 
 Flags mirror ``chiron_tpu/cli.py`` (chiron/entry.py:62-155) plus
 ``--device`` (default cuda; a missing GPU raises instead of falling back).
@@ -8,13 +8,17 @@ folder of .signal/.label pairs, a .bin folder (``data.meta``), a TFRecord
 file (``-f``) or a window cache (``--train_cache``):
 
     python -m chiron_tpu_torch.cli call -i <in> -o <out> -p dna-pre
+    python -m chiron_tpu_torch.cli export -i <resquiggled fast5 dir> -o <out> \
+        --basecall_group Corrected_000 [-f train.tfrecords]
     python -m chiron_tpu_torch.cli train -i <train dir> -o <log dir> -m <name> \
         --configure chiron_tpu/model/DNA_default/model.json
 
 ``--n_devices k`` shards `call`'s batches over k GPUs and starts k training
 ranks. Under ``torchrun --nproc_per_node N -m chiron_tpu_torch.cli ...``
 each process joins the launcher's group: `call` basecalls its hash shard of
-the files, `train` feeds its file shard to the global-batch step.
+the files, `train` feeds its file shard to the global-batch step. `export`
+(resquiggled fast5 to .signal/.label batch folders) runs on the host and
+needs h5py.
 """
 
 from __future__ import annotations
@@ -94,6 +98,12 @@ def evaluation(args):
     return pipeline.run(args)
 
 
+def export(args):
+    from chiron_tpu_torch.tools import raw_extract
+
+    return raw_extract.run(args)
+
+
 def train(args):
     from chiron_tpu_torch.train import loop
     from chiron_tpu_torch.utils.device import resolve_device
@@ -101,6 +111,29 @@ def train(args):
     resolve_device(args.device)  # fail before loading any data
     _join_launch_group(args)
     return loop.train(args)
+
+
+def _add_export_parser(subparsers) -> None:
+    p = subparsers.add_parser("export", description="Export signal and label from the fast5 file.",
+                              help="Extract signal and label in the fast5 file.")
+    p.add_argument("-i", "--input", required=True, help="Input folder contain fast5 files.")
+    p.add_argument("-o", "--output", required=True, help="Output folder.")
+    p.add_argument("--basecall_group", default="Basecall_1D_000",
+                   help="Basecall group Nanoraw resquiggle into.")
+    p.add_argument("--basecall_subgroup", default="BaseCalled_template",
+                   help="Basecall subgroup Nanoraw resquiggle into.")
+    p.add_argument("-b", "--batch", type=int, default=4000, help="Number of files per batches.")
+    p.add_argument("--unit", dest="unit", action="store_true",
+                   help="Use the pA unit instead of the original digital signal.")
+    p.add_argument("--mode", default="dna", help="Type of data to basecall: dna or rna.")
+    p.add_argument("--min_bps", default=0, type=int,
+                   help="The minimum number of labels that has to be in each read.")
+    p.add_argument("--n_errors", default=5, type=int,
+                   help="The number of errors that are going to be recorded.")
+    p.add_argument("-f", "--tffile", default=None,
+                   help="Also bundle the extracted reads into this TFRecord file "
+                        "(reference flag entry.py:99, implemented here).")
+    p.set_defaults(func=export)
 
 
 def _add_train_parser(subparsers) -> None:
@@ -198,6 +231,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a GPU is an error.")
     p.set_defaults(func=evaluation)
+    _add_export_parser(subparsers)
     _add_train_parser(subparsers)
     return parser
 

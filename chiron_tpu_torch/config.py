@@ -62,7 +62,10 @@ PRESETS: Dict[str, Dict[str, int]] = {
     },
 }
 
-# Blank is the LAST CTC class (TF CTC convention).
+# Number of CTC classes: A, C, G, T, blank. Blank is the LAST class
+# (TF CTC convention).
+NUM_CLASSES = 5
+BLANK = 4
 BASES = "ACGT"
 # Extended alphabet for methylation calling (config "alphabet": 5).
 BASES_METH = "ACGTX"

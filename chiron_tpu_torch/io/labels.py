@@ -1,11 +1,13 @@
-"""Training-label IO: .label files and signal/label windowing.
+"""Training-label IO: fast5 corrected events, .label files, windowing.
 
-A copy of the ``.signal``/``.label`` side of ``chiron_tpu/io/labels.py``
-(reference: chiron/chiron_input.py:570-693): ``base2ind``,
-``label_from_rows``, ``read_label``, ``read_raw`` and
-``read_raw_data_sets`` with its ``file_shard``. It imports no h5py; the fast5 labelling functions
-are not ported yet. The windower emits plain numpy arrays with dense,
--1-padded labels.
+A copy of ``chiron_tpu/io/labels.py`` (reference: chiron/utils/labelop.py:
+14-187 and chiron/chiron_input.py:570-693): ``get_label_raw`` and
+``get_label_segment`` read a resquiggled fast5; ``base2ind``,
+``label_from_rows``, ``read_label``, ``read_raw`` and ``read_raw_data_sets``
+with its ``file_shard`` read ``.signal``/``.label`` pairs. ``h5py`` is
+imported inside the fast5 functions, so the module imports on machines
+without it. The windower emits plain numpy arrays with dense, -1-padded
+labels.
 """
 
 from __future__ import annotations
@@ -38,6 +40,163 @@ def base2ind(base: str, alphabet_n: int = 4) -> int:
     if ord(base) < 97:
         return upper.index(base)
     return lower.index(base)
+
+
+MAX_RAW_SAMPLES = 99_999_999
+
+_LABEL_DTYPE = np.dtype([("start", "<u4"), ("length", "<u4"), ("base", "S1")])
+
+
+def get_label_raw(fast5_fn: str, basecall_group: str,
+                  basecall_subgroup: str) -> Tuple[tuple, tuple]:
+    """Raw signal + resquiggled event labels from a corrected fast5.
+
+    Reads ``/Raw/Reads/<read>/Signal``, the channel calibration attributes,
+    and the Tombo-style corrected event table under
+    ``/Analyses/<group>/<subgroup>/Events``, shifting event starts by the
+    table's ``read_start_rel_to_raw`` offset into raw-sample coordinates.
+    Returns ((raw, labels, starts, lengths), (offset, range, digitisation))
+    with the structured label dtype of chiron/utils/labelop.py:133-187.
+    Raises IOError for an unreadable file, RuntimeError for a missing group
+    or calibration, ValueError for an over-long signal and
+    NotImplementedError for a read with fewer than 2 samples or events.
+    """
+    import h5py
+
+    try:
+        f5 = h5py.File(fast5_fn, "r")
+    except IOError:
+        raise IOError(f"{fast5_fn}: not a readable HDF5 file")
+    with f5:
+        reads = f5.get("/Raw/Reads")
+        if reads is None or not len(reads):
+            raise RuntimeError(f"{fast5_fn}: no /Raw/Reads/* group — cannot segment")
+        raw_dat = np.asarray(next(iter(reads.values()))["Signal"])
+
+        channel = f5.get("/UniqueGlobalKey/channel_id")
+        if channel is None:
+            raise RuntimeError(f"{fast5_fn}: missing channel_id calibration group")
+        try:
+            calib = tuple(float(channel.attrs[k]) for k in ("offset", "range", "digitisation"))
+        except KeyError as missing:
+            raise RuntimeError(f"{fast5_fn}: channel calibration lacks {missing}")
+
+        events = f5.get(f"/Analyses/{basecall_group}/{basecall_subgroup}/Events")
+        if events is None:
+            raise RuntimeError(
+                f"{fast5_fn}: no corrected events under Analyses/"
+                f"{basecall_group}/{basecall_subgroup}"
+            )
+        rel = int(events.attrs["read_start_rel_to_raw"])
+        events = np.asarray(events)
+
+    if raw_dat.size > MAX_RAW_SAMPLES:
+        raise ValueError(f"{fast5_fn}: signal longer than {MAX_RAW_SAMPLES} samples")
+    if raw_dat.size <= 1 or events.size <= 1:
+        raise NotImplementedError(f"{fast5_fn}: read holds <2 samples or <2 events")
+
+    event_starts = events["start"] + rel
+    event_lengths = events["length"]
+    label_data = np.empty(events.size, dtype=_LABEL_DTYPE)
+    label_data["start"] = event_starts
+    label_data["length"] = event_lengths
+    label_data["base"] = events["base"]
+    return (raw_dat, label_data, event_starts, event_lengths), calib
+
+
+def get_label_segment(fast5_fn: str, basecall_group: str, basecall_subgroup: str,
+                      corrected_group: str = "RawGenomeCorrected_000",
+                      ) -> Tuple[np.ndarray, int, int, int]:
+    """Annotate basecaller event segments with resquiggled 5-mer labels.
+
+    Each basecall event from ``Analyses/<group>/<subgroup>/Events`` (times
+    converted to samples via the channel sampling rate) is assigned to the
+    corrected event covering its start sample (one ``searchsorted``, ties to
+    the right) and annotated with the centered 5-mer, the corrected event's
+    start/length, and move=1 on the first segment of each corrected event.
+    Segments before the first / after the last full 5-mer window are
+    dropped (chiron/utils/labelop.py:14-130).
+
+    Returns (segment_data, first_index, last_index, total) with the
+    reference's structured dtype.
+    """
+    import h5py
+
+    with h5py.File(fast5_fn, "r") as f5:
+        try:
+            rate = int(f5["UniqueGlobalKey/channel_id"].attrs["sampling_rate"])
+        except Exception:
+            raise RuntimeError("Could not get channel info")
+        try:
+            raw_grp = list(f5["/Raw/Reads/"].values())[0]
+            raw_start_time = int(raw_grp.attrs["start_time"])
+        except Exception:
+            raise RuntimeError(
+                "Raw data is not stored in Raw/Reads/Read_[read#] so "
+                "new segments cannot be identified."
+            )
+        try:
+            seg = np.asarray(
+                f5["/Analyses/" + basecall_group + "/" + basecall_subgroup + "/Events"]
+            )
+        except Exception:
+            raise RuntimeError(
+                "No events or corrupted events in file. Likely a "
+                "segmentation error or mis-specified basecall-subgroups."
+            )
+        try:
+            corr = f5["/Analyses/" + corrected_group + "/" + basecall_subgroup + "/Events"]
+            corr_attrs = dict(corr.attrs.items())
+            corr = np.asarray(corr)
+        except Exception:
+            raise RuntimeError("Corrected data not found.")
+
+    total = len(seg)
+    seg_starts = (seg["start"] * rate - raw_start_time).astype(np.int64)
+    seg_lengths = np.rint(seg["length"] * rate).astype(np.int64)
+    corr_starts = (corr["start"] + int(corr_attrs["read_start_rel_to_raw"])).astype(np.int64)
+    corr_lengths = np.asarray(corr["length"], np.int64)
+    bases = np.asarray(corr["base"], "S1")
+    n_corr = len(corr_starts)
+    if n_corr < 5:
+        raise RuntimeError("Too few corrected events for 5-mer labels.")
+
+    # corrected event covering each segment's start sample
+    bins = np.searchsorted(corr_starts, seg_starts, side="right") - 1
+    # only full 5-mer windows: centers in [2, n_corr-3]
+    valid = (bins >= 2) & (bins <= n_corr - 3)
+    if not np.any(valid):
+        raise RuntimeError("No basecall segments overlap the corrected events.")
+    first_index = int(np.argmax(valid))
+    last_index = int(len(valid) - np.argmax(valid[::-1]))
+    sel = np.arange(first_index, last_index)
+    bins = bins[sel]
+
+    # centered 5-mers via five shifted byte columns
+    kmers = bases[bins - 2]
+    for off in (-1, 0, 1, 2):
+        kmers = np.char.add(kmers, bases[bins + off])
+    move = np.empty(len(bins), np.uint32)
+    move[0] = 1
+    move[1:] = (bins[1:] != bins[:-1]).astype(np.uint32)
+
+    segment_data = np.zeros(
+        len(sel),
+        dtype=[
+            ("mean", "float64"), ("stdv", "float64"), ("start", "<u4"),
+            ("length", "<u4"), ("kmer", "S5"), ("move", "<u4"),
+            ("cstart", "<u4"), ("clength", "<u4"),
+        ],
+    )
+    segment_data["mean"] = seg["mean"][sel]
+    segment_data["stdv"] = seg["stdv"][sel]
+    segment_data["start"] = seg_starts[sel]
+    segment_data["length"] = seg_lengths[sel]
+    segment_data["kmer"] = kmers
+    segment_data["move"] = move
+    segment_data["cstart"] = corr_starts[bins]
+    segment_data["clength"] = corr_lengths[bins]
+    return segment_data, first_index, last_index, total
 
 
 def label_from_rows(rows, skip_start: int = 10, window_n: int = 0) -> raw_labels:

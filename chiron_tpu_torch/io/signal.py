@@ -1,8 +1,9 @@
 """Raw-signal reading, normalization, and static-shape windowing.
 
-A copy of ``chiron_tpu/io/signal.py`` without its native text parser: the
-numpy parse path is the only one (reference: chiron/chiron_input.py:253-292,
-527-567). Emits a fixed-shape [N, seg_length] float32 matrix + length vector.
+A copy of ``chiron_tpu/io/signal.py`` (reference: chiron/chiron_input.py:
+253-292, 527-567): ``.signal`` text is parsed by the native host library
+(``native/parse.cc``, built by ``ops/host_build.py``) where it builds, else
+by numpy. Emits a fixed-shape [N, seg_length] float32 matrix + length vector.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ import os
 from typing import Tuple
 
 import numpy as np
+
+from chiron_tpu_torch.ops import host_build
 
 MEDIAN = 0
 MEAN = 1
@@ -49,7 +52,14 @@ def normalize_signal_unique(signal: np.ndarray, normalize=None) -> np.ndarray:
 
 
 def parse_signal_text(raw: bytes) -> np.ndarray:
-    """Whitespace-separated numbers -> float32 array."""
+    """Whitespace-separated numbers -> float32 array: the native parser
+    (``chiron_parse_signal``) where it builds, else numpy; both give the same
+    floats."""
+    lib = host_build.load()
+    if lib is not None and raw:
+        out = np.empty(len(raw) // 2 + 1, np.float32)
+        n = lib.chiron_parse_signal(raw, len(raw), out, len(out))
+        return out[:n].copy()
     vals = raw.split()
     return np.asarray(vals, dtype=np.float32) if vals else np.zeros(0, np.float32)
 

@@ -326,6 +326,18 @@ def apply_model(params: Params, config: Dict[str, Any], signal: torch.Tensor,
     (chiron_tpu/eval/pipeline.py:477-486): a float32 window is rounded
     first. The logits are float32 in both modes.
     """
+    fea = encode(params, config, signal, seq_len, training=training, bf16=bf16)
+    with torch.set_grad_enabled(training and torch.is_grad_enabled()):
+        if config["rnn"]["layer_num"] == 0:
+            return cnn_logit(params["cnn_logit"], fea)
+        return R.rnn_head(params["rnn"]["head"], fea)
+
+
+def encode(params: Params, config: Dict[str, Any], signal: torch.Tensor,
+           seq_len: torch.Tensor, training: bool = False, bf16: bool = False) -> torch.Tensor:
+    """The features that feed the logit head: the BiRNN stack's [B, T_out, 2H]
+    (the CNN's [B, T_out, C] for the CNN-only head). ``apply_model`` is the
+    head over these; the attention decoder reads them as its encodings."""
     _, apply_fn = _front(config)
     rnn_cfg = config["rnn"]
     bf16 = L.bf16_compute(bf16, training)
@@ -334,6 +346,6 @@ def apply_model(params: Params, config: Dict[str, Any], signal: torch.Tensor,
         fea = L.materialize(apply_fn(params["cnn"], x, config["cnn"], training=training,
                                      bf16=bf16), bf16)
         if rnn_cfg["layer_num"] == 0:
-            return cnn_logit(params["cnn_logit"], fea)
-        return R.rnn_layers(params["rnn"], fea, seq_len, rnn_cfg["cell_type"],
-                            rnn_cfg["layer_type"], training=training, bf16=bf16)
+            return fea
+        return R.birnn_stack(params["rnn"]["stack"], fea, seq_len, rnn_cfg["cell_type"],
+                             rnn_cfg["layer_type"], training=training, bf16=bf16)

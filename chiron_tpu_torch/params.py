@@ -13,6 +13,11 @@ on with ``requires_grad_(True)``.
 
 ``to_numpy_tree`` is the way back: the JAX-layout tree with numpy leaves,
 for checkpoints and for the JAX side of the tests.
+
+``attention_from_jax`` does the same for the experimental attention
+decoder's tree (``chiron_tpu/models/attention.py``: ``embed``, ``att_we``,
+``att_wh``, ``att_v``, ``gru_wx``, ``gru_wh``, ``gru_b``, ``out_w``,
+``out_b``), returning an ``AttentionDecoder``.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from chiron_tpu_torch.models.model import apply_model, model_ratio
+from chiron_tpu_torch.models import attention
+from chiron_tpu_torch.models.model import apply_model, encode, model_ratio
 from chiron_tpu_torch.utils.device import resolve_device
 
 
@@ -68,6 +74,10 @@ class Basecaller(nn.Module):
         return apply_model(self.params, self.config, signal, seq_len, training=training,
                            bf16=bf16)
 
+    def encode(self, signal: torch.Tensor, seq_len: torch.Tensor) -> torch.Tensor:
+        """The features that feed the logit head (inference mode)."""
+        return encode(self.params, self.config, signal, seq_len)
+
     def ratio(self, seg_len: int) -> float:
         return model_ratio(self.config, seg_len)
 
@@ -83,3 +93,36 @@ def from_jax_params(tree: Any, config: Dict[str, Any], device="cuda") -> Basecal
 def to_numpy_tree(model: Basecaller) -> Any:
     """The model's params as the JAX-layout tree with numpy float32 leaves."""
     return _to_numpy(model.params)
+
+
+class AttentionDecoder(nn.Module):
+    """The attention decoder's registered weights + its params tree."""
+
+    def __init__(self, params: Dict[str, Any], flat: Dict[str, nn.Parameter]):
+        super().__init__()
+        self.params = params
+        self.flat = nn.ParameterDict(flat)
+
+    def decode(self, encodings: torch.Tensor, enc_lengths: torch.Tensor, max_steps: int):
+        """Greedy decode: (tokens [B, max_steps] int32, logits [B, max_steps, C])."""
+        return attention.attention_decode(self.params, encodings, enc_lengths, max_steps)
+
+    def loss(self, encodings: torch.Tensor, enc_lengths: torch.Tensor, targets: torch.Tensor,
+             target_lengths: torch.Tensor) -> torch.Tensor:
+        """The teacher-forced cross-entropy."""
+        return attention.attention_teacher_forcing_loss(self.params, encodings, enc_lengths,
+                                                        targets, target_lengths)
+
+    def teacher_forced_logits(self, encodings: torch.Tensor, enc_lengths: torch.Tensor,
+                              targets: torch.Tensor) -> torch.Tensor:
+        """The logits [B, U, C] the loss is taken over."""
+        return attention.teacher_forced_logits(self.params, encodings, enc_lengths, targets)
+
+
+def attention_from_jax(tree: Dict[str, Any], device="cuda") -> AttentionDecoder:
+    """Build the port's attention decoder from a JAX attention params tree
+    (numpy leaves); weights frozen, as ``from_jax_params`` gives them."""
+    dev = resolve_device(device)
+    flat: Dict[str, nn.Parameter] = {}
+    params = _to_params(tree, dev, "", flat)
+    return AttentionDecoder(params, flat)

@@ -1,18 +1,17 @@
 """Signal<->sequence resquiggling (training-label generation).
 
-The port of ``chiron_tpu/tools/resquiggle.py``, numpy only: the
-framework's equivalent of the reference's vendored cwDTW_nano binary
-pipeline (chiron/chiron_label.py:255-277):
+The port of ``chiron_tpu/tools/resquiggle.py``: the framework's equivalent
+of the reference's vendored cwDTW_nano binary pipeline
+(chiron/chiron_label.py:255-277):
 
   basecalled/reference sequence --pore model--> expected signal levels
   raw signal --z-normalise--> normalised signal
   DTW align --> per-base signal intervals --> Corrected_000 events in fast5
 
-The JAX package aligns with its native coarse-to-fine banded DTW
-(chiron_tpu/native/dtw.cc) when that library builds, and falls back to
-the numpy implementation of the same pyramid algorithm. The port has only
-the numpy path (``_py_fast_dtw``, ``_py_banded``); the tests hold it to the
-JAX package's fallback and to its native code.
+The alignment is the native coarse-to-fine banded DTW of the host library
+(``native/dtw.cc``, built by ``ops/host_build.py``) where it builds, else
+the numpy implementation of the same pyramid algorithm (``_py_fast_dtw``,
+``_py_banded``). The tests hold both to the JAX package's.
 """
 
 from __future__ import annotations
@@ -20,6 +19,8 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+
+from chiron_tpu_torch.ops import host_build
 
 
 # --------------------------------------------------------------------------
@@ -168,6 +169,25 @@ def _py_banded(a, b, lo, hi):
     return total, path
 
 
+def dtw_distance(a: np.ndarray, b: np.ndarray, radius: int = 50) -> float:
+    """Pyramid-DTW cost of aligning two series (``chiron_dtw_distance``
+    where the native library runs; -1.0 when no path is found). The numpy
+    path sums its path's squared float32 differences in float64, in path
+    order, as the native code does."""
+    a = np.ascontiguousarray(a, np.float32)
+    b = np.ascontiguousarray(b, np.float32)
+    if len(a) == 0 or len(b) == 0:
+        return -1.0
+    lib = host_build.load()
+    if lib is not None:
+        return float(lib.chiron_dtw_distance(a, len(a), b, len(b), radius))
+    cost, path = _py_fast_dtw(a, b, radius)
+    if cost < 0:
+        return -1.0
+    i, j = np.asarray(path).T
+    return float(np.cumsum(np.square((a[i] - b[j]).astype(np.float64)))[-1])
+
+
 def resquiggle_signal(
     raw_signal: np.ndarray,
     sequence: str,
@@ -194,16 +214,26 @@ def resquiggle_signal(
         expand = int(np.clip(round(len(signal) / max(m, 1)), 1, 50))
     expected = znorm(np.repeat(levels, expand))
     me = m * expand
-    _, path = _py_fast_dtw(signal, expected, radius)
-    starts_exp = np.full(me + 1, -1, np.int64)
-    for i, j in path:
-        if starts_exp[j] < 0:
-            starts_exp[j] = i
-    starts_exp[me] = len(signal)
-    for k in range(me - 1, -1, -1):
-        if starts_exp[k] < 0:
-            starts_exp[k] = starts_exp[k + 1]
-    starts_exp[0] = 0
+    lib = host_build.load()
+    starts_exp = None
+    if lib is not None:
+        starts_exp = np.zeros(me + 1, np.int32)
+        cost = lib.chiron_resquiggle(np.ascontiguousarray(signal, np.float32), len(signal),
+                                     np.ascontiguousarray(expected, np.float32), me, radius,
+                                     starts_exp)
+        if cost < 0:
+            starts_exp = None
+    if starts_exp is None:  # numpy path
+        _, path = _py_fast_dtw(signal, expected, radius)
+        starts_exp = np.full(me + 1, -1, np.int64)
+        for i, j in path:
+            if starts_exp[j] < 0:
+                starts_exp[j] = i
+        starts_exp[me] = len(signal)
+        for k in range(me - 1, -1, -1):
+            if starts_exp[k] < 0:
+                starts_exp[k] = starts_exp[k + 1]
+        starts_exp[0] = 0
     starts = starts_exp[::expand].astype(np.int32)
     starts[m] = len(signal)
     return starts

@@ -25,7 +25,7 @@ setup(
     packages=find_packages(include=["chiron_tpu", "chiron_tpu.*",
                                     "chiron_tpu_torch", "chiron_tpu_torch.*"]),
     package_data={"chiron_tpu": ["native/Makefile", "native/*.cc"],
-                  "chiron_tpu_torch": ["csrc/*.cu"]},
+                  "chiron_tpu_torch": ["csrc/*.cu", "native/*.cc"]},
     install_requires=install_requires,
     entry_points={
         "console_scripts": [
