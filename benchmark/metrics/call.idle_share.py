@@ -1,0 +1,10 @@
+"""call.idle_share: the share of the traced window in which no operation ran
+on the device, while the call pipeline's producer, readback and assembly
+threads fed it (from the device trace: the union of kernels, copies and
+sets)."""
+
+from benchmark.metrics._common import idle_share
+
+
+def read(ctx):
+    return idle_share(ctx)
