@@ -173,6 +173,9 @@ def _add_train_parser(subparsers) -> None:
                         "(0 or 1: one process).")
     p.add_argument("--sig_norm", type=int, default=None,
                    help="Signal normalization: None raw (default), 0 median/mad, 1 mean/std.")
+    p.add_argument("--profile", action="store_true",
+                   help="Write a torch.profiler trace and the run's spans under "
+                        "<log_dir>/<model_name>/profile (rank 0; profile a short run).")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a GPU is an error.")
     p.set_defaults(func=train)
@@ -227,7 +230,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sig_norm", type=int, default=None,
                    help="Signal normalization: None raw (default), 0 median/mad, 1 mean/std.")
     p.add_argument("--profile", action="store_true",
-                   help="Write a torch.profiler trace under <output>/profile.")
+                   help="Write a torch.profiler trace and the run's spans under "
+                        "<output>/profile.")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cuda without a GPU is an error.")
     p.set_defaults(func=evaluation)

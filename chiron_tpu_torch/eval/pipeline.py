@@ -22,9 +22,11 @@ the batch is exactly the JAX package's.
 from __future__ import annotations
 
 import functools
+import itertools
 import os
 import time
 from collections import defaultdict, deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Tuple
 
 import numpy as np
@@ -46,7 +48,9 @@ from chiron_tpu_torch.parallel.dist import make_sharded_decode_step, process_inf
 from chiron_tpu_torch.parallel.mesh import make_mesh
 from chiron_tpu_torch.params import Basecaller, from_jax_params
 from chiron_tpu_torch.train.checkpoint import restore_latest
+from chiron_tpu_torch.utils import timing
 from chiron_tpu_torch.utils.device import resolve_device
+from chiron_tpu_torch.utils.timing import record, span
 
 
 def path_prob(logits: torch.Tensor) -> torch.Tensor:
@@ -114,15 +118,16 @@ def decode_step(model: Basecaller, x: torch.Tensor, seq_len: torch.Tensor,
     bf16 inference mode (its logits, and so the decode, stay float32).
     """
     with torch.no_grad():
-        logits = model(x, seq_len, bf16=bf16)
-        prob = path_prob(logits)
-        if beam == 0:
-            decoded, lengths, score = greedy_decode(logits, seq_len)
-        else:
-            decoded, lengths, score = beam_search_decode(
-                logits, seq_len, beam_width=beam, length_bonus=float(length_bonus))
-        return pack_step_outputs(decoded, lengths, score, prob,
-                                 two_bit=two_bit_labels(model.config))
+        logits = model(x, seq_len, bf16=bf16)  # model.front, model.rnn spans
+        with span("model.decode"):
+            prob = path_prob(logits)
+            if beam == 0:
+                decoded, lengths, score = greedy_decode(logits, seq_len)
+            else:
+                decoded, lengths, score = beam_search_decode(
+                    logits, seq_len, beam_width=beam, length_bonus=float(length_bonus))
+            return pack_step_outputs(decoded, lengths, score, prob,
+                                     two_bit=two_bit_labels(model.config))
 
 
 def list_input_files(input_path: str, recursive: bool = True) -> Tuple[str, List[str]]:
@@ -151,20 +156,20 @@ def _batch_stream(
     file_list: List[str],
     flags,
     ratio: float,
+    call_id: int = 0,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray, List[str], dict]]:
     """Yield fixed-size batches packed across files.
 
     Each yield: (x [B, L], seq_len_frames [B], window_idx [B], fnames [B],
-    read_meta {fname: (n_windows, reading_time)}).
+    read_meta {fname: (n_windows, read_start_ns, read_end_ns)}), the read's
+    stamps from ``time.time_ns()``, as its ``call.read`` span's.
     """
-    from concurrent.futures import ThreadPoolExecutor
-
     # per-file reads run in a small ordered-lookahead pool, overlapping IO
     # across files while results are consumed strictly in list order
-    read_pool = ThreadPoolExecutor(max_workers=3)
+    read_pool = ThreadPoolExecutor(max_workers=3, thread_name_prefix="call-read")
 
     def _read_one(name):
-        t0 = time.time()
+        t0 = time.time_ns()
         windows, lengths = read_signal_for_eval(
             os.path.join(file_dir, name),
             flags.start,
@@ -173,7 +178,9 @@ def _batch_stream(
             normalize=getattr(flags, "sig_norm", None),
             reverse_fast5=flags.reverse_fast5,
         )
-        return windows, lengths, time.time() - t0
+        t1 = time.time_ns()
+        record("call.read", t0, t1, call=call_id)
+        return windows, lengths, t0, t1
 
     lookahead: deque = deque()
     for name in file_list[:3]:
@@ -199,17 +206,16 @@ def _drain_files(file_list, lookahead, submitted, read_pool, _read_one, bsz, seg
             nxt = file_list[submitted]
             lookahead.append((nxt, read_pool.submit(_read_one, nxt)))
             submitted += 1
-        t0 = time.time()
+        t0 = time.time_ns()
         try:
-            windows, lengths, rtime = fut.result()
-            t0 = time.time() - rtime  # preserve per-file reading_time
+            windows, lengths, r0, r1 = fut.result()
         except Exception as e:
             # per-file fault tolerance: a corrupt input must not abort the
             # run; -1 window count marks "unreadable" (vs 0 = empty)
             print(f"WARNING: skipping unreadable input {name}: {e}")
-            meta[name] = (-1, time.time() - t0)
+            meta[name] = (-1, t0, time.time_ns())
             continue
-        meta[name] = (len(windows), time.time() - t0)
+        meta[name] = (len(windows), r0, r1)
         buf_x = np.concatenate([buf_x, windows], axis=0)
         buf_len = np.concatenate([buf_len, lengths])
         buf_idx = np.concatenate([buf_idx, np.arange(len(windows))])
@@ -245,7 +251,8 @@ def _drain_files(file_list, lookahead, submitted, read_pool, _read_one, bsz, seg
 
 def _prefetch(iterator, depth: int = 4):
     """Run an iterator in a producer thread with a bounded queue
-    (the reference's producer thread, chiron_eval.py:304-372)."""
+    (the reference's producer thread, chiron_eval.py:304-372); the
+    consumer's wait for each item is its ``call.feed_wait`` span."""
     import queue as _queue
     import threading
 
@@ -262,10 +269,11 @@ def _prefetch(iterator, depth: int = 4):
         finally:
             q.put(_END)
 
-    t = threading.Thread(target=worker, daemon=True)
+    t = threading.Thread(target=worker, name="call-producer", daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with span("call.feed_wait"):
+            item = q.get()
         if item is _END:
             if err:
                 raise err[0]
@@ -281,6 +289,9 @@ def load_model(model_dir: str, config, device) -> Basecaller:
     return from_jax_params(params, config, device)
 
 
+_CALL_IDS = itertools.count()
+
+
 def evaluation(flags) -> dict:
     """Run basecalling over all input files. Returns summary stats.
 
@@ -290,7 +301,22 @@ def evaluation(flags) -> dict:
     raise. Inside an initialised process group each rank basecalls its
     hash shard of the files (``parallel.dist.shard_files``) on its own
     device, so k > 1 there raises.
+
+    Under a profiler the call records its spans (``utils/timing.py``), all
+    with the call's id. The main thread's ``call.run`` holds ``call.load``
+    (up to the first batch's request), then per batch ``call.feed_wait``,
+    ``call.step`` (``model.*`` inside) and ``call.drain``
+    (``call.readback_wait`` inside), then ``call.finish`` (the last reads'
+    assembly and writes). The pools record ``call.read``, ``call.upload``,
+    ``call.readback``, ``call.assemble`` and ``call.write``.
     """
+    call_id = next(_CALL_IDS)
+    with span("call.run", call=call_id):
+        return _evaluation(flags, call_id)
+
+
+def _evaluation(flags, call_id: int) -> dict:
+    load_start = time.time_ns()
     device = resolve_device(getattr(flags, "device", "cuda"))
     n_devices = int(getattr(flags, "n_devices", 0) or 1)
     world = process_info()[1]
@@ -331,21 +357,24 @@ def evaluation(flags) -> dict:
 
     acc = defaultdict(dict)  # fname -> {idx: (bases, prob)}
     counts = {}  # fname -> expected window count
-    timing = {}  # fname -> (start_time, reading_time)
+    read_times = {}  # fname -> (start ns, end ns)
     total_windows = 0
     inflight: deque = deque()
     pipeline_depth = 6
     base_lut = np.frombuffer(alphabet.encode(), np.uint8)
 
-    from concurrent.futures import ThreadPoolExecutor
-
     fin_futures = []
 
     def drain_one(finalizer):
+        with span("call.drain"):
+            _drain_one(finalizer)
+
+    def _drain_one(finalizer):
         nonlocal total_windows
         packed_fut, widx, fnames = inflight.popleft()
-        decoded, lengths, score, prob = unpack_step_outputs(packed_fut.result(),
-                                                            two_bit=two_bit)
+        with span("call.readback_wait"):
+            packed = packed_fut.result()
+        decoded, lengths, score, prob = unpack_step_outputs(packed, two_bit=two_bit)
         for i in range(len(fnames)):
             if widx[i] < 0:
                 continue
@@ -357,7 +386,8 @@ def evaluation(flags) -> dict:
         for fn in list(acc.keys()):
             if fn in counts and len(acc[fn]) == counts[fn]:
                 fin_futures.append(
-                    finalizer(_finalize_file, fn, acc.pop(fn), flags, timing[fn], alphabet)
+                    finalizer(_finalize_file, fn, acc.pop(fn), flags, read_times[fn], alphabet,
+                              call_id)
                 )
 
     # bf16 mode: the window is rounded to bfloat16 on the host, so the upload
@@ -372,34 +402,42 @@ def evaluation(flags) -> dict:
     def _upload(stream):
         # host->device upload runs in the producer thread (via _prefetch)
         for x, sl, widx, fnames, meta in stream:
-            yield (torch.from_numpy(x).to(x_dtype).to(upload_to),
-                   torch.from_numpy(sl).to(upload_to), widx, fnames, meta)
+            with span("call.upload", call=call_id):
+                item = (torch.from_numpy(x).to(x_dtype).to(upload_to),
+                        torch.from_numpy(sl).to(upload_to), widx, fnames, meta)
+            yield item
 
     def _readback(out):
-        return out.cpu().numpy()
+        with span("call.readback", call=call_id):
+            return out.cpu().numpy()
 
-    with ThreadPoolExecutor(max_workers=1) as pool, \
-            ThreadPoolExecutor(max_workers=4) as readback_pool:
+    with ThreadPoolExecutor(max_workers=1, thread_name_prefix="call-writer") as pool, \
+            ThreadPoolExecutor(max_workers=4, thread_name_prefix="call-readback") as readback_pool:
+        record("call.load", load_start, time.time_ns())
         for x, sl, widx, fnames, meta in _prefetch(
-            _upload(_batch_stream(file_dir, file_list, flags, ratio))
+            _upload(_batch_stream(file_dir, file_list, flags, ratio, call_id))
         ):
-            for fn, (nwin, rtime) in meta.items():
+            for fn, (nwin, r0, r1) in meta.items():
                 counts[fn] = nwin
-                timing[fn] = (time.time() - rtime, rtime)  # (start, reading)
-            out = step(model, x, sl)
+                read_times[fn] = (r0, r1)
+            with span("call.step"):
+                out = step(model, x, sl)
             inflight.append((readback_pool.submit(_readback, out), widx, fnames))
             if len(inflight) > pipeline_depth:
                 drain_one(pool.submit)
         while inflight:
             drain_one(pool.submit)
+        finish_start = time.time_ns()
         total_bases = sum(f.result() for f in fin_futures)
     # genuinely empty inputs still get (empty) output files; unreadable
     # inputs (count -1) are skipped
     for fn in file_list:
         if counts.get(fn) == 0 and fn not in acc:
-            total_bases += _finalize_file(fn, {}, flags, timing[fn], alphabet)
+            total_bases += _finalize_file(fn, {}, flags, read_times[fn], alphabet, call_id)
         elif fn in acc and counts.get(fn, -1) == len(acc[fn]):
-            total_bases += _finalize_file(fn, acc.pop(fn), flags, timing[fn], alphabet)
+            total_bases += _finalize_file(fn, acc.pop(fn), flags, read_times[fn], alphabet,
+                                          call_id)
+    record("call.finish", finish_start, time.time_ns())
     return {
         "n_files": len(file_list),
         "total_bases": total_bases,
@@ -408,13 +446,17 @@ def evaluation(flags) -> dict:
 
 
 def _finalize_file(fname: str, windows: dict, flags, times,
-                   alphabet: str = "ACGT") -> int:
-    """Assemble one read's windows and write outputs. Returns base count."""
-    start_time, reading_time = times
+                   alphabet: str = "ACGT", call_id: int = 0) -> int:
+    """Assemble one read's windows and write outputs. Returns base count.
+
+    ``times`` is the read's (start, end) in ``time.time_ns()``; its
+    ``.meta`` times and the ``call.assemble`` span share these stamps."""
+    read_start, read_end = times
+    start_time, reading_time = read_start / 1e9, (read_end - read_start) / 1e9
+    assemble_start = time.time_ns()
     idxs = sorted(windows.keys())
     bpreads = [windows[i][0] for i in idxs]
     qs_list = np.asarray([[windows[i][1]] for i in idxs])
-    basecall_time = time.time() - start_time
     file_pre = os.path.splitext(fname)[0].replace(os.path.sep, "_")
     js_ratio = flags.jump / flags.segment_len
     kernel = get_assembler_kernel(flags.jump, flags.segment_len)
@@ -440,17 +482,21 @@ def _finalize_file(fname: str, windows: dict, flags, times,
             alphabet=alphabet,
         )
         consensus_seq = consensus_to_bases(consensus, alphabet)
-    assembly_time = time.time() - start_time
-    write_output(
-        bpreads,
-        consensus_seq,
-        [start_time, reading_time, basecall_time, assembly_time],
-        file_pre,
-        concise=flags.concise,
-        suffix=flags.extension,
-        q_score=qs_string,
-        global_setting=flags,
-    )
+    assemble_end = time.time_ns()
+    record("call.assemble", assemble_start, assemble_end, call=call_id)
+    basecall_time = (assemble_start - read_start) / 1e9
+    assembly_time = (assemble_end - read_start) / 1e9
+    with span("call.write", call=call_id):
+        write_output(
+            bpreads,
+            consensus_seq,
+            [start_time, reading_time, basecall_time, assembly_time],
+            file_pre,
+            concise=flags.concise,
+            suffix=flags.extension,
+            q_score=qs_string,
+            global_setting=flags,
+        )
     return len(consensus_seq)
 
 
@@ -459,34 +505,22 @@ def run(flags) -> dict:
 
     ``flags.device`` (default cuda) picks the device. With ``flags.profile``
     set, the run is wrapped in a torch.profiler trace written to
-    <output>/profile/trace.json.
+    <output>/profile/trace.json, and the run's spans (``utils/timing.py``)
+    to <output>/profile/spans.json (``timing.profiled``): the pools' threads
+    beside the kernels.
     """
-    import contextlib
-
-    from chiron_tpu_torch.utils.timing import unix_time
-
     print(f"The result will be written to {flags.output}")
     if not os.path.isdir(flags.output):
         os.makedirs(flags.output)
     result = {}
+    profile_dir = os.path.join(flags.output, "profile") if getattr(flags, "profile", False) \
+        else None
 
     def _run():
-        if getattr(flags, "profile", False):
-            from torch.profiler import ProfilerActivity, profile
-
-            acts = [ProfilerActivity.CPU]
-            if torch.cuda.is_available():
-                acts.append(ProfilerActivity.CUDA)
-            trace = profile(activities=acts)
-        else:
-            trace = contextlib.nullcontext()
-        with trace:
+        with timing.profiled(profile_dir):
             result.update(evaluation(flags))
-        if getattr(flags, "profile", False):
-            os.makedirs(os.path.join(flags.output, "profile"), exist_ok=True)
-            trace.export_chrome_trace(os.path.join(flags.output, "profile", "trace.json"))
 
-    time_dict = unix_time(_run)
+    time_dict = timing.unix_time(_run)
     print(
         "Real time:%5.3f Systime:%5.3f Usertime:%5.3f"
         % (time_dict["real"], time_dict["sys"], time_dict["user"])

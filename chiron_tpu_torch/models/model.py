@@ -25,6 +25,7 @@ from chiron_tpu_torch.config import class_n
 from chiron_tpu_torch.models import layers as L
 from chiron_tpu_torch.models import rnn as R
 from chiron_tpu_torch.models.initializers import xavier_normal
+from chiron_tpu_torch.utils.timing import span
 
 Params = Dict[str, Any]
 
@@ -325,12 +326,16 @@ def apply_model(params: Params, config: Dict[str, Any], signal: torch.Tensor,
     that mode the window enters as bfloat16, as the pipeline uploads it
     (chiron_tpu/eval/pipeline.py:477-486): a float32 window is rounded
     first. The logits are float32 in both modes.
+
+    The CNN runs in a ``model.front`` span; the RNN stack and the logit head
+    (the CNN-only head's product alone) in a ``model.rnn`` span.
     """
-    fea = encode(params, config, signal, seq_len, training=training, bf16=bf16)
-    with torch.set_grad_enabled(training and torch.is_grad_enabled()):
+    fea = _front_features(params, config, signal, training, bf16)
+    with torch.set_grad_enabled(training and torch.is_grad_enabled()), span("model.rnn"):
         if config["rnn"]["layer_num"] == 0:
             return cnn_logit(params["cnn_logit"], fea)
-        return R.rnn_head(params["rnn"]["head"], fea)
+        return R.rnn_head(params["rnn"]["head"],
+                          _rnn_stack(params, config, fea, seq_len, training, bf16))
 
 
 def encode(params: Params, config: Dict[str, Any], signal: torch.Tensor,
@@ -338,14 +343,27 @@ def encode(params: Params, config: Dict[str, Any], signal: torch.Tensor,
     """The features that feed the logit head: the BiRNN stack's [B, T_out, 2H]
     (the CNN's [B, T_out, C] for the CNN-only head). ``apply_model`` is the
     head over these; the attention decoder reads them as its encodings."""
+    fea = _front_features(params, config, signal, training, bf16)
+    if config["rnn"]["layer_num"] == 0:
+        return fea
+    with torch.set_grad_enabled(training and torch.is_grad_enabled()), span("model.rnn"):
+        return _rnn_stack(params, config, fea, seq_len, training, bf16)
+
+
+def _front_features(params: Params, config: Dict[str, Any], signal: torch.Tensor,
+                    training: bool, bf16: bool) -> torch.Tensor:
+    """The CNN front's features [B, T_out, C], in a ``model.front`` span."""
     _, apply_fn = _front(config)
-    rnn_cfg = config["rnn"]
     bf16 = L.bf16_compute(bf16, training)
-    with torch.set_grad_enabled(training and torch.is_grad_enabled()):
+    with torch.set_grad_enabled(training and torch.is_grad_enabled()), span("model.front"):
         x = L.store_activation(signal, bf16)[..., None]
-        fea = L.materialize(apply_fn(params["cnn"], x, config["cnn"], training=training,
-                                     bf16=bf16), bf16)
-        if rnn_cfg["layer_num"] == 0:
-            return fea
-        return R.birnn_stack(params["rnn"]["stack"], fea, seq_len, rnn_cfg["cell_type"],
-                             rnn_cfg["layer_type"], training=training, bf16=bf16)
+        return L.materialize(apply_fn(params["cnn"], x, config["cnn"], training=training,
+                                      bf16=bf16), bf16)
+
+
+def _rnn_stack(params: Params, config: Dict[str, Any], fea: torch.Tensor,
+               seq_len: torch.Tensor, training: bool, bf16: bool) -> torch.Tensor:
+    rnn_cfg = config["rnn"]
+    return R.birnn_stack(params["rnn"]["stack"], fea, seq_len, rnn_cfg["cell_type"],
+                         rnn_cfg["layer_type"], training=training,
+                         bf16=L.bf16_compute(bf16, training))

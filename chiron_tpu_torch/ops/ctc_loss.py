@@ -16,12 +16,16 @@ the backward runs the symmetric beta loop and returns the analytic
 posterior gradient through the log-softmax, as the JAX package's custom
 VJP does. It is plain torch (the JAX package runs it as ``lax.scan``, not as
 a Pallas kernel); ``torch.nn.functional.ctc_loss`` differs in its blank,
-padding and infinity rules and is not used.
+padding and infinity rules and is not used. Under a profiler the backward
+records a ``train.loss_backward`` span (``utils/timing.py``) with the ids
+of the span its forward ran in.
 """
 
 from __future__ import annotations
 
 import torch
+
+from chiron_tpu_torch.utils.timing import current_ids, span
 
 _NEG_INF = -1e30
 
@@ -86,12 +90,18 @@ class _CTCLoss(torch.autograd.Function):
             alphas.append(alpha)
         nll = _final_nll(alpha, label_lengths)
         ignore = label_lengths > logit_lengths
+        ctx.span_ids = current_ids()  # the step's, for the backward's span
         ctx.save_for_backward(torch.stack(alphas), lp, onehot, skip_add, emit, slot_mask,
                               nll, ignore, logit_lengths, label_lengths)
         return torch.where(ignore, torch.zeros_like(nll), nll)
 
     @staticmethod
     def backward(ctx, g):
+        with span("train.loss_backward", **ctx.span_ids):
+            return _CTCLoss._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         (alphas, lp, onehot, skip_add, emit, slot_mask, nll, ignore, logit_lengths,
          label_lengths) = ctx.saved_tensors
         t_max, bsz, s = alphas.shape

@@ -47,6 +47,7 @@ from chiron_tpu_torch.parallel.mesh import local_rows, make_mesh, replicate, sha
 from chiron_tpu_torch.params import Basecaller, from_jax_params, to_numpy_tree
 from chiron_tpu_torch.train.checkpoint import restore_latest, save_checkpoint
 from chiron_tpu_torch.utils.device import float32_strict, resolve_device
+from chiron_tpu_torch.utils.timing import profiled, span
 
 MOVING_AVERAGE_DECAY = 0.9999
 LR_BOUNDARY = [0.66, 0.83]
@@ -163,22 +164,36 @@ def make_train_step(config: Dict[str, Any], fl_gamma: float, data_parallel: bool
     before the update, and the returned loss the ranks' mean.
 
     The step runs in full float32: TF32 is turned off for matmuls and cuDNN
-    here (``utils/device.py:float32_strict``)."""
+    here (``utils/device.py:float32_strict``).
+
+    Under a profiler each step records a ``train.step`` span tagged with
+    ``n_updates`` (``utils/timing.py``), holding ``train.forward``,
+    ``train.loss`` (the loss's forward), ``train.backward``, ``train.update``
+    (twice: ``zero_grad``, then the gradients' all-reduce and the optimizer
+    step) and ``train.ema``; the loss's own backward records
+    ``train.loss_backward`` in the thread autograd runs it in."""
     float32_strict()
 
     def step(model: Basecaller, ema: Basecaller, opt: Optimizer, batch, n_updates):
-        with _moments(data_parallel):
-            logits = model(batch["signal"], batch["seq_len"], training=True)
-            loss = ctc_focal_loss(logits, batch["seq_len"], batch["label"], batch["label_len"],
-                                  fl_gamma=fl_gamma)
-            opt.zero_grad()
-            loss.backward()
-        if data_parallel:
-            average_gradients(opt.params)
-            loss = all_mean(loss)
-        opt.step()
-        ema_update(ema, model, n_updates)
-        return loss.detach()
+        with span("train.step", step=int(n_updates)):
+            with _moments(data_parallel):
+                with span("train.forward"):
+                    logits = model(batch["signal"], batch["seq_len"], training=True)
+                with span("train.loss"):
+                    loss = ctc_focal_loss(logits, batch["seq_len"], batch["label"],
+                                          batch["label_len"], fl_gamma=fl_gamma)
+                with span("train.update"):
+                    opt.zero_grad()
+                with span("train.backward"):
+                    loss.backward()
+            with span("train.update"):
+                if data_parallel:
+                    average_gradients(opt.params)
+                    loss = all_mean(loss)
+                opt.step()
+            with span("train.ema"):
+                ema_update(ema, model, n_updates)
+            return loss.detach()
 
     return step
 
@@ -336,12 +351,15 @@ def load_dataset(data_dir, seq_len, k_mer=1, max_segments=None, skip_start=10,
 def batch_to_device(batch, ratio: float, device: torch.device):
     """A Dataset batch as tensors on ``device``; seq_len becomes logit frames
     (round(len / ratio), chiron/chiron_eval.py:337)."""
-    seq_len = np.round(batch["seq_len"] / ratio).astype(np.int32)
-    return {"signal": torch.from_numpy(np.ascontiguousarray(batch["signal"], np.float32)).to(device),
-            "seq_len": torch.from_numpy(seq_len).to(device),
-            "label": torch.from_numpy(np.ascontiguousarray(batch["label"], np.int32)).to(device),
-            "label_len": torch.from_numpy(
-                np.ascontiguousarray(batch["label_len"], np.int32)).to(device)}
+    with span("train.upload"):
+        seq_len = np.round(batch["seq_len"] / ratio).astype(np.int32)
+        return {"signal": torch.from_numpy(
+                    np.ascontiguousarray(batch["signal"], np.float32)).to(device),
+                "seq_len": torch.from_numpy(seq_len).to(device),
+                "label": torch.from_numpy(
+                    np.ascontiguousarray(batch["label"], np.int32)).to(device),
+                "label_len": torch.from_numpy(
+                    np.ascontiguousarray(batch["label_len"], np.int32)).to(device)}
 
 
 def train(hparams) -> Dict[str, Any]:
@@ -391,6 +409,17 @@ def _train_rank(rank: int, world: int, device: torch.device, hparams):
 
 
 def _train(hparams, device: torch.device, one_host: bool, data_parallel: bool):
+    """One process's run; with ``hparams.profile`` rank 0 runs it under a
+    profiler and writes <log_dir>/<model_name>/profile/trace.json and its
+    spans, spans.json (``utils/timing.py:profiled``)."""
+    profile_dir = None
+    if getattr(hparams, "profile", False) and process_info()[0] == 0:
+        profile_dir = os.path.join(hparams.log_dir, hparams.model_name, "profile")
+    with profiled(profile_dir):
+        return _train_run(hparams, device, one_host, data_parallel)
+
+
+def _train_run(hparams, device: torch.device, one_host: bool, data_parallel: bool):
     rank, world = process_info()
     writer = rank == 0
     model_dir = os.path.join(hparams.log_dir, hparams.model_name)
