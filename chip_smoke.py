@@ -64,8 +64,9 @@ Phases (any failure exits non-zero and prints no result line):
      modes, each card vs CPU with its launch counts;
   4. drive the port's `train` entry point (DNA_default config, -s 400 -b 300,
      30 steps, fresh seeded weights) on seeded .signal/.label reads, with the
-     training LSTM's launch counts set to 0 just before and read just after
-     (6 forward + 6 backward per step); check the files it writes and that
+     training LSTM's and the CTC loss's launch counts set to 0 just before
+     and read just after (6 forward + 6 backward, and one ctc_alpha and one
+     ctc_beta_grad, per step); check the files it writes and that
      the loss falls; basecall one batch with its final checkpoint; check one
      full-width train step (bundled weights) on the card against the CPU;
   5. time each kernel, its plain version and a PyTorch library yardstick
@@ -77,7 +78,10 @@ Phases (any failure exits non-zero and prints no result line):
      same-FLOP note; the "w" rows' bounds; the LSTM backward split into its
      recurrence and its dwh pass; the recurrent kernels at H = 384 / 512 and the beam search
      at W = 65 / 100; the whole call in bases/s, and a warm train step split
-     into forward / loss / backward / update; the bf16 instances beside the
+     into forward / loss / backward / update; the CTC loss's two kernels
+     beside its plain version and F.ctc_loss at the train step's shape, held
+     to the plain version (values 1e-5 relative, gradients 1e-5); the bf16
+     instances beside the
      float32 ones in turns, their plain versions, bounds at bf16 bytes and
      library calls; each bundled model's step split by stage in both modes,
      and the device's idle share over a warm call in both modes;
@@ -348,6 +352,19 @@ def train_lstm_bounds(act, t, b, h):
                    4.0 * (rows * 4 * h + h * 4 * h + b + 3 * rows * h + rows * 4 * h))
     bwd = bound_ms(act * (2 * 2 * h * 4 * h + 20 * h),
                    4.0 * (rows * 4 * h + 3 * rows * h + h * 4 * h + b + rows * 4 * h + h * 4 * h))
+    return fwd, bwd
+
+
+def ctc_bounds(act, t, b, u, c):
+    """The CTC kernels' bounds from their inputs: per active (row, frame) and
+    slot of S = 2U + 1, the forward's two logaddexps and two adds (~14 ops),
+    the backward's beta, posterior and class sum (~20); bytes: logits in, lp
+    and the active frames' alpha out (forward); lp and that alpha in, dlogits
+    out (backward); the labels and lengths in both."""
+    s = 2 * u + 1
+    small = b * u + 2 * b
+    fwd = bound_ms(14.0 * act * s, 4.0 * (2 * b * t * c + act * s + small + 2 * b))
+    bwd = bound_ms(20.0 * act * s, 4.0 * (2 * b * t * c + act * s + small + 2 * b))
     return fwd, bwd
 
 
@@ -1529,6 +1546,7 @@ def main(out_dir=OUT_DIR):
     from chiron_tpu_torch.models import layers as L, model as M, rnn as R
     from chiron_tpu_torch.ops import (beam, bilstm, bnlstm, conv_bn, cuda_build, gru, lstm,
                                       lstm_grad)
+    from chiron_tpu_torch.ops import ctc_loss as ctc
     from chiron_tpu_torch.params import from_jax_params, to_numpy_tree
     from chiron_tpu_torch.train.checkpoint import restore_latest, save_checkpoint
 
@@ -1560,7 +1578,8 @@ def main(out_dir=OUT_DIR):
                                         "lstm_fwd_kernel", "lstm_infer_kernel",
                                         "lstm_bwd_kernel", "beam_warp_kernel",
                                         "beam_block_kernel", "beam_traceback_kernel",
-                                        "bnlstm_cluster_kernel", "gru_kernel")):
+                                        "bnlstm_cluster_kernel", "gru_kernel",
+                                        "ctc_alpha_kernel", "ctc_beta_grad_kernel")):
                 if "0 bytes spill stores, 0 bytes spill loads" not in lines[i + 2]:
                     fail(f"{name}: a redesigned kernel spills registers: {lines[i + 2].strip()}")
 
@@ -2534,18 +2553,22 @@ def main(out_dir=OUT_DIR):
                   "--configure", os.path.join(MODEL_DIR, "model.json"), "-s", str(SEG),
                   "-b", str(TRAIN_BATCH), "-x", str(TRAIN_STEPS), "-t", str(TRAIN_RATE),
                   "--device", "cuda"]
-    for k in lstm_grad.launches:
-        lstm_grad.launches[k] = 0
+    for counter in (lstm_grad.launches, ctc.launches):
+        for k in counter:
+            counter[k] = 0
     t = time.time()
     result = cli.main(train_args)
     torch.cuda.synchronize()
     train_wall = time.time() - t
     train_counts = dict(lstm_grad.launches)
+    ctc_counts = dict(ctc.launches)
     log(f"train -s {SEG} -b {TRAIN_BATCH} -x {TRAIN_STEPS} -t {TRAIN_RATE}: {train_wall:.3f} s, losses "
-        f"{result['losses']}; launches {train_counts}")
+        f"{result['losses']}; launches {train_counts}, CTC loss {ctc_counts}")
     for k, n in train_counts.items():
         if n != 6 * TRAIN_STEPS:
             fail(f"train launched {k} {n} times, expected {6 * TRAIN_STEPS}")
+    if ctc_counts != {"ctc_alpha": TRAIN_STEPS, "ctc_beta_grad": TRAIN_STEPS}:
+        fail(f"train launched the CTC kernels {ctc_counts}, expected {TRAIN_STEPS} each")
     mdir = result["model_dir"]
     names = os.listdir(mdir)
     for want in ("model.json", "checkpoint", "metrics.jsonl", f"final-{TRAIN_STEPS}.npz",
@@ -2714,11 +2737,65 @@ def main(out_dir=OUT_DIR):
     log(f"warm train steps: {json.dumps(train_rate)}")
     lg = model_t(batch_t["signal"], batch_t["seq_len"], training=True).detach()
     lg.requires_grad_(True)
-    ctc_args = (batch_t["seq_len"], batch_t["label"], batch_t["label_len"], 2.0)
-    ctc_fwd_ms = time_ms(torch, lambda: ctc_focal_loss(lg, *ctc_args), 3, 1)
-    ctc_both_ms = time_ms(torch, lambda: ctc_focal_loss(lg, *ctc_args).backward(), 3, 1)
-    log(f"ctc_focal_loss at B={TRAIN_BATCH} T={SEG} U={int(batch_t['label'].shape[1])}: "
-        f"forward {ctc_fwd_ms:.3f} ms, forward+backward {ctc_both_ms:.3f} ms")
+    ctc_rest = (batch_t["seq_len"], batch_t["label"], batch_t["label_len"])
+    ctc_checked = ctc._cuda_inputs(lg.detach(), *ctc_rest)
+    ctc_res = ctc.ctc_alpha(*ctc_checked)
+    ctc_g = torch.full((TRAIN_BATCH,), 1.0 / TRAIN_BATCH, device=dev)
+    n_class = lg.shape[2]
+
+    def focal_mean(per_row):
+        return (torch.pow(1.0 - torch.exp(-per_row), 2.0) * per_row).mean()
+
+    def ctc_library():
+        # the yardstick only: blank last, but -inf, not the -1e30 sentinel
+        return torch.nn.functional.ctc_loss(
+            torch.log_softmax(lg, -1).transpose(0, 1), batch_t["label"].clamp(min=0).long(),
+            batch_t["seq_len"].long(), batch_t["label_len"].long(), blank=n_class - 1,
+            reduction="none", zero_infinity=True)
+
+    ctc_plain_row = ctc.ctc_loss_plain(lg, *ctc_rest)
+    ctc_lib_row = ctc_library()
+    ctc_bound = dict(zip(("ctc_alpha", "ctc_beta_grad"), ctc_bounds(
+        float(batch_t["seq_len"].clamp(max=lg.shape[1]).sum()), lg.shape[1], TRAIN_BATCH,
+        int(batch_t["label"].shape[1]), n_class)))
+
+    ctc_ms = {
+        "forward": time_ms(torch, lambda: ctc_focal_loss(lg, *ctc_rest, 2.0), 10),
+        "forward_backward": time_ms(
+            torch, lambda: ctc_focal_loss(lg, *ctc_rest, 2.0).backward(), 10),
+        "plain_forward_backward": time_ms(
+            torch, lambda: focal_mean(ctc.ctc_loss_plain(lg, *ctc_rest)).backward(), 3, 1),
+        "library_forward_backward": time_ms(
+            torch, lambda: focal_mean(ctc_library()).backward(), 10)}
+    # each half alone, for the kernels line
+    ctc_timing = {
+        "ctc_alpha": (time_ms(torch, lambda: ctc.ctc_alpha(*ctc_checked), 10),
+                      time_ms(torch, lambda: ctc.ctc_loss_plain(lg.detach(), *ctc_rest), 3, 1),
+                      time_ms(torch, ctc_library, 10)),
+        "ctc_beta_grad": (
+            time_ms(torch, lambda: ctc.ctc_beta_grad(ctc_res[2], ctc_res[3], ctc_res[1], ctc_g,
+                                                     *ctc_checked[1:]), 10),
+            time_ms(torch, lambda: torch.autograd.grad(ctc_plain_row, lg, ctc_g,
+                                                       retain_graph=True), 3, 1),
+            time_ms(torch, lambda: torch.autograd.grad(ctc_lib_row, lg, ctc_g,
+                                                       retain_graph=True), 10))}
+    # the kernels against the plain version on the same tensors: per-row
+    # values, and the gradient of a weighted focal sum (a cotangent a row)
+    w_rows = torch.linspace(0.5, 1.5, TRAIN_BATCH, device=dev)
+    ctc_got, ctc_want = [], []
+    for fn, dst in ((ctc.ctc_loss, ctc_got), (ctc.ctc_loss_plain, ctc_want)):
+        per_row = fn(lg, *ctc_rest)
+        dst += [per_row.detach(), torch.autograd.grad(
+            (torch.pow(1.0 - torch.exp(-per_row), 2.0) * per_row * w_rows).sum(), lg)[0]]
+    torch.cuda.synchronize()
+    ctc_err = {"loss_abs": float((ctc_got[0] - ctc_want[0]).abs().max()),
+               "grad_abs": float((ctc_got[1] - ctc_want[1]).abs().max())}
+    log(f"CTC loss at B={TRAIN_BATCH} T={lg.shape[1]} U={int(batch_t['label'].shape[1])} "
+        f"(focal, gamma 2): ms " + json.dumps(ctc_ms) + "; kernels vs plain "
+        + json.dumps(ctc_err) + f"; launches in the train run {ctc_counts}")
+    if not (torch.allclose(ctc_got[0], ctc_want[0], rtol=1e-5, atol=1e-4)
+            and torch.allclose(ctc_got[1], ctc_want[1], rtol=0, atol=1e-5)):
+        fail(f"the CTC kernels disagree with their plain version: {ctc_err}")
     prof_args = list(train_args)
     prof_args[prof_args.index("-m") + 1] = "dna_prof"
     prof_args[prof_args.index("-x") + 1] = "10"
@@ -2813,6 +2890,7 @@ def main(out_dir=OUT_DIR):
     timing = {"conv_bn": (main_conv["ms"], main_conv["plain_ms"], main_conv["library_ms"])}
     main_bf16 = conv_shapes_bf16["k3_two_terms_relu"]
     timing["conv_bn_bf16"] = (main_bf16["ms"], main_bf16["plain_ms"], main_bf16["library_ms"])
+    timing.update(ctc_timing)
     lstm_lib = torch.nn.LSTM(256, h, batch_first=False, bidirectional=True).to(dev)
     x_lib = rnd(t_len, BATCH, 256)
     with torch.no_grad():
@@ -3041,7 +3119,8 @@ def main(out_dir=OUT_DIR):
                                                  BATCH, h, xw_bytes=2),
               "beam_search": beam_bound(float(beam_lens.sum()), BATCH, t_len, BEAM),
               # best, path reads, chars
-              "beam_traceback": bound_ms(BATCH * t_len, 4.0 * (BATCH + 2 * BATCH * t_len))}
+              "beam_traceback": bound_ms(BATCH * t_len, 4.0 * (BATCH + 2 * BATCH * t_len)),
+              **ctc_bound}
     meta = {
         "conv_bn": ("chiron_tpu_torch/csrc/conv_bn.cu", "chiron_tpu/ops/pallas/convbn.py:188",
                     conv_err),
@@ -3071,11 +3150,16 @@ def main(out_dir=OUT_DIR):
                          rec_err["bnlstm_layer"]),
         "bibnlstm_layer": ("chiron_tpu_torch/csrc/bnlstm.cu",
                            "chiron_tpu/ops/pallas/bnlstm.py:261", rec_err["bibnlstm_layer"]),
+        # no Pallas kernel: the JAX package's lax.scan recursions
+        "ctc_alpha": ("chiron_tpu_torch/csrc/ctc_loss.cu", "chiron_tpu/ops/ctc_loss.py:79",
+                      ctc_err["loss_abs"]),
+        "ctc_beta_grad": ("chiron_tpu_torch/csrc/ctc_loss.cu", "chiron_tpu/ops/ctc_loss.py:151",
+                          ctc_err["grad_abs"]),
     }
     # each count is from the run that drives its kernel: the DNA_default beam-30
     # call (float32; --bf16 for the bf16 instances), the train run, the GRU and
     # BNLSTM calls, the forward-only stacks
-    path_launches = {**beam_counts, **train_counts, **uni_counts,
+    path_launches = {**beam_counts, **train_counts, **ctc_counts, **uni_counts,
                      "conv_bn": beam_counts["conv_bn_float32"],
                      "bilstm": beam_counts["bilstm_float32"],
                      "lstm_layer": uni_counts["lstm_layer_float32"],

@@ -95,3 +95,65 @@ def test_ctc_loss_six_classes_and_no_labels():
                         lab_len)
         np.testing.assert_allclose(tv, np.asarray(jv), rtol=1e-5, atol=1e-4)
         np.testing.assert_allclose(tg, np.asarray(jg), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("fl_gamma", [0.0, 2.0])
+def test_cpu_tensors_take_the_plain_version(fl_gamma):
+    # ctc_loss on CPU tensors is ctc_loss_plain bit for bit and launches no kernel
+    logits, logit_len, labels, label_len = _case(7, b=8, t=30, u=9)
+    w = np.linspace(0.5, 1.5, len(label_len)).astype(np.float32)
+    before = dict(tctc.launches)
+    assert set(before) == {"ctc_alpha", "ctc_beta_grad"}
+
+    def weighted(fn):
+        def loss(lg, *a):
+            per_row = fn(lg, *a)
+            if fl_gamma > 0:
+                per_row = torch.pow(1.0 - torch.exp(-per_row), fl_gamma) * per_row
+            return (per_row * torch.tensor(w)).sum()
+        return loss
+
+    got = _torch(weighted(tctc.ctc_loss), logits, logit_len, labels, label_len)
+    want = _torch(weighted(tctc.ctc_loss_plain), logits, logit_len, labels, label_len)
+    assert tctc.launches == before
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    focal = _torch(lambda lg, *a: tctc.ctc_focal_loss(lg, *a, fl_gamma=fl_gamma), logits,
+                   logit_len, labels, label_len)
+    assert tctc.launches == before and np.isfinite(focal[1]).all()
+
+
+@pytest.mark.parametrize("n_slots,want", [(1, (1, 32)), (13, (1, 32)), (241, (1, 256)),
+                                          (1024, (1, 1024)), (1025, (2, 544)),
+                                          (1201, (2, 608)), (2048, (2, 1024)), (2049, (8, 288)),
+                                          (4096, (8, 512)), (4097, (16, 288)), (5120, (16, 320))])
+def test_kernel_geometry(n_slots, want):
+    # a slot a thread up to 1024 slots; then the fewest slots a thread that fit
+    # 1024 threads (two slots), 512 (eight) or 320 (sixteen), every slot covered
+    spt, threads = tctc.geometry(n_slots)
+    assert (spt, threads) == want
+    assert spt * threads >= n_slots and threads % 32 == 0
+    assert max(tctc.shared_bytes(n_slots, 5)) <= tctc.MAX_SHARED_BYTES
+
+
+def test_kernel_input_checks():
+    logits, logit_len, labels, label_len = (torch.tensor(a) for a in _case(1))
+    # the kernels' inputs: contiguous float32 logits, int32 lengths and labels
+    args = tctc._cuda_inputs(logits.transpose(0, 1).contiguous().transpose(0, 1),
+                             logit_len.long(), labels.long(), label_len)
+    assert args[0].is_contiguous() and torch.equal(args[0], logits)
+    assert all(a.dtype == torch.int32 and a.is_contiguous() for a in args[1:])
+    with pytest.raises(ValueError):  # float64 and bf16 logits: the kernels are float32
+        tctc._cuda_inputs(logits.double(), logit_len, labels, label_len)
+    with pytest.raises(ValueError):
+        tctc._cuda_inputs(logits.bfloat16(), logit_len, labels, label_len)
+    with pytest.raises(ValueError):  # float labels
+        tctc._cuda_inputs(logits, logit_len, labels.float(), label_len)
+    with pytest.raises(ValueError):  # lengths of another batch
+        tctc._cuda_inputs(logits, logit_len[:-1], labels, label_len)
+    with pytest.raises(ValueError):  # lengths on another device than the logits
+        tctc._cuda_inputs(logits, logit_len.to("meta"), labels, label_len)
+    with pytest.raises(ValueError):  # more slots than the kernels hold (5,120)
+        tctc._cuda_inputs(logits, logit_len, torch.zeros(6, 2560, dtype=torch.int32), label_len)
+    with pytest.raises(ValueError):  # neither CPU nor CUDA
+        tctc.ctc_loss(logits.to("meta"), logit_len, labels, label_len)

@@ -28,7 +28,11 @@ beam search at widths past one warp (65, 100, 256) and at 10 classes (the
 block kernel), each bit-identical from run to run. The bf16 instances of
 conv_bn and of the LSTM inference kernel (bf16 inference mode) are held in
 bf16 ulps and shares against their plain versions, and bit for bit against
-the float32 instance on the upcast input (see the section at the end).
+the float32 instance on the upcast input (see the section at the end). The
+CTC loss's two kernels are held at tests/test_torch_ctc_loss.py's
+tolerances (values 1e-5 relative, gradients 1e-5): their lp, alpha, beta and
+nll are the plain version's bit for bit, only the class sums' order differs;
+bit-identical from run to run.
 """
 
 import numpy as np
@@ -505,6 +509,143 @@ def test_beam_kernels_exact_on_tied_scores(cuda, w):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=1e-4, atol=1e-4)
 
 
+def _ctc_case(seed, b, t, u, n_class, label_max=None):
+    """Logits, per-row logit and label lengths, -1 padded labels with no two
+    equal neighbours (so a label fits any logits at least as long, and is
+    ignored where longer); with b >= 6 the edge rows of
+    tests/test_torch_ctc_loss.py: repeats, an empty label, a label longer than
+    its logits, a full-length row, a row with no frames, and a row with more
+    frames than T."""
+    rng = np.random.RandomState(seed)
+    logits = (rng.randn(b, t, n_class) * 2).astype(np.float32)
+    logit_len = rng.randint(t // 2, t + 1, size=b).astype(np.int32)
+    label_len = rng.randint(1, (label_max or u) + 1, size=b).astype(np.int32)
+    labels = np.full((b, u), -1, np.int32)
+    for i in range(b):
+        steps = rng.randint(1, n_class - 1, label_len[i])
+        labels[i, :label_len[i]] = np.cumsum(steps) % (n_class - 1)
+    if b >= 6 and u >= 5:
+        labels[0, :4], label_len[0] = [1, 1, 2, 2], 4
+        label_len[1], labels[1] = 0, -1
+        logit_len[2], label_len[2] = 3, 5
+        labels[2, :5] = [0, 1, 2, 3, 0]
+        logit_len[3] = t
+        logit_len[4], label_len[4], labels[4] = 0, 0, -1
+        logit_len[5] = t + 5
+    return logits, logit_len, labels, label_len
+
+
+def _ctc_kernels_vs_plain(cuda, case, fl_gamma=0.0):
+    """Kernels against ctc_loss_plain on the same CUDA tensors: per-row
+    values, and the gradient of the weighted focal sum (each row's cotangent
+    differs); the kernels bit-equal across two runs, one launch each a run."""
+    from chiron_tpu_torch.ops import ctc_loss as tctc
+
+    logits, logit_len, labels, label_len = case
+    rest = [torch.tensor(a, device=cuda) for a in (logit_len, labels, label_len)]
+    w = torch.tensor(np.linspace(0.5, 1.5, len(label_len)).astype(np.float32), device=cuda)
+
+    def run(fn):
+        lg = torch.tensor(logits, device=cuda, requires_grad=True)
+        per_row = fn(lg, *rest)
+        focal = torch.pow(1.0 - torch.exp(-per_row), fl_gamma) * per_row if fl_gamma else per_row
+        (focal * w).sum().backward()
+        return per_row.detach(), lg.grad
+
+    before = dict(tctc.launches)
+    got = run(tctc.ctc_loss)
+    assert tctc.launches == {k: n + 1 for k, n in before.items()}
+    again = run(tctc.ctc_loss)
+    want = run(tctc.ctc_loss_plain)
+    assert tctc.launches == {k: n + 2 for k, n in before.items()}
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]), "differs between runs"
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(), atol=1e-5, rtol=0)
+    ignored = label_len > logit_len
+    assert not got[0].cpu().numpy()[ignored].any() and not got[1].cpu().numpy()[ignored].any()
+    past = np.arange(logits.shape[1])[None, :] >= logit_len[:, None]
+    assert not got[1].cpu().numpy()[past].any()
+    return got
+
+
+# the train cell's step: B = T = 400, labels 120 wide (S = 241), bases ~44 a
+# window, every row's own frame count
+@pytest.mark.cuda
+@pytest.mark.parametrize("fl_gamma", [0.0, 2.0])
+def test_ctc_kernels_match_plain_at_the_train_shape(cuda, fl_gamma):
+    from chiron_tpu_torch.ops import ctc_loss as tctc
+
+    case = _ctc_case(400, 400, 400, 120, 5, label_max=90)
+    _ctc_kernels_vs_plain(cuda, case, fl_gamma)
+    # the mean the train step takes, through ctc_focal_loss
+    lg = torch.tensor(case[0], device=cuda)
+    rest = [torch.tensor(a, device=cuda) for a in case[1:]]
+    got = tctc.ctc_focal_loss(lg, *rest, fl_gamma=fl_gamma)
+    per_row = tctc.ctc_loss_plain(lg, *rest)
+    want = (torch.pow(1.0 - torch.exp(-per_row), fl_gamma) * per_row if fl_gamma
+            else per_row).mean()
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,b,t,u,n_class", [
+    (0, 6, 20, 7, 5),      # the edge rows at the CPU tests' size
+    (1, 8, 40, 12, 5),
+    (2, 7, 30, 6, 6),      # six classes (blank = 5)
+    (3, 9, 64, 30, 5),     # a slot a thread, two warps
+    (4, 8, 1300, 600, 5),  # S = 1201: two slots a thread
+    (6, 8, 1700, 1500, 5),  # S = 3001: eight slots a thread, 384 threads
+    (5, 8, 2600, 2048, 5),  # S = 4097: sixteen slots a thread, 288 threads
+])
+def test_ctc_kernels_match_plain_at_edge_cases(cuda, seed, b, t, u, n_class):
+    _ctc_kernels_vs_plain(cuda, _ctc_case(seed, b, t, u, n_class), fl_gamma=2.0)
+
+
+@pytest.mark.cuda
+def test_ctc_kernels_with_no_labels(cuda):
+    # a batch whose labels are all empty (U = 0, S = 1) and one of six classes
+    rng = np.random.RandomState(9)
+    logits = rng.randn(3, 12, 6).astype(np.float32)
+    logit_len = np.array([12, 7, 1], np.int32)
+    _ctc_kernels_vs_plain(cuda, (logits, logit_len, np.zeros((3, 0), np.int32),
+                                 np.zeros(3, np.int32)))
+    _ctc_kernels_vs_plain(cuda, (logits, logit_len, np.array([[4, 4, 0], [2, -1, -1],
+                                                              [-1, -1, -1]], np.int32),
+                                 np.array([3, 1, 0], np.int32)))
+
+
+@pytest.mark.cuda
+def test_a_train_step_launches_each_ctc_kernel_once(cuda):
+    # make_train_step on the card: one ctc_alpha and one ctc_beta_grad a step
+    from chiron_tpu_torch.models.model import init_model, model_ratio
+    from chiron_tpu_torch.ops import ctc_loss as tctc
+    from chiron_tpu_torch.params import from_jax_params, to_numpy_tree
+    from chiron_tpu_torch.train import loop
+
+    config = {"cnn": {"model": "dna_model1"},
+              "rnn": {"layer_num": 1, "hidden_num": 16, "cell_type": "LSTM",
+                      "layer_type": "normal"}}
+    model = from_jax_params(init_model(torch.Generator().manual_seed(0), config), config,
+                            cuda).requires_grad_(True)
+    ema = from_jax_params(to_numpy_tree(model), config, cuda)
+    opt = loop.make_optimizer("Adam", 1e-3, 100, model.parameters())
+    step = loop.make_train_step(config, 2.0)
+    rng = np.random.RandomState(0)
+    labels = np.full((8, 12), -1, np.int32)
+    label_len = rng.randint(1, 13, 8).astype(np.int32)
+    for i, n in enumerate(label_len):
+        labels[i, :n] = rng.randint(0, 4, n)
+    batch = loop.batch_to_device({"signal": rng.randn(8, 64).astype(np.float32),
+                                  "seq_len": rng.randint(40, 65, 8).astype(np.int32),
+                                  "label": labels, "label_len": label_len},
+                                 model_ratio(config, 64), cuda)
+    before = dict(tctc.launches)
+    losses = [float(step(model, ema, opt, batch, i)) for i in range(2)]
+    assert tctc.launches == {k: n + 2 for k, n in before.items()}
+    assert np.isfinite(losses).all()
+
+
 @pytest.mark.cuda
 def test_wrapper_raises_on_bad_cuda_input(cuda):
     x = torch.zeros(2, 8, 4, device=cuda, dtype=torch.float64)
@@ -533,6 +674,18 @@ def test_wrapper_raises_on_bad_cuda_input(cuda):
         tbn.bnlstm_layer(torch.zeros(3, 2, 32, device=cuda), torch.zeros(8, 32, device=cuda),
                          *[torch.zeros(32, device=cuda)] * 3, *[torch.zeros(8, device=cuda)] * 2,
                          lens2.cpu())
+    from chiron_tpu_torch.ops import ctc_loss as tctc
+
+    ctc_rest = [torch.ones(2, device=cuda, dtype=torch.int32),
+                torch.zeros(2, 1, device=cuda, dtype=torch.int32),
+                torch.ones(2, device=cuda, dtype=torch.int32)]
+    for dtype in (torch.float64, torch.bfloat16):  # the CTC kernels are float32
+        with pytest.raises(ValueError):
+            tctc.ctc_loss(torch.zeros(2, 5, 5, device=cuda, dtype=dtype), *ctc_rest)
+    for i in range(3):  # a length or the labels on the CPU, the logits on the card
+        with pytest.raises(ValueError):
+            tctc.ctc_loss(torch.zeros(2, 5, 5, device=cuda),
+                          *[r.cpu() if j == i else r for j, r in enumerate(ctc_rest)])
     with pytest.raises(ValueError):  # a pool no block's shared memory holds (W <= 1638 at C = 5)
         tbeam.beam_search(torch.zeros(2, 5, 5, device=cuda), torch.zeros(2, device=cuda,
                                                                           dtype=torch.int32),
