@@ -178,7 +178,24 @@ Phases (any failure exits non-zero and prints no result line):
      `call -p dna-pre` on the numpy paths whose fastq equals phase 3's; 11e the
      fast5 tools are not run (no h5py on the card's machine: the CPU tests hold
      them);
- 12. print the per-kernel JSON line, then {"ok": true, "device": ...}.
+ 12. Bonito's HAC CRF model (CRF_CONFIG: dna_r9.4.1_e8_hac@v3.3 at its
+     published widths, the benchmark configuration's seeded weights) written
+     as a model directory: `call -l 4000 -j 3500 -b 400 --sig_norm 0` on 20
+     seeded reads (820 windows, 3 batches) in both modes, twice each, every
+     count set to 0 just before (conv_bn 3, the one-direction LSTM kernel 5
+     and each CRF kernel 1 a batch, in the mode's instances) and the frames
+     the CRF kernels decoded equal to the windows' ceil(samples / 5); the
+     fastq files; the first batch's step against the plain reference
+     (reference/bonito_crf.py) on the card on its first CRF_REF_ROWS windows
+     (float32 held, bf16 printed); the three CRF kernels against their plain
+     version on that batch's scores (B = 400, T = 800, 1,024 states; a row on
+     another path must be a near-tie: both paths within 1e-3 a frame under the
+     plain version's log posteriors) and the
+     stem's three convs (swish prologue, k // 2 padding, T = 4,000) against
+     theirs in both modes, each timed beside its plain version, its bound and
+     (the stem) cuDNN, no kernel below its bound; their rows join the kernel
+     line, and the CRF kernels join the spill check of phase 1;
+ 13. print the per-kernel JSON line, then {"ok": true, "device": ...}.
 """
 
 from __future__ import annotations
@@ -250,6 +267,22 @@ MODELS = {"DNA_default": ("dna-pre", "dna", 12), "DNA_slow": ("dna-slow-pre", "d
 # 400 windows, ~30 MB of logits)
 OUT_DIR = os.path.join(REPO, "chiron_tpu_torch", "_build", "chip_smoke")
 SAVED_WINDOWS = 16
+# phase 12, Bonito's HAC CRF model (dna_r9.4.1_e8_hac@v3.3) at its published
+# widths, with the seeded weights of the benchmark's Bonito_HAC_r941
+# (benchmark/configs/bonito_hac_r941.json: weights.seed and weights.gains),
+# called as its cell calls it: -l 4000 -j 3500 -b 400 --sig_norm 0
+CRF_CONFIG = {"cnn": {"model": "bonito_stem", "features": 384, "winlen": 19, "stride": 5},
+              "rnn": {"layer_num": 5, "hidden_num": 384, "cell_type": "LSTM",
+                      "layer_type": "alternating"},
+              "decoder": {"type": "crf", "state_len": 5, "scale": 5.0, "blank_score": 2.0}}
+CRF_WEIGHTS_SEED, CRF_GAINS = 20261018, {"conv": 3.0, "lstm": 3.0, "head": 2.75}
+CRF_SEG, CRF_JUMP = 4000, 3500
+# the card's float32 step against the plain reference (reference/bonito_crf.py)
+# on the card, on the first CRF_REF_ROWS windows of a batch: the Viterbi scores
+# within CRF_SCORE_GAP of the largest (the cell's sound readings are 1.2-2.6e-4,
+# one perturbed score column reads 0.2), and at least CRF_MIN_SAME of the
+# windows decoding to the same string (random weights flip a decode at a near-tie)
+CRF_REF_ROWS, CRF_SCORE_GAP, CRF_MIN_SAME = 16, 1e-3, 0.75
 # phase 7, the CNN zoo: every front of the JAX package's zoo that no bundled
 # model runs, at its published widths (the JAX package's defaults), a
 # dynamic_net with every layer type (a VALID conv, both pools, a conv of 250
@@ -376,6 +409,21 @@ def beam_bound(steps, b, t, w, c=5):
     cand = w * c
     return bound_ms(steps * (8 * cand + 4 * w * w + cand * np.log2(cand)),
                     4.0 * (b * t * c + b + b * t * w + 2 * b * w))
+
+
+def crf_bounds(frames, b, t, s):
+    """The CRF kernels' bounds from their inputs, over ``frames`` active (row,
+    frame) pairs of S states: per pair and state, the backward scan's
+    logsumexp over 5 edges (an add and an exp an edge, a log: 11 ops) and the
+    forward scan's alpha logsumexp, posterior and Viterbi step (21); bytes:
+    each scan reads the frame's 4 S float32 scores, beta is written by the
+    backward scan and read by the forward one, a traceback byte a state is
+    written; the traceback reads a byte a frame along the path and writes the
+    path (int32 [B, T])."""
+    beta = bound_ms(11.0 * frames * s, 4.0 * frames * (4 * s + s) + 4.0 * b)
+    viterbi = bound_ms(21.0 * frames * s, 4.0 * frames * (4 * s + s) + frames * s + 16.0 * b)
+    traceback = bound_ms(2.0 * frames, frames + 4.0 * b * t + 8.0 * b)
+    return {"crf_beta": beta, "crf_viterbi": viterbi, "crf_traceback": traceback}
 
 
 def time_ms(torch, fn, reps, warm=2):
@@ -1535,6 +1583,257 @@ def last_modules(torch, work, sig_dir, gpu_model, batch, phase3_step, reset, cou
     return numbers, launches
 
 
+def crf_model(torch, work, reset, counts, check_counts, smi):
+    """Phase 12: Bonito's HAC CRF model (CRF_CONFIG) on the card. Returns its
+    numbers and its rows of the kernel line (the stem's conv_bn instances in
+    both modes, the three CRF kernels)."""
+    from chiron_tpu_torch import config as C
+    from chiron_tpu_torch import cli
+    from chiron_tpu_torch.eval import pipeline
+    from chiron_tpu_torch.io.signal import read_signal_for_eval
+    from chiron_tpu_torch.models import crf as mcrf, layers as L, model as M
+    from chiron_tpu_torch.ops import conv_bn, crf
+    from chiron_tpu_torch.reference import bonito_crf as RB
+    from chiron_tpu_torch.train.checkpoint import save_checkpoint
+
+    dev = torch.device("cuda")
+    blank = CRF_CONFIG["decoder"]["blank_score"]
+    numbers, failures = {"card": smi}, []
+
+    def hold(name, err, tol):
+        ok = err <= tol
+        log(f"  {name}: {err:.3e} (tolerance {tol:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(name)
+        return err
+
+    # the model directory, written as the benchmark's runner writes it, and
+    # 20 reads of 41 windows each (39 of 4,000 samples, then 3,510 and 10)
+    state = RB.init_bonito(CRF_WEIGHTS_SEED, gains=CRF_GAINS)
+    mdir = os.path.join(work, "bonito_hac")
+    save_checkpoint(mdir, mcrf.from_bonito(state, CRF_CONFIG["rnn"]["layer_num"]), 0)
+    with open(os.path.join(mdir, "model.json"), "w") as f:
+        json.dump(CRF_CONFIG, f)
+    sig = os.path.join(work, "signal_crf")
+    n_reads, samples = 20, 40 * CRF_JUMP + 10
+    write_reads(sig, n_reads, samples, np.random.RandomState(SEED + 12))
+    per_read = [min(CRF_SEG, samples - s) for s in range(0, samples, CRF_JUMP)]
+    lens = np.array(per_read * n_reads)
+    batches = -(-len(lens) // BATCH)
+    last = lens[(batches - 1) * BATCH:]  # the last batch repeats its own windows
+    padded = np.concatenate([lens[:(batches - 1) * BATCH],
+                             np.pad(last, (0, BATCH - len(last)), mode="wrap")])
+    frames = int(sum(-(-int(n) // 5) for n in padded))  # ceil(samples / stride) a window
+
+    # `call` in both modes, every count set to 0 just before and read just after
+    launches = {}
+    for tag, b16 in (("float32", False), ("bfloat16", True)):
+        args = ["call", "-i", sig, "-m", mdir, "-l", str(CRF_SEG), "-j", str(CRF_JUMP),
+                "-b", str(BATCH), "--sig_norm", "0", "--device", "cuda"]
+        args += ["--bf16"] if b16 else []
+        for run in ("counted", "warm"):
+            out = os.path.join(work, f"out_crf_{tag}_{run}")
+            reset()
+            f0 = crf.frames_decoded()
+            t = time.time()
+            res = cli.main(args[:3] + ["-o", out] + args[3:])
+            torch.cuda.synchronize()
+            wall = time.time() - t
+            cnt = counts()
+            got_frames = crf.frames_decoded() - f0
+            log(f"call -m bonito_hac{' --bf16' if b16 else ''} ({run}): "
+                f"{res['total_windows']} windows in {batches} batches, {res['total_bases']} "
+                f"bases in {wall:.3f} s ({res['total_bases'] / wall:.0f} bases/s); frames "
+                f"decoded {got_frames}; launches {dict((k, n) for k, n in cnt.items() if n)}")
+            check_counts(f"bonito_hac call {tag} ({run})", cnt,
+                         {f"conv_bn_{tag}": 3 * batches, f"lstm_layer_{tag}": 5 * batches,
+                          "crf_beta": batches, "crf_viterbi": batches,
+                          "crf_traceback": batches})
+            if got_frames != frames:
+                fail(f"bonito_hac call {tag}: {got_frames} frames decoded, expected {frames}")
+            if res["n_files"] != n_reads or res["total_windows"] != len(lens):
+                fail(f"bonito_hac call {tag}: expected {n_reads} files / {len(lens)} "
+                     f"windows, got {res}")
+            result_dir = os.path.join(out, "result")
+            fastqs = sorted(os.listdir(result_dir))
+            if len(fastqs) != n_reads:
+                fail(f"bonito_hac call {tag}: {len(fastqs)} fastq files, expected {n_reads}")
+            for name in fastqs:
+                with open(os.path.join(result_dir, name)) as fh:
+                    lines = fh.read().splitlines()
+                if len(lines) != 4 or not lines[1] or len(lines[1]) != len(lines[3]) \
+                        or set(lines[1]) - set("ACGT"):
+                    fail(f"bonito_hac call {tag}: malformed fastq {name}")
+            numbers[f"call_{tag}_{run}"] = {"seconds": wall, "bases": res["total_bases"],
+                                            "bases_per_s": res["total_bases"] / wall}
+            if run == "counted":
+                for k, n in cnt.items():
+                    if n:
+                        launches[k] = launches.get(k, 0) + n
+
+    # the first batch's windows as the call makes them (median / MAD)
+    wins, samp = [], []
+    for i in range(n_reads):
+        w, n = read_signal_for_eval(os.path.join(sig, f"read{i:02d}.signal"), 0,
+                                    step=CRF_JUMP, seg_length=CRF_SEG, normalize=0)
+        wins.append(w)
+        samp.append(n)
+    x = torch.from_numpy(np.concatenate(wins)[:BATCH]).to(dev)
+    n_samp = np.concatenate(samp)[:BATCH]
+    fr = torch.from_numpy(M.window_frames(CRF_CONFIG, n_samp, CRF_SEG)).to(dev)
+    model = pipeline.load_model(mdir, C.read_config(os.path.join(mdir, "model.json")), dev)
+
+    # the step against the plain reference on the card (float32, TF32 off)
+    ref = RB.BonitoCRF(state, dev)
+    with torch.no_grad():
+        r_str, r_score, _ = ref.basecall(x[:CRF_REF_ROWS], fr[:CRF_REF_ROWS])
+    r_score = r_score.cpu().numpy()
+    for tag, b16 in (("float32", False), ("bfloat16", True)):
+        dec, n_out, score, _ = pipeline.unpack_step_outputs(
+            pipeline.decode_step(model, x, fr, 0, 0.0, b16).cpu().numpy())
+        got = ["".join("ACGT"[c] for c in dec[i, :n_out[i]]) for i in range(CRF_REF_ROWS)]
+        gap = float(np.abs(score[:CRF_REF_ROWS] - r_score).max() / np.abs(r_score).max())
+        same = sum(g == r for g, r in zip(got, r_str)) / CRF_REF_ROWS
+        numbers[f"step_{tag}_vs_reference"] = {"score_gap": gap, "same_strings": same,
+                                               "bases": int(n_out[:CRF_REF_ROWS].sum())}
+        log(f"  step {tag} vs the plain reference on {CRF_REF_ROWS} windows: score gap "
+            f"{gap:.3e}, identical strings {same:.3f}, {int(n_out[:CRF_REF_ROWS].sum())} "
+            f"bases (reference {sum(map(len, r_str))})")
+        if not b16:  # bf16 is printed beside it: its gap is the working type's
+            hold("bonito_hac step float32 vs reference: score gap", gap, CRF_SCORE_GAP)
+            if same < CRF_MIN_SAME:
+                failures.append("bonito_hac step float32 vs reference: identical strings")
+
+    # the CRF kernels against their plain version on the batch's float32 scores
+    with torch.no_grad():
+        z = M.crf_scores(model.params, model.config, model.encode(x, fr)).contiguous()
+    lc = fr.contiguous()
+    s_count = z.shape[2] // 4
+    beta = crf.crf_beta(z, lc, blank)
+    tb, score, prob, final = crf.crf_viterbi(z, lc, beta, blank)
+    path = crf.crf_traceback(tb, final, lc)
+    beta_p = crf.crf_beta_plain(z, lc, blank)
+    tb_p, score_p, prob_p, final_p, post_p = crf.crf_forward_plain(z, lc, beta_p, blank,
+                                                                   posteriors=True)
+    path_p = crf.crf_traceback_plain(tb_p, final_p, lc)
+    t_max = z.shape[1]
+    live = torch.arange(t_max + 1, device=dev)[None, :, None] <= lc.long()[:, None, None]
+    pred = crf.predecessors(s_count, dev)
+    rows_i = torch.arange(BATCH, device=dev)
+
+    def path_score(cols, fin):
+        """Each row's path (columns, from its final state) scored under the
+        plain version's log posteriors."""
+        st, total = fin.long(), torch.zeros(BATCH, dtype=torch.float64, device=dev)
+        for t in range(t_max - 1, -1, -1):
+            on, c = t < lc, cols[:, t].long().clamp(min=0)
+            total += torch.where(on, post_p[rows_i, t, st, c].double(), 0.0)
+            st = torch.where(on, pred[st, c], st)
+        return total
+
+    # a row on another path is a near-tie: both paths score alike under the
+    # plain version's posteriors (random weights leave many)
+    other = (path != path_p).any(dim=1)
+    tie = ((path_score(path, final) - path_score(path_p, final_p)).abs()
+           / lc.clamp(min=1).double()).masked_fill(~other, 0.0)
+    pc, pp = path.cpu(), path_p.cpu()
+    other_bases = sum(not torch.equal(pc[r][pc[r] >= 1], pp[r][pp[r] >= 1])
+                      for r in torch.nonzero(other).flatten().tolist())
+    del post_p
+    crf_err = {
+        "beta_rel": float(((beta - beta_p).abs() * live).max() / beta_p.abs().max()),
+        "score_per_frame": float(((score - score_p).abs() / lc.clamp(min=1).float()).max()),
+        "prob_abs": float((prob - prob_p).abs().max()),
+        "rows_on_another_path": int(other.sum()), "rows_with_other_bases": other_bases,
+        "near_tie_gap_per_frame": float(tie.max())}
+    log(f"CRF kernels at B={BATCH} T={t_max} S={s_count} (the first batch's scores): "
+        + json.dumps(crf_err))
+    hold("crf_beta vs plain (beta, relative to max |beta|)", crf_err["beta_rel"], 1e-6)
+    hold("crf_viterbi vs plain (Viterbi score a frame)", crf_err["score_per_frame"], 1e-3)
+    hold("crf_viterbi vs plain (mean posterior gap)", crf_err["prob_abs"], 1e-4)
+    hold("crf_traceback vs plain (rows on another path: their path scores' gap a frame "
+         "under the plain posteriors)", crf_err["near_tie_gap_per_frame"], 1e-3)
+    timing = {
+        "crf_beta": (time_ms(torch, lambda: crf.crf_beta(z, lc, blank), 10),
+                     time_ms(torch, lambda: crf.crf_beta_plain(z, lc, blank), 2, 1), None),
+        "crf_viterbi": (time_ms(torch, lambda: crf.crf_viterbi(z, lc, beta, blank), 10),
+                        time_ms(torch, lambda: crf.crf_forward_plain(z, lc, beta_p, blank), 2, 1),
+                        None),
+        "crf_traceback": (time_ms(torch, lambda: crf.crf_traceback(tb, final, lc), 20),
+                          time_ms(torch, lambda: crf.crf_traceback_plain(tb_p, final_p, lc),
+                                  2, 1), None)}
+    bounds = crf_bounds(float(lc.sum()), BATCH, t_max, s_count)
+    err = {"crf_beta": crf_err["beta_rel"] * float(beta_p.abs().max()),
+           "crf_viterbi": float((score - score_p).abs().max()),
+           "crf_traceback": crf_err["near_tie_gap_per_frame"]}
+    del z, beta, beta_p, tb_p
+
+    # the stem's three convs (swish prologue on the second and third, k // 2
+    # padding) against their plain version and cuDNN, at T = 4,000, B = 400
+    stem = {}
+    for tag, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        x0 = L.store_activation(x, dt == torch.bfloat16)[..., None]
+        terms = ((x0, torch.ones(1, device=dev), torch.zeros(1, device=dev)),)
+        row = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "err": 0.0,
+               "bound_by": []}
+        for i, (k, c_out, stride) in enumerate(M._bonito_stem_shapes(CRF_CONFIG["cnn"])):
+            p = model.params["cnn"][f"conv{i + 1}"]
+            args = (terms, p["w"], False, stride, dt, i > 0, k // 2)
+            got = conv_bn.conv_bn(*args)
+            want = conv_bn.conv_bn_plain(*args)
+            scale = float(want[0].float().abs().max())
+            e = float((got[0].float() - want[0].float()).abs().max())
+            # float32 at conv_bn's tolerance; bf16 within one ulp of the largest value
+            hold(f"stem conv{i + 1} {tag} k={k} {terms[0][0].shape[2]}->{c_out} stride "
+                 f"{stride} vs plain (relative to max |y|)", e / scale,
+                 1e-4 if dt == torch.float32 else 1 / 128)
+            xin = conv_bn._prologue(terms, False, i > 0).to(dt).transpose(1, 2).contiguous()
+            w_lib = p["w"].permute(2, 1, 0).contiguous().to(dt)
+            row["ms"] += time_ms(torch, lambda: conv_bn.conv_bn(*args), 10)
+            row["plain_ms"] += time_ms(torch, lambda: conv_bn.conv_bn_plain(*args), 3, 1)
+            row["library_ms"] += time_ms(torch, lambda: torch.nn.functional.conv1d(
+                xin, w_lib, None, stride, k // 2), 10)
+            b_ms, b_by, _ = conv_bound(terms, p["w"], stride)
+            row["bound_ms"] += b_ms
+            row["bound_by"].append(b_by)
+            row["err"] = max(row["err"], e)
+            terms = ((got[0], torch.ones(c_out, device=dev), p["b"]),)
+        stem[tag] = row
+        log(f"  stem {tag} (three convs): {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
+            f"cuDNN {row['library_ms']:.4f}, bound {row['bound_ms']:.4f})")
+    if failures:
+        fail(f"Bonito's HAC CRF model on the card: {failures}")
+
+    source = {"crf": ("chiron_tpu_torch/csrc/crf.cu",
+                      "no JAX kernel: Bonito's CTC_CRF.decode_batch (bonito/crf/model.py)"),
+              "stem": ("chiron_tpu_torch/csrc/conv_bn.cu", "chiron_tpu/ops/pallas/convbn.py:188")}
+    rows = []
+    for name in ("crf_beta", "crf_viterbi", "crf_traceback"):
+        ms, plain_ms, lib_ms = timing[name]
+        rows.append({"name": name, "route": "cuda", "source": source["crf"][0],
+                     "replaces": source["crf"][1], "launches": launches[name],
+                     "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                     "library_ms": lib_ms})
+    for name, tag in (("conv_bn_stem", "float32"), ("conv_bn_stem_bf16", "bfloat16")):
+        r = stem[tag]
+        rows.append({"name": name, "route": "cuda", "source": source["stem"][0],
+                     "replaces": source["stem"][1], "launches": launches[f"conv_bn_{tag}"],
+                     "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": " + ".join(r["bound_by"]),
+                     "library_ms": r["library_ms"]})
+    for r in rows:
+        log(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']}), launches "
+            f"{r['launches']}")
+        if r["ms"] < r["bound_ms"]:
+            fail(f"{r['name']}: {r['ms']:.4f} ms reads below its bound {r['bound_ms']:.4f} ms: "
+                 "the count of its work is wrong")
+    numbers["crf_vs_plain"] = crf_err
+    numbers["launches"] = launches
+    return numbers, rows
+
+
 def main(out_dir=OUT_DIR):
     import torch
 
@@ -1544,7 +1843,7 @@ def main(out_dir=OUT_DIR):
     from chiron_tpu_torch import config as C
     from chiron_tpu_torch.eval import pipeline
     from chiron_tpu_torch.models import layers as L, model as M, rnn as R
-    from chiron_tpu_torch.ops import (beam, bilstm, bnlstm, conv_bn, cuda_build, gru, lstm,
+    from chiron_tpu_torch.ops import (beam, bilstm, bnlstm, conv_bn, crf, cuda_build, gru, lstm,
                                       lstm_grad)
     from chiron_tpu_torch.ops import ctc_loss as ctc
     from chiron_tpu_torch.params import from_jax_params, to_numpy_tree
@@ -1579,7 +1878,9 @@ def main(out_dir=OUT_DIR):
                                         "lstm_bwd_kernel", "beam_warp_kernel",
                                         "beam_block_kernel", "beam_traceback_kernel",
                                         "bnlstm_cluster_kernel", "gru_kernel",
-                                        "ctc_alpha_kernel", "ctc_beta_grad_kernel")):
+                                        "ctc_alpha_kernel", "ctc_beta_grad_kernel",
+                                        "crf_beta_kernel", "crf_viterbi_kernel",
+                                        "crf_traceback_kernel")):
                 if "0 bytes spill stores, 0 bytes spill loads" not in lines[i + 2]:
                     fail(f"{name}: a redesigned kernel spills registers: {lines[i + 2].strip()}")
 
@@ -2119,7 +2420,8 @@ def main(out_dir=OUT_DIR):
         conv_bn.launches = bilstm.launches = lstm.launches = 0
         for counter in (conv_bn.launches_by_dtype, bilstm.launches_by_dtype,
                         lstm.launches_by_dtype, beam.launches, gru.launches,
-                        gru.instance_launches, bnlstm.launches, bnlstm.instance_launches):
+                        gru.instance_launches, bnlstm.launches, bnlstm.instance_launches,
+                        crf.launches):
             for k in counter:
                 counter[k] = 0
 
@@ -2133,7 +2435,8 @@ def main(out_dir=OUT_DIR):
                 **beam.launches,
                 **{f"{k}_layer": n for k, n in {**gru.launches, **bnlstm.launches}.items()},
                 **{f"bnlstm_{k}": n for k, n in bnlstm.instance_launches.items()},
-                **{f"gru_{k}": n for k, n in gru.instance_launches.items()}}
+                **{f"gru_{k}": n for k, n in gru.instance_launches.items()},
+                **crf.launches}
 
     def call(out, beam_width, model=None, preset="dna-pre", mode="dna", bf16_mode=False,
              inp=None):
@@ -3846,6 +4149,14 @@ def main(out_dir=OUT_DIR):
         k["launches"] += last_launches.get(k["name"], 0)
     log(json.dumps({"last_modules": last, "last_modules_launches": last_launches}))
     log(f"phase 11 took {time.time() - t11:.1f} s")
+
+    # ---- 12. Bonito's HAC CRF model: the stem's swish convs, the CRF kernels ----
+    phase("12. Bonito's HAC CRF model")
+    t12 = time.time()
+    hac, hac_kernels = crf_model(torch, work, reset, counts, check_counts, smi)
+    kernels += hac_kernels
+    log(json.dumps({"bonito_hac": hac}))
+    log(f"phase 12 took {time.time() - t12:.1f} s")
     shutil.rmtree(work, ignore_errors=True)
     log(json.dumps({**{f"call_{k}": r for k, r in call_rates.items()},
                     "train_s400_b300": train_rate,

@@ -80,6 +80,34 @@ def alphabet(config) -> str:
     return BASES_METH[: int(config.get("alphabet", 4))]
 
 
+# The decoder a model.json may name ("decoder": {"type": ...}); without the
+# key a model is a CTC model (greedy or beam search by --beam). A "crf" model
+# (Bonito's CTC-CRF head, models/crf.py) is decoded by ops/crf.py; these are
+# its defaults, Bonito's dna_r9.4.1_e8_hac@v3.3 config.toml.
+CRF_DEFAULTS: Dict[str, Any] = {"type": "crf", "state_len": 5, "scale": 5.0,
+                                "blank_score": 2.0}
+
+
+def decoder(config) -> Dict[str, Any]:
+    """The model's decoder, its defaults filled in: {"type": "ctc"} or a
+    CRF's {"type": "crf", "state_len", "scale", "blank_score"}."""
+    dec = dict(config.get("decoder") or {"type": "ctc"})
+    kind = dec.get("type", "ctc")
+    if kind == "ctc":
+        return {"type": "ctc"}
+    if kind != "crf":
+        raise ValueError(f"decoder type must be 'ctc' or 'crf', got {kind!r}")
+    out = dict(CRF_DEFAULTS)
+    out.update(dec)
+    if int(config.get("alphabet", 4)) != 4:
+        raise ValueError("a CRF decoder emits the 4 bases ACGT: alphabet must be 4")
+    return out
+
+
+def is_crf(config) -> bool:
+    return decoder(config)["type"] == "crf"
+
+
 def default_config() -> Dict[str, Any]:
     """A deep copy of the default (DNA) model configuration."""
     return json.loads(json.dumps(_DEFAULT_CONFIG))

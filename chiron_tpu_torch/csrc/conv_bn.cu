@@ -2,8 +2,10 @@
 //
 // Replaces the TPU kernel chiron_tpu/ops/pallas/convbn.py:conv_bn_pallas
 // (_conv_bn_kernel). Same function:
-//   x = relu?(sum_i raw_i * a_i + b_i)           (one or two terms)
-//   x is zero-padded AFTER the prologue (XLA SAME arithmetic, any stride)
+//   x = act(sum_i raw_i * a_i + b_i)             (one or two terms; act: none,
+//                                                  relu, or swish v * sigmoid(v))
+//   x is zero-padded AFTER the prologue (XLA SAME arithmetic or an explicit left
+//   pad lpad, any stride)
 //   y[b, t, n] = sum_{tap, c} x[b, t*s - lpad + tap, c] * w[tap, c, n]
 //   sums[n] = sum_{b,t} y,  sqs[n] = sum_{b,t} y^2
 //
@@ -94,6 +96,12 @@
 // raws equals, bit for bit, the float32 instance on the same raws upcast, with y
 // rounded afterwards (where both take the same route). Its tensor-core kernel
 // runs two blocks an SM, not three (registers: see the kernel).
+//
+// Bonito's conv stem (models/layers.py:stem_conv) reads its input through a swish
+// prologue, v * sigmoid(v), with an explicit left pad. Swish is a template
+// parameter of every kernel (SWISH), not a runtime choice beside the relu: the
+// instances without it are compiled from the same code as before it existed, so
+// their outputs, registers and times are unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -198,11 +206,15 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// v * sigmoid(v) with an accurate expf, as the plain version computes it
+__device__ __forceinline__ float swish(float v) { return v * (1.f / (1.f + expf(-v))); }
+
 // Three blocks an SM for the float32 instance (168 registers, no spill); the
 // bfloat16 instance spills at that cap (12 bytes, measured with -Xptxas -v) and
-// takes two blocks an SM instead (218 registers, no spill).
-template <typename T>
-__global__ void __launch_bounds__(NT, sizeof(T) == 4 ? 3 : 2)
+// takes two blocks an SM instead (218 registers, no spill), as does the float32
+// swish instance (8 bytes of spill at three).
+template <typename T, bool SWISH>
+__global__ void __launch_bounds__(NT, sizeof(T) == 4 && !SWISH ? 3 : 2)
 conv_bn_mma_kernel(const T* __restrict__ raw0, const T* __restrict__ raw1,
                    const float* __restrict__ a0, const float* __restrict__ b0,
                    const float* __restrict__ a1, const float* __restrict__ b1,
@@ -296,7 +308,12 @@ conv_bn_mma_kernel(const T* __restrict__ raw0, const T* __restrict__ raw1,
           v.z += fmaf(r1.z, ta.z, tb.z);
           v.w += fmaf(r1.w, ta.w, tb.w);
         }
-        if (relu_in) {
+        if (SWISH) {
+          v.x = swish(v.x);
+          v.y = swish(v.y);
+          v.z = swish(v.z);
+          v.w = swish(v.w);
+        } else if (relu_in) {
           v.x = fmaxf(v.x, 0.f);
           v.y = fmaxf(v.y, 0.f);
           v.z = fmaxf(v.z, 0.f);
@@ -468,7 +485,7 @@ conv_bn_mma_kernel(const T* __restrict__ raw0, const T* __restrict__ raw1,
 constexpr int NW = 16;    // k * cin up to which the weights live in registers
 constexpr int DT = 256;   // threads per block
 
-template <typename T>
+template <typename T, bool SWISH>
 struct Prologue {
   const T *raw0, *raw1;
   const float *a0, *b0, *a1, *b1;
@@ -478,6 +495,7 @@ struct Prologue {
     const size_t off = (row_base + tin) * cin + c;
     float v = fmaf(to_float(raw0[off]), a0[c], b0[c]);
     if (raw1 != nullptr) v += fmaf(to_float(raw1[off]), a1[c], b1[c]);
+    if (SWISH) return swish(v);
     return relu_in ? fmaxf(v, 0.f) : v;
   }
 };
@@ -506,9 +524,9 @@ __device__ __forceinline__ void fma4(float4& acc, float x, const float4& wv) {
 // 4 * (ng0 + tx) .. + 3 and the rows ty, ty + TY, ... of the block's 80.
 // NARROW: k * cin <= NW, the normalised slab [(BM - 1) * stride + k][cin] in
 // shared memory and the thread's weights in registers.
-template <typename T, bool NARROW>
+template <typename T, bool NARROW, bool SWISH>
 __global__ void __launch_bounds__(DT)
-conv_bn_direct_kernel(Prologue<T> pro, const float* __restrict__ w, T* __restrict__ y,
+conv_bn_direct_kernel(Prologue<T, SWISH> pro, const float* __restrict__ w, T* __restrict__ y,
                       float* __restrict__ partial, int cout, int k, int stride, int lpad,
                       int out_t, int slab_floats, int vec) {
   extern __shared__ __align__(16) float smem[];
@@ -668,7 +686,7 @@ size_t mma_smem_bytes(int slab_rows, bool two_terms, size_t elem_bytes) {
          elem_bytes * (two_terms ? 2 : 1) * (size_t)slab_rows * KC;
 }
 
-template <typename T>
+template <typename T, bool SWISH>
 int launch(const T* raw0, const T* raw1, const float* a0, const float* b0, const float* a1,
            const float* b1, const float* w, T* y, float* partial, float* xpart, double* colsum,
            float* sums, float* sqs, int batch, int T_, int cin, int cout, int k, int stride,
@@ -700,28 +718,43 @@ int conv_bn_route(int cin, int cout, int k, int stride, int two_terms, int bf16)
 // cout] float32. xpart ([row_tiles, k * cin] float32) and colsum ([k * cin]
 // float64) are scratch of the tensor-core route (conv_bn_route(...) == 2) and
 // may be null otherwise; without them the launch takes the CUDA-core kernel.
+// act_in: the prologue's activation, 0 none, 1 relu, 2 swish (the SWISH instances).
 int conv_bn_launch(const void* raw0, const void* raw1, const float* a0, const float* b0,
                    const float* a1, const float* b1, const float* w, void* y,
                    float* partial, float* xpart, double* colsum, float* sums, float* sqs,
                    int batch, int T, int cin,
-                   int cout, int k, int stride, int lpad, int out_t, int relu_in, int bf16,
+                   int cout, int k, int stride, int lpad, int out_t, int act_in, int bf16,
                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const int relu_in = act_in == 1;
+  const __nv_bfloat16 *h0 = static_cast<const __nv_bfloat16*>(raw0),
+                      *h1 = static_cast<const __nv_bfloat16*>(raw1);
+  const float *f0 = static_cast<const float*>(raw0), *f1 = static_cast<const float*>(raw1);
+  if (act_in == 2) {
+    if (bf16)
+      return launch<__nv_bfloat16, true>(h0, h1, a0, b0, a1, b1, w,
+                                         static_cast<__nv_bfloat16*>(y), partial, xpart, colsum,
+                                         sums, sqs, batch, T, cin, cout, k, stride, lpad, out_t,
+                                         0, st);
+    return launch<float, true>(f0, f1, a0, b0, a1, b1, w, static_cast<float*>(y), partial, xpart,
+                               colsum, sums, sqs, batch, T, cin, cout, k, stride, lpad, out_t, 0,
+                               st);
+  }
   if (bf16)
-    return launch(static_cast<const __nv_bfloat16*>(raw0),
-                  static_cast<const __nv_bfloat16*>(raw1), a0, b0, a1, b1, w,
-                  static_cast<__nv_bfloat16*>(y), partial, xpart, colsum, sums, sqs, batch, T,
-                  cin, cout, k, stride, lpad, out_t, relu_in, st);
-  return launch(static_cast<const float*>(raw0), static_cast<const float*>(raw1), a0, b0, a1,
-                b1, w, static_cast<float*>(y), partial, xpart, colsum, sums, sqs, batch, T, cin,
-                cout, k, stride, lpad, out_t, relu_in, st);
+    return launch<__nv_bfloat16, false>(h0, h1, a0, b0, a1, b1, w,
+                                        static_cast<__nv_bfloat16*>(y), partial, xpart, colsum,
+                                        sums, sqs, batch, T, cin, cout, k, stride, lpad, out_t,
+                                        relu_in, st);
+  return launch<float, false>(f0, f1, a0, b0, a1, b1, w, static_cast<float*>(y), partial, xpart,
+                              colsum, sums, sqs, batch, T, cin, cout, k, stride, lpad, out_t,
+                              relu_in, st);
 }
 
 }  // extern "C"
 
 namespace {
 
-template <typename T>
+template <typename T, bool SWISH>
 int launch(const T* raw0, const T* raw1, const float* a0, const float* b0, const float* a1,
            const float* b1, const float* w, T* y, float* partial, float* xpart, double* colsum,
            float* sums, float* sqs, int batch, int T_, int cin, int cout, int k, int stride,
@@ -741,15 +774,15 @@ int launch(const T* raw0, const T* raw1, const float* a0, const float* b0, const
   cudaError_t err;
   if (route == 2) {
     const size_t smem = mma_smem_bytes(slab_rows, two, EB);
-    err = cudaFuncSetAttribute(conv_bn_mma_kernel<T>,
+    err = cudaFuncSetAttribute(conv_bn_mma_kernel<T, SWISH>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     dim3 grid(row_tiles, (cout + BN - 1) / BN, batch);
-    conv_bn_mma_kernel<T><<<grid, NT, smem, st>>>(raw0, raw1, a0, b0, a1, b1, w, y, partial,
+    conv_bn_mma_kernel<T, SWISH><<<grid, NT, smem, st>>>(raw0, raw1, a0, b0, a1, b1, w, y, partial,
                                                   xpart, T_, cin, cout, k, stride, lpad, out_t,
                                                   relu_in);
   } else {
-    const Prologue<T> pro{raw0, raw1, a0, b0, a1, b1, T_, cin, relu_in};
+    const Prologue<T, SWISH> pro{raw0, raw1, a0, b0, a1, b1, T_, cin, relu_in};
     const int vec = (cout % 4 == 0 && aligned16(w) && aligned(y, 4 * EB)) ? 1 : 0;
     const int groups = (cout + 3) / 4;
     int tx = 1;
@@ -757,7 +790,8 @@ int launch(const T* raw0, const T* raw1, const float* a0, const float* b0, const
     dim3 block(tx, DT / tx), grid(row_tiles, 1, batch);
     const int slab_floats = route == 1 ? ((slab_rows * cin + 3) / 4) * 4 : 0;
     const size_t smem = sizeof(float) * ((size_t)slab_floats + 8 * DT);
-    auto kernel = route == 1 ? conv_bn_direct_kernel<T, true> : conv_bn_direct_kernel<T, false>;
+    auto kernel = route == 1 ? conv_bn_direct_kernel<T, true, SWISH>
+                             : conv_bn_direct_kernel<T, false, SWISH>;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     kernel<<<grid, block, smem, st>>>(pro, w, y, partial, cout, k, stride, lpad, out_t,

@@ -4,6 +4,10 @@ Port of ``chiron_tpu/eval/pipeline.py`` (reference: chiron/chiron_eval.py:244-52
 One device step per batch runs the CNN+BiLSTM forward, the path
 probability and the CTC decode (greedy or beam search), and packs all
 outputs into ONE uint8 buffer, so each batch costs one device->host copy.
+A CRF model (``"decoder": {"type": "crf"}`` in its model.json, Bonito's
+CTC-CRF models) runs its encoder, its head and the CRF decode
+(``ops/crf.py``: posteriors, Viterbi over their logs) in the same step and
+packs the same buffer; it takes no beam.
 PyTorch enqueues CUDA work asynchronously: the consumer loop issues the next
 batch's step before the readback threads block on earlier ones. Windows
 are read and uploaded by a producer thread; reads are assembled and
@@ -42,7 +46,9 @@ from chiron_tpu_torch.assembly import (
 )
 from chiron_tpu_torch.io.signal import read_signal_for_eval
 from chiron_tpu_torch.io.writers import ensure_output_dirs, write_output, write_run_meta
+from chiron_tpu_torch.models.model import crf_scores, window_frames
 from chiron_tpu_torch.ops.beam import beam_search_decode
+from chiron_tpu_torch.ops.crf import crf_decode
 from chiron_tpu_torch.ops.ctc_greedy import greedy_decode
 from chiron_tpu_torch.parallel.dist import make_sharded_decode_step, process_info, shard_files
 from chiron_tpu_torch.parallel.mesh import make_mesh
@@ -116,7 +122,15 @@ def decode_step(model: Basecaller, x: torch.Tensor, seq_len: torch.Tensor,
     ``length_bonus`` is the beam decoder's additive log-score per emitted
     label; greedy decode (beam 0) ignores it. ``bf16`` runs the forward in
     bf16 inference mode (its logits, and so the decode, stay float32).
+
+    A CRF model ignores ``beam`` and ``length_bonus``: inside ``model.decode``
+    its head runs in a ``model.crf_head`` span and the decode in a
+    ``model.crf_decode`` span; ``score`` is the Viterbi path's and ``prob``
+    the mean gap of the log posteriors (``ops/crf.py``).
     """
+    dec = C.decoder(model.config)
+    if dec["type"] == "crf":
+        return _crf_step(model, x, seq_len, dec, bf16)
     with torch.no_grad():
         logits = model(x, seq_len, bf16=bf16)  # model.front, model.rnn spans
         with span("model.decode"):
@@ -128,6 +142,19 @@ def decode_step(model: Basecaller, x: torch.Tensor, seq_len: torch.Tensor,
                     logits, seq_len, beam_width=beam, length_bonus=float(length_bonus))
             return pack_step_outputs(decoded, lengths, score, prob,
                                      two_bit=two_bit_labels(model.config))
+
+
+def _crf_step(model: Basecaller, x, seq_len, dec, bf16: bool) -> torch.Tensor:
+    with torch.no_grad():
+        fea = model.encode(x, seq_len, bf16=bf16)  # model.front, model.rnn spans
+        with span("model.decode"):
+            scores = crf_scores(model.params, model.config, fea, bf16)
+            del fea
+            with span("model.crf_decode"):
+                decoded, lengths, score, prob = crf_decode(
+                    scores, seq_len.to(torch.int32), dec["blank_score"])
+            del scores
+            return pack_step_outputs(decoded, lengths, score, prob)
 
 
 def list_input_files(input_path: str, recursive: bool = True) -> Tuple[str, List[str]]:
@@ -157,13 +184,19 @@ def _batch_stream(
     flags,
     ratio: float,
     call_id: int = 0,
+    frames_of=None,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray, List[str], dict]]:
     """Yield fixed-size batches packed across files.
 
     Each yield: (x [B, L], seq_len_frames [B], window_idx [B], fnames [B],
     read_meta {fname: (n_windows, read_start_ns, read_end_ns)}), the read's
-    stamps from ``time.time_ns()``, as its ``call.read`` span's.
+    stamps from ``time.time_ns()``, as its ``call.read`` span's. A window's
+    frames are ``frames_of(samples)`` (``models.model.window_frames``), by
+    default round(samples / ratio).
     """
+    if frames_of is None:
+        def frames_of(samples):
+            return np.round(samples / ratio).astype(np.int32)
     # per-file reads run in a small ordered-lookahead pool, overlapping IO
     # across files while results are consumed strictly in list order
     read_pool = ThreadPoolExecutor(max_workers=3, thread_name_prefix="call-read")
@@ -188,13 +221,13 @@ def _batch_stream(
     try:
         yield from _drain_files(file_list, lookahead, min(3, len(file_list)),
                                 read_pool, _read_one, flags.batch_size,
-                                flags.segment_len, ratio)
+                                flags.segment_len, frames_of)
     finally:
         # a consumer abort must not leave lookahead reads running
         read_pool.shutdown(wait=False, cancel_futures=True)
 
 
-def _drain_files(file_list, lookahead, submitted, read_pool, _read_one, bsz, seg, ratio):
+def _drain_files(file_list, lookahead, submitted, read_pool, _read_one, bsz, seg, frames_of):
     buf_x = np.zeros((0, seg), np.float32)
     buf_len = np.zeros(0, np.int32)
     buf_idx = np.zeros(0, np.int64)
@@ -223,7 +256,7 @@ def _drain_files(file_list, lookahead, submitted, read_pool, _read_one, bsz, seg
         while len(buf_x) >= bsz:
             yield (
                 buf_x[:bsz],
-                np.round(buf_len[:bsz] / ratio).astype(np.int32),
+                frames_of(buf_len[:bsz]),
                 buf_idx[:bsz],
                 buf_fn[:bsz],
                 meta,
@@ -242,7 +275,7 @@ def _drain_files(file_list, lookahead, submitted, read_pool, _read_one, bsz, seg
         buf_fn = buf_fn + [""] * pad
         yield (
             buf_x,
-            np.round(buf_len / ratio).astype(np.int32),
+            frames_of(buf_len),
             buf_idx,
             buf_fn,
             meta,
@@ -415,7 +448,9 @@ def _evaluation(flags, call_id: int) -> dict:
             ThreadPoolExecutor(max_workers=4, thread_name_prefix="call-readback") as readback_pool:
         record("call.load", load_start, time.time_ns())
         for x, sl, widx, fnames, meta in _prefetch(
-            _upload(_batch_stream(file_dir, file_list, flags, ratio, call_id))
+            _upload(_batch_stream(file_dir, file_list, flags, ratio, call_id,
+                                  functools.partial(window_frames, config,
+                                                    seg_len=flags.segment_len)))
         ):
             for fn, (nwin, r0, r1) in meta.items():
                 counts[fn] = nwin

@@ -126,14 +126,16 @@ _ACTIVATIONS = {
 
 
 class LazyBN:
-    """Deferred sum of affine-normalized raw tensors, optionally relu'd.
+    """Deferred sum of affine-normalized raw tensors, optionally relu'd (or,
+    for Bonito's stem, swish'd).
 
-    value == relu?(sum_i raw_i * a_i + b_i); raws share [B, T, C].
+    value == act(sum_i raw_i * a_i + b_i); raws share [B, T, C].
     """
 
-    def __init__(self, terms, relu: bool):
+    def __init__(self, terms, relu: bool, swish: bool = False):
         self.terms = list(terms)
         self.relu = bool(relu)
+        self.swish = bool(swish)
 
     @property
     def shape(self):
@@ -149,12 +151,22 @@ def materialize(x, bf16: bool = False):
     for raw, a, b in x.terms:
         t = raw.float() * a + b
         y = t if y is None else y + t
+    if x.swish:
+        return store_activation(swish(y), bf16)
     return store_activation(torch.relu(y) if x.relu else y, bf16)
 
 
+def swish(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x) (Bonito's activation)."""
+    return x * torch.sigmoid(x)
+
+
 def _as_terms(x):
-    """(terms, relu_in) for a fused conv's input."""
+    """(terms, relu_in) for a fused conv's input (a swish'd LazyBN goes
+    through ``stem_conv`` alone)."""
     if isinstance(x, LazyBN):
+        if x.swish:
+            raise ValueError("a swish'd LazyBN feeds only stem_conv")
         return tuple(x.terms), x.relu
     c = x.shape[-1]
     one = torch.ones((c,), dtype=torch.float32, device=x.device)
@@ -228,6 +240,24 @@ def conv(params: Params, x, stride: int = 1, dilation: int = 1,
     if not training and fused_conv_ok(params, dilation, padding, active):
         return _fused_conv(params, x, stride, active, bf16)
     return _unfused_conv(params, x, stride, dilation, padding, active, bf16 and not training)
+
+
+def stem_conv(params: Params, x, stride: int = 1, padding: int = 0, bf16: bool = False):
+    """One conv of Bonito's stem at inference: swish(conv(x) + b) with
+    ``padding`` zeros on each side, as ``torch.nn.Conv1d(padding=k // 2)``
+    pads (not XLA's SAME), on the fused kernel (``ops/conv_bn.py``). It
+    returns a swish'd LazyBN of its raw output with the bias as the affine
+    shift, which the next ``stem_conv``'s prologue applies as it reads
+    (``swish_in``) and ``materialize`` collapses; ``x`` is a window tensor or
+    such a LazyBN."""
+    lazy = isinstance(x, LazyBN)
+    terms = tuple(x.terms) if lazy else _as_terms(x)[0]
+    w = params["w"]
+    out_dtype = torch.bfloat16 if bf16 else torch.float32
+    y_raw, _, _ = conv_bn(terms, w, False, stride=stride, out_dtype=out_dtype,
+                          swish_in=lazy and x.swish, padding=padding)
+    one = torch.ones((w.shape[-1],), dtype=torch.float32, device=y_raw.device)
+    return LazyBN([(y_raw, one, params["b"])], relu=False, swish=True)
 
 
 def _merge(identity, y, bf16: bool):

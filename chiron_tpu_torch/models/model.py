@@ -4,7 +4,11 @@ head) -> per-timestep CTC logits.
 Port of ``chiron_tpu/models/model.py`` (reference: chiron/cnn.py:350-645):
 every front of the JAX package's zoo, each with its parameter tree key for
 key, and an LSTM, GRU or BNLSTM stack of layer type ``normal`` or ``rna``,
-or with ``rnn.layer_num`` 0 a linear logit head on the CNN features.
+or with ``rnn.layer_num`` 0 a linear logit head on the CNN features. A model
+whose ``decoder`` is ``crf`` (``config.decoder``) is Bonito's CTC-CRF model
+instead: the ``bonito_stem`` front, an ``alternating`` LSTM stack and the CRF
+head (``models/crf.py``), whose scores [B, T_out, 4^(state_len + 1)]
+``apply_model`` returns in place of logits.
 ``init_model(gen, config)`` draws fresh weights; ``apply_model(params,
 config, signal, seq_len, training, bf16)`` returns logits [B, T_out,
 class_n]: at inference under ``no_grad`` through the fused kernels (in
@@ -19,9 +23,11 @@ import functools
 import json
 from typing import Any, Callable, Dict, Tuple
 
+import numpy as np
 import torch
 
-from chiron_tpu_torch.config import class_n
+from chiron_tpu_torch.config import class_n, decoder
+from chiron_tpu_torch.models import crf as CRF
 from chiron_tpu_torch.models import layers as L
 from chiron_tpu_torch.models import rnn as R
 from chiron_tpu_torch.models.initializers import xavier_normal
@@ -250,6 +256,34 @@ CNN_ZOO["custom"] = (lambda gen, c_in, cnn_config: ({}, c_in, 1),
                      lambda params, x, cnn_config, training=False, bf16=False: x)
 
 
+# -- bonito_stem: Bonito's conv stem (bonito/crf/model.py:rnn_encoder) -----
+# three biased convs with swish, each padded k // 2 on both sides:
+# 1 -> 4 (k 5), 4 -> 16 (k 5), 16 -> features (k winlen, at the stride)
+
+def _bonito_stem_shapes(cnn_config):
+    f, k = int(cnn_config.get("features", 384)), int(cnn_config.get("winlen", 19))
+    return [(5, 4, 1), (5, 16, 1), (k, f, int(cnn_config.get("stride", 5)))]
+
+
+def _init_bonito_stem(gen, c_in, cnn_config):
+    params, c = {}, c_in
+    for i, (k, c_out, _) in enumerate(_bonito_stem_shapes(cnn_config)):
+        params[f"conv{i + 1}"] = L.init_conv(gen, k, c, c_out, bias=True, bn=False)
+        c = c_out
+    return params, c, _bonito_stem_shapes(cnn_config)[-1][2]
+
+
+def _apply_bonito_stem(params, x, cnn_config, training=False, bf16=False):
+    if training:
+        raise ValueError("a CRF model runs at inference only: the port has no CTC-CRF loss")
+    for i, (k, _, stride) in enumerate(_bonito_stem_shapes(cnn_config)):
+        x = L.stem_conv(params[f"conv{i + 1}"], x, stride=stride, padding=k // 2, bf16=bf16)
+    return x
+
+
+CNN_ZOO["bonito_stem"] = (_init_bonito_stem, _apply_bonito_stem)
+
+
 # -- CNN-only logit head (chiron/cnn.py:625-645), for rnn.layer_num == 0 ----
 
 def init_cnn_logit(gen: torch.Generator, c_in: int, n_class: int) -> Params:
@@ -298,12 +332,39 @@ def model_ratio(config: Dict[str, Any], seg_len: int) -> float:
     return seg_len / output_len(config, seg_len)
 
 
+def window_frames(config: Dict[str, Any], samples, seg_len: int):
+    """Each window's frames [B] int32 from its samples [B] (numpy): the
+    JAX package's round(samples / ratio) (chiron/chiron_eval.py:337); for a
+    CRF model ceil(samples / stride), the frames whose centre lies in the
+    window, as Bonito's convs give a window of that length."""
+    if decoder(config)["type"] == "crf":
+        stride = model_stride(config)
+        return ((np.asarray(samples) + stride - 1) // stride).astype(np.int32)
+    return np.round(np.asarray(samples) / model_ratio(config, seg_len)).astype(np.int32)
+
+
+def _check_crf(config: Dict[str, Any]) -> Dict[str, Any]:
+    dec = decoder(config)
+    rnn_cfg = config["rnn"]
+    alternating = rnn_cfg.get("layer_type") == "alternating"
+    if (dec["type"] == "crf") != alternating or alternating and rnn_cfg["cell_type"] != "LSTM":
+        raise ValueError("a CRF decoder takes an alternating LSTM stack, and an alternating "
+                         "stack a CRF decoder")
+    return dec
+
+
 def init_model(gen: torch.Generator, config: Dict[str, Any]) -> Params:
     """Fresh parameters for ``config``, in the JAX package's tree layout
     (float32 CPU tensors drawn from ``gen``; static int leaves stay ints)."""
     init_fn, _ = _front(config)
     cnn_params, c_out, _ = init_fn(gen, 1, config["cnn"])
     rnn_cfg = config["rnn"]
+    dec = _check_crf(config)
+    if dec["type"] == "crf":
+        h = rnn_cfg["hidden_num"]
+        return {"cnn": cnn_params,
+                "rnn": {"stack": R.init_alternating_stack(gen, c_out, h, rnn_cfg["layer_num"])},
+                "crf": CRF.init_crf_head(gen, h, dec["state_len"])}
     if rnn_cfg["layer_num"] == 0:
         return {"cnn": cnn_params, "cnn_logit": init_cnn_logit(gen, c_out, class_n(config))}
     return {"cnn": cnn_params,
@@ -328,8 +389,13 @@ def apply_model(params: Params, config: Dict[str, Any], signal: torch.Tensor,
     first. The logits are float32 in both modes.
 
     The CNN runs in a ``model.front`` span; the RNN stack and the logit head
-    (the CNN-only head's product alone) in a ``model.rnn`` span.
+    (the CNN-only head's product alone) in a ``model.rnn`` span. A CRF model
+    returns its head's scores, the head in a ``model.crf_head`` span.
     """
+    if _check_crf(config)["type"] == "crf":
+        fea = encode(params, config, signal, seq_len, training, bf16)
+        with torch.set_grad_enabled(training and torch.is_grad_enabled()):
+            return crf_scores(params, config, fea, L.bf16_compute(bf16, training))
     fea = _front_features(params, config, signal, training, bf16)
     with torch.set_grad_enabled(training and torch.is_grad_enabled()), span("model.rnn"):
         if config["rnn"]["layer_num"] == 0:
@@ -341,13 +407,22 @@ def apply_model(params: Params, config: Dict[str, Any], signal: torch.Tensor,
 def encode(params: Params, config: Dict[str, Any], signal: torch.Tensor,
            seq_len: torch.Tensor, training: bool = False, bf16: bool = False) -> torch.Tensor:
     """The features that feed the logit head: the BiRNN stack's [B, T_out, 2H]
-    (the CNN's [B, T_out, C] for the CNN-only head). ``apply_model`` is the
+    (the CNN's [B, T_out, C] for the CNN-only head; an alternating stack's
+    [B, T_out, H] for a CRF model's head). ``apply_model`` is the
     head over these; the attention decoder reads them as its encodings."""
     fea = _front_features(params, config, signal, training, bf16)
     if config["rnn"]["layer_num"] == 0:
         return fea
     with torch.set_grad_enabled(training and torch.is_grad_enabled()), span("model.rnn"):
         return _rnn_stack(params, config, fea, seq_len, training, bf16)
+
+
+def crf_scores(params: Params, config: Dict[str, Any], fea: torch.Tensor,
+               bf16: bool = False) -> torch.Tensor:
+    """A CRF model's head over the stack's features: float32 scores
+    [B, T, 4^(state_len + 1)], in a ``model.crf_head`` span."""
+    with span("model.crf_head"):
+        return CRF.crf_head(params["crf"], fea, decoder(config)["scale"], bf16)
 
 
 def _front_features(params: Params, config: Dict[str, Any], signal: torch.Tensor,
@@ -364,6 +439,8 @@ def _front_features(params: Params, config: Dict[str, Any], signal: torch.Tensor
 def _rnn_stack(params: Params, config: Dict[str, Any], fea: torch.Tensor,
                seq_len: torch.Tensor, training: bool, bf16: bool) -> torch.Tensor:
     rnn_cfg = config["rnn"]
+    if rnn_cfg["layer_type"] == "alternating":  # a CRF model: inference only (the stem)
+        return R.alternating_stack(params["rnn"]["stack"], fea, seq_len, bf16=bf16)
     return R.birnn_stack(params["rnn"]["stack"], fea, seq_len, rnn_cfg["cell_type"],
                          rnn_cfg["layer_type"], training=training,
                          bf16=L.bf16_compute(bf16, training))

@@ -1,8 +1,10 @@
 """Recurrent layers: stacked bidirectional LSTM / GRU / BNLSTM + head, and
 the forward-only stack.
 
-Port of ``chiron_tpu/models/rnn.py`` (reference: chiron/rnn.py:20-216). Two
-stacking orders: ``normal``, a per-layer bidirectional concat feeding the
+Port of ``chiron_tpu/models/rnn.py`` (reference: chiron/rnn.py:20-216), and
+Bonito's alternating single-direction stack (``alternating_stack``, layer
+type ``alternating``, the CRF models' encoder). Two bidirectional stacking
+orders: ``normal``, a per-layer bidirectional concat feeding the
 next layer, and ``rna``, independent forward and backward deep stacks
 concatenated once at the top. Each layer's input projections for all
 timesteps are large matmuls outside the recurrence.
@@ -275,6 +277,46 @@ def rnn_layers(params: Params, x: torch.Tensor, lengths: torch.Tensor,
                training: bool = False, bf16: bool = False) -> torch.Tensor:
     lasth = birnn_stack(params["stack"], x, lengths, cell_type, layer_type, training, bf16)
     return rnn_head(params["head"], lasth)
+
+
+def init_alternating_stack(gen: torch.Generator, c_in: int, hidden: int,
+                           layer_num: int) -> Params:
+    """Single-direction LSTM layers, each reading the last one's H."""
+    return {"layers": [init_lstm_cell(gen, c_in if i == 0 else hidden, hidden)
+                       for i in range(layer_num)]}
+
+
+def layer_reversed(i: int, layer_num: int) -> bool:
+    """Whether layer i of an alternating stack runs backwards in time: Bonito's
+    ``rnn_encoder`` sets ``reverse = (layer_num - i) % 2``, so the last layer
+    and every second one before it are reversed (layers 1, 3 and 5 of 5)."""
+    return (layer_num - i) % 2 == 1
+
+
+def alternating_stack(params: Params, x: torch.Tensor, lengths: torch.Tensor,
+                      bf16: bool = False) -> torch.Tensor:
+    """Bonito's LSTM encoder (``bonito/crf/model.py:rnn_encoder``) at
+    inference: one direction a layer, alternating, each layer reading the
+    previous one's h, on the single-direction kernel. x: [B, T, C] -> [B, T, H]
+    (bfloat16 in bf16 mode).
+
+    A reversed layer runs over each row's own frames in reverse, through the
+    kernel's flip mode (the whole window flipped, the row active from
+    ``T - len``). Bonito flips the whole padded chunk instead; its chunks are
+    all full length, where a read's last window here is shorter."""
+    h = x.transpose(0, 1)  # time-major [T, B, C]
+    t = h.shape[0]
+    lengths = lengths.to(torch.int32)
+    starts = (t - lengths).to(torch.int32)
+    layers = params["layers"]
+    for i, cell in enumerate(layers):
+        if layer_reversed(i, len(layers)):
+            out = lstm_layer(_proj(torch.flip(h, dims=(0,)), cell, bf16), cell["wh"], lengths,
+                             starts)
+            h = torch.flip(out, dims=(0,))
+        else:
+            h = lstm_layer(_proj(h, cell, bf16), cell["wh"], lengths)
+    return h.transpose(0, 1)
 
 
 def init_unirnn_layers(gen: torch.Generator, c_in: int, hidden: int, layer_num: int,

@@ -27,6 +27,16 @@ float64) and only sum(y^2) from y itself. Inputs with k * C_in <= 16 (the
 one-channel first convs and the strided fronts) take a CUDA-core kernel
 bound by the output it writes.
 
+Bonito's conv stem (``models/layers.py:stem_conv``) takes the same kernels
+with two runtime choices the JAX package has no use for: a swish prologue
+(``swish_in``: v * sigmoid(v) of the affine sum, where dna_model1 has a relu)
+and an explicit symmetric padding (``padding`` an int p: p zeros on each side,
+out_t = (T + 2 p - k) // stride + 1, as ``torch.nn.Conv1d`` pads, where XLA's
+SAME pads less on the left at a stride that does not divide the window). Swish
+is a template parameter of both kernels, so it adds instances and leaves the
+relu ones' code as it was; the relu and SAME launches pass the same arguments as
+before.
+
 bf16 inference mode (``chiron_tpu/ops/pallas/convbn.py:118,135``): the raw
 terms may be bfloat16 and y is then stored as bfloat16 (``out_dtype``), rounded
 to nearest even from the float32 value; the prologue, the product (w stays
@@ -63,11 +73,13 @@ def same_padding(t: int, k: int, stride: int) -> Tuple[int, int]:
     return out_t, pad_total // 2
 
 
-def _prologue(terms, relu_in: bool) -> torch.Tensor:
+def _prologue(terms, relu_in: bool, swish_in: bool = False) -> torch.Tensor:
     x = None
     for raw, a, b in terms:
         v = raw.float() * a + b
         x = v if x is None else x + v
+    if swish_in:
+        return x * torch.sigmoid(x)
     return torch.relu(x) if relu_in else x
 
 
@@ -75,8 +87,11 @@ def conv_window(t: int, k: int, stride: int = 1, dilation: int = 1,
                 padding: str = "SAME") -> Tuple[int, int, int]:
     """(out_t, left pad, right pad) of an XLA conv window of k taps
     ``dilation`` apart: SAME gives out_t = ceil(t / stride), VALID no padding
-    and out_t = floor((t - span) / stride) + 1 (0 when the span exceeds t)."""
+    and out_t = floor((t - span) / stride) + 1 (0 when the span exceeds t);
+    an int p pads p on both sides, as ``torch.nn.Conv1d(padding=p)``."""
     span = (k - 1) * dilation + 1
+    if isinstance(padding, int):
+        return max((t + 2 * padding - span) // stride + 1, 0), padding, padding
     if padding == "SAME":
         out_t, lpad = same_padding(t, span, stride)
         return out_t, lpad, max((out_t - 1) * stride + span - t - lpad, 0)
@@ -105,10 +120,11 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, dilation: int = 1,
 
 
 def conv_bn_plain(terms, w: torch.Tensor, relu_in: bool, stride: int = 1,
-                  out_dtype: torch.dtype = torch.float32):
+                  out_dtype: torch.dtype = torch.float32, swish_in: bool = False,
+                  padding="SAME"):
     """Plain PyTorch version of the kernel: same inputs, same outputs (the
     moments from the float32 y, then y rounded to ``out_dtype``)."""
-    y = conv1d(_prologue(terms, relu_in), w, stride)
+    y = conv1d(_prologue(terms, relu_in, swish_in), w, stride, padding=padding)
     return y.to(out_dtype), y.sum(dim=(0, 1)), (y * y).sum(dim=(0, 1))
 
 
@@ -168,21 +184,28 @@ def _check(terms, w, out_dtype):
 
 
 def conv_bn(terms: Sequence, w: torch.Tensor, relu_in: bool, stride: int = 1,
-            out_dtype: torch.dtype = torch.float32):
-    """relu?(sum_i raw_i*a_i + b_i) -> SAME conv at ``stride`` -> (y, sums, sqs).
+            out_dtype: torch.dtype = torch.float32, swish_in: bool = False,
+            padding="SAME"):
+    """act(sum_i raw_i*a_i + b_i) -> conv at ``stride`` -> (y, sums, sqs).
 
     Args:
       terms: one or two (raw [B, T, C_in], a [C_in], b [C_in]); raw in
         ``out_dtype``, the affines float32.
       w: [k, C_in, C_out] float32 kernel (JAX WIO layout).
       out_dtype: float32, or bfloat16 (bf16 inference mode).
+      swish_in: the prologue's activation is swish (``relu_in`` must be
+        False), else relu where ``relu_in``, else none.
+      padding: "SAME" (XLA), or an int p of zeros on both sides.
     Returns:
-      y [B, ceil(T/stride), C_out] in out_dtype and the per-channel moments
+      y [B, T_out, C_out] in out_dtype (SAME: T_out = ceil(T/stride)) and the
+      per-channel moments
       of the float32 y over (B, T') as float32 [C_out] each.
     """
     dev = _check(terms, w, out_dtype)
+    if relu_in and swish_in:
+        raise ValueError("conv_bn: one prologue activation, relu or swish")
     if dev.type == "cpu":
-        return conv_bn_plain(terms, w, relu_in, stride, out_dtype)
+        return conv_bn_plain(terms, w, relu_in, stride, out_dtype, swish_in, padding)
     if dev.type != "cuda":
         raise ValueError(f"conv_bn: unsupported device {dev}")
     global launches
@@ -191,7 +214,7 @@ def conv_bn(terms: Sequence, w: torch.Tensor, relu_in: bool, stride: int = 1,
     raw0 = terms[0][0]
     bsz, t, c_in = raw0.shape
     k, _, c_out = w.shape
-    out_t, lpad = same_padding(t, k, stride)
+    out_t, lpad, _ = conv_window(t, k, stride, 1, padding)
     lib = cuda_build.load("conv_bn")
     n_tiles = lib.conv_bn_row_tiles(bsz, out_t)
     bf16 = int(out_dtype == torch.bfloat16)
@@ -216,7 +239,7 @@ def conv_bn(terms: Sequence, w: torch.Tensor, relu_in: bool, stride: int = 1,
             None if xpart is None else xpart.data_ptr(),
             None if colsum is None else colsum.data_ptr(), sums.data_ptr(),
             sqs.data_ptr(), bsz, t, c_in, c_out, k, int(stride), lpad, out_t,
-            int(bool(relu_in)), bf16, stream)
+            2 if swish_in else int(bool(relu_in)), bf16, stream)
     dtype = str(out_dtype).split(".")[-1]
     cuda_build.check(rc, f"conv_bn ({dtype} instance)")
     launches += 1

@@ -74,9 +74,10 @@ class Basecaller(nn.Module):
         return apply_model(self.params, self.config, signal, seq_len, training=training,
                            bf16=bf16)
 
-    def encode(self, signal: torch.Tensor, seq_len: torch.Tensor) -> torch.Tensor:
+    def encode(self, signal: torch.Tensor, seq_len: torch.Tensor,
+               bf16: bool = False) -> torch.Tensor:
         """The features that feed the logit head (inference mode)."""
-        return encode(self.params, self.config, signal, seq_len)
+        return encode(self.params, self.config, signal, seq_len, bf16=bf16)
 
     def ratio(self, seg_len: int) -> float:
         return model_ratio(self.config, seg_len)

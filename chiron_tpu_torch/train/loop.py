@@ -153,6 +153,15 @@ def _moments(data_parallel: bool):
     return global_moments() if data_parallel else contextlib.nullcontext()
 
 
+def refuse_crf(config: Dict[str, Any]) -> None:
+    """Raise for a CRF model: the port trains CTC models only (a CRF model
+    needs Bonito's CTC-CRF loss, which the port does not have)."""
+    if C.is_crf(config):
+        raise ValueError("train: this model.json names a CRF decoder (Bonito's CTC-CRF "
+                         "head); the port trains CTC models only, and has no CTC-CRF loss. "
+                         "A CRF model can be basecalled with `call`.")
+
+
 def make_train_step(config: Dict[str, Any], fl_gamma: float, data_parallel: bool = False):
     """step(model, ema, opt, batch, n_updates) -> loss: value and grad of
     the focal CTC loss, one optimizer update, one EMA update.
@@ -172,6 +181,7 @@ def make_train_step(config: Dict[str, Any], fl_gamma: float, data_parallel: bool
     (twice: ``zero_grad``, then the gradients' all-reduce and the optimizer
     step) and ``train.ema``; the loss's own backward records
     ``train.loss_backward`` in the thread autograd runs it in."""
+    refuse_crf(config)
     float32_strict()
 
     def step(model: Basecaller, ema: Basecaller, opt: Optimizer, batch, n_updates):
@@ -429,6 +439,7 @@ def _train_run(hparams, device: torch.device, one_host: bool, data_parallel: boo
         config = C.read_config(config_path)
     else:
         config = C.read_config(getattr(hparams, "configure", None))
+    refuse_crf(config)
     if data_parallel:
         dist.barrier()  # every rank has read model.json before rank 0 writes it
     if writer:

@@ -921,3 +921,199 @@ def test_bnlstm_validation_in_a_group_runs_the_recurrence_on_the_card(cuda):
     torch.cuda.synchronize()
     assert tbn.launches == before
     assert float((got - want).abs().max()) <= 5e-4 * float(want.abs().max())
+
+
+# -- Bonito's CRF model: the decode kernels and the stem's swish / padded convs ------
+# The CRF kernels (csrc/crf.cu) against ops/crf.py's plain version on the card:
+# beta within 1e-6 of its largest value (float32 logsumexps in another order;
+# beta reaches ~4,000 at T = 800), the log posteriors within 1e-3 absolute (alpha
+# + beta - logZ cancels two such sums), the Viterbi score within 1e-3 a frame,
+# the mean posterior gap within 1e-4, and the paths equal except where the plain
+# version's own log posteriors score the two paths within that tolerance (a
+# near-tie). The stem's convs (swish prologue, k // 2 padding) at conv_bn's
+# tolerances; the relu / SAME instances bit for bit what they were before the
+# swish choice was added (the sha256 of their outputs on seeded inputs).
+
+from chiron_tpu_torch.ops import crf as tcrf  # noqa: E402
+
+
+def _crf_inputs(b, t, state_len, seed):
+    g = torch.Generator().manual_seed(seed)
+    s = 4 ** state_len
+    z = 5 * torch.tanh(1.5 * torch.randn(b, t, 4 * s, generator=g))
+    lens = torch.randint(max(1, t // 2), t + 1, (b,), generator=g).to(torch.int32)
+    lens[0], lens[-1] = t, 1
+    return z, lens
+
+
+def _check_crf(z, lens, posteriors):
+    dev = z.device
+    b, t, _ = z.shape
+    s = z.shape[2] // 4
+    post = torch.zeros((b, t, s, 5), device=dev) if posteriors else None
+    path, score, prob, beta = tcrf.crf_kernels(z, lens, 2.0, post)
+    beta_p = tcrf.crf_beta_plain(z, lens, 2.0)
+    tb, score_p, prob_p, final, post_p = tcrf.crf_forward_plain(z, lens, beta_p, 2.0,
+                                                                posteriors=True)
+    path_p = tcrf.crf_traceback_plain(tb, final, lens)
+    live = torch.arange(t + 1, device=dev)[None, :, None] <= lens.long()[:, None, None]
+    assert float(((beta - beta_p).abs() * live).max()) <= 1e-6 * float(beta_p.abs().max())
+    if posteriors:
+        assert float((post - post_p).abs().max()) <= 1e-3
+    assert bool(((score - score_p).abs() <= 1e-3 * lens.float()).all())
+    assert float((prob - prob_p).abs().max()) <= 1e-4
+    # a path that differs is a near-tie under the plain version's posteriors
+    pred = tcrf.predecessors(s, dev)
+    for row in torch.nonzero((path != path_p).any(dim=1)).flatten().tolist():
+        n = int(lens[row])
+
+        def path_score(cols):
+            st = torch.zeros(n, dtype=torch.long, device=dev)
+            cur = int(final[row])
+            for i in range(n - 1, -1, -1):
+                st[i] = cur
+                cur = int(pred[cur, int(cols[i])])
+            return float(post_p[row, torch.arange(n, device=dev), st, cols[:n].long()].sum())
+
+        assert abs(path_score(path[row]) - path_score(path_p[row])) <= 1e-3 * n
+    assert float((path != path_p).any(dim=1).float().mean()) <= 0.01
+    return path, score, prob
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,state_len", [(5, 60, 3), (7, 90, 1), (3, 33, 2), (16, 800, 5)])
+def test_crf_kernels_match_plain(cuda, b, t, state_len):
+    z, lens = _crf_inputs(b, t, state_len, seed=b + t)
+    _check_crf(z.to(cuda), lens.to(cuda), posteriors=True)
+
+
+@pytest.mark.cuda
+def test_crf_kernels_match_plain_at_the_published_size(cuda):
+    """B = 400, T = 800, 1,024 states (Bonito's HAC at batch 400); two runs
+    bit-identical; each kernel launched once a decode."""
+    z, lens = _crf_inputs(400, 800, 5, seed=4)
+    z, lens = z.to(cuda), lens.to(cuda)
+    path, score, prob = _check_crf(z, lens, posteriors=False)
+    before = dict(tcrf.launches)
+    again = tcrf.crf_kernels(z, lens, 2.0)
+    assert all(torch.equal(a, b) for a, b in zip((path, score, prob), again[:3]))
+    assert {k: tcrf.launches[k] - before[k] for k in before} == {
+        "crf_beta": 1, "crf_viterbi": 1, "crf_traceback": 1}
+    decoded, n, score2, _ = tcrf.crf_decode(z, lens, 2.0)
+    assert torch.equal(score2, score) and int(n.max()) <= 800
+
+
+STEM_CASES = [  # k, c_in, c_out, stride, swish_in: Bonito's three convs at T = 4,000
+    (5, 1, 4, 1, False), (5, 4, 16, 1, True), (19, 16, 384, 5, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,c_in,c_out,stride,swish_in", STEM_CASES)
+def test_stem_conv_swish_padding_matches_plain(cuda, dtype, k, c_in, c_out, stride, swish_in):
+    g = torch.Generator().manual_seed(k + c_out)
+    x = torch.randn(24, 4000, c_in, generator=g).to(dtype).to(cuda)
+    a = torch.ones(c_in, device=cuda)
+    bias = (0.1 * torch.randn(c_in, generator=g)).to(cuda)
+    w = (torch.randn(k, c_in, c_out, generator=g) * (3 / (k * c_in) ** 0.5)).to(cuda)
+    got = tconv.conv_bn([(x, a, bias)], w, False, stride=stride, out_dtype=dtype,
+                        swish_in=swish_in, padding=k // 2)
+    want = tconv.conv_bn_plain([(x, a, bias)], w, False, stride, dtype, swish_in, k // 2)
+    assert got[0].shape == (24, -(-4000 // stride), c_out)
+    scale = float(want[0].float().abs().max())
+    if dtype == torch.float32:
+        assert float((got[0] - want[0]).abs().max()) <= 1e-4 * scale
+    else:  # one bf16 ulp of the largest value
+        assert float((got[0].float() - want[0].float()).abs().max()) <= scale / 128
+    for i in (1, 2):
+        assert torch.allclose(got[i], want[i], rtol=1e-4, atol=1e-4 * float(want[i].abs().max()))
+    again = tconv.conv_bn([(x, a, bias)], w, False, stride=stride, out_dtype=dtype,
+                          swish_in=swish_in, padding=k // 2)
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+
+
+# sha256 (first 16 hex digits) of (y, sums, sqs) of each relu / SAME launch below,
+# from the kernels before the swish prologue was added (measured on an H100)
+RELU_SAME_DIGESTS = {
+    ("float32", 3, 256, 256, 1, 1, True): "bd553822ede7b42e",
+    ("float32", 1, 256, 256, 1, 2, True): "225d410d1608714c",
+    ("float32", 1, 256, 256, 1, 1, False): "0733ac29b2e77267",
+    ("float32", 1, 1, 256, 1, 1, False): "5bd6b5b85671496f",
+    ("float32", 9, 1, 256, 5, 1, False): "254f8a8f44fa89a0",
+    ("float32", 3, 256, 256, 2, 1, True): "d9c9870861932b75",
+    ("bfloat16", 3, 256, 256, 1, 1, True): "c527d1d7b9130476",
+    ("bfloat16", 1, 256, 256, 1, 2, True): "b96191f2a0c7d999",
+    ("bfloat16", 1, 256, 256, 1, 1, False): "28f6486bd08a7fe5",
+    ("bfloat16", 1, 1, 256, 1, 1, False): "c89654eebe1bee1c",
+    ("bfloat16", 9, 1, 256, 5, 1, False): "7afe8d7ad7dafa89",
+    ("bfloat16", 3, 256, 256, 2, 1, True): "ddd7c34039ce121a",
+}
+
+
+@pytest.mark.cuda
+def test_conv_bn_relu_same_instances_unchanged_by_the_swish_choice(cuda):
+    """dna_model1's and the fronts' launches (T = 400, B = 400), in one seeded
+    sequence, give the bits they gave before: swish is a template parameter of
+    the kernels, and its instances are the only new code."""
+    import hashlib
+
+    g = torch.Generator().manual_seed(6)
+    for dt in (torch.float32, torch.bfloat16):
+        for k, ci, co, s, nt, relu in [(3, 256, 256, 1, 1, True), (1, 256, 256, 1, 2, True),
+                                       (1, 256, 256, 1, 1, False), (1, 1, 256, 1, 1, False),
+                                       (9, 1, 256, 5, 1, False), (3, 256, 256, 2, 1, True)]:
+            terms = [(torch.randn(400, 400, ci, generator=g).to(cuda).to(dt),
+                      (torch.rand(ci, generator=g) + 0.5).to(cuda),
+                      (torch.randn(ci, generator=g) * 0.1).to(cuda)) for _ in range(nt)]
+            w = (torch.randn(k, ci, co, generator=g) / (k * ci) ** 0.5).to(cuda)
+            out = tconv.conv_bn(terms, w, relu, stride=s, out_dtype=dt)
+            digest = hashlib.sha256(b"".join(t.float().cpu().numpy().tobytes()
+                                             for t in out)).hexdigest()[:16]
+            assert digest == RELU_SAME_DIGESTS[(str(dt).split(".")[-1], k, ci, co, s, nt,
+                                                relu)]
+
+
+@pytest.mark.cuda
+def test_crf_model_call_on_the_card(cuda, tmp_path):
+    """A small CRF model's bf16 `call` on the card: the stem on conv_bn (3
+    launches a batch), the stack on the single-direction LSTM kernel (5), the
+    decode on the CRF kernels (one each), and a fastq for every read."""
+    import json
+    import os
+
+    from chiron_tpu_torch import cli
+    from chiron_tpu_torch.models import crf as mcrf
+    from chiron_tpu_torch.reference import bonito_crf as RB
+    from chiron_tpu_torch.train.checkpoint import save_checkpoint
+
+    config = {"cnn": {"model": "bonito_stem", "features": 64, "winlen": 19, "stride": 5},
+              "rnn": {"layer_num": 5, "hidden_num": 64, "cell_type": "LSTM",
+                      "layer_type": "alternating"},
+              "decoder": {"type": "crf", "state_len": 3, "scale": 5.0, "blank_score": 2.0}}
+    state = RB.init_bonito(1, features=64, state_len=3, gains={"conv": 3.0, "lstm": 3.0,
+                                                                  "head": 3.0})
+    os.makedirs(tmp_path / "m")
+    (tmp_path / "m" / "model.json").write_text(json.dumps(config))
+    save_checkpoint(str(tmp_path / "m"), mcrf.from_bonito(state, 5), 0)
+    rng = np.random.RandomState(3)
+    os.makedirs(tmp_path / "in")
+    for i in range(3):
+        (tmp_path / "in" / f"r{i}.signal").write_text(
+            " ".join(map(str, rng.randint(300, 700, 3000 + 500 * i).tolist())))
+    before = (dict(tcrf.launches), tconv.launches, tlstm.launches, tcrf.frames_decoded())
+    cli.main(["call", "-i", str(tmp_path / "in"), "-o", str(tmp_path / "out"), "-m",
+              str(tmp_path / "m"), "-l", "1000", "-j", "875", "-b", "8", "--sig_norm", "0",
+              "--bf16"])
+    torch.cuda.synchronize()
+    batches = 2  # 4 + 4 + 5 windows
+    assert {k: tcrf.launches[k] - before[0][k] for k in tcrf.launches} == {
+        "crf_beta": batches, "crf_viterbi": batches, "crf_traceback": batches}
+    assert tconv.launches - before[1] == 3 * batches
+    assert tlstm.launches - before[2] == 5 * batches
+    # every window's own frames, ceil(samples / 5): reads of 3,000 / 3,500 / 4,000
+    # samples in windows of 1,000 every 875, the last batch wrap-padded with r2's first 3
+    lens = [1000, 1000, 1000, 375] + [1000, 1000, 1000, 875] + [1000] * 4 + [500] + [1000] * 3
+    assert tcrf.frames_decoded() - before[3] == sum(-(-n // 5) for n in lens)
+    for i in range(3):
+        fq = (tmp_path / "out" / "result" / f"r{i}.fastq").read_text().split("\n")
+        assert fq[0] == f"@r{i}" and len(fq[1]) == len(fq[3]) > 0
