@@ -183,7 +183,8 @@ Phases (any failure exits non-zero and prints no result line):
      as a model directory: `call -l 4000 -j 3500 -b 400 --sig_norm 0` on 20
      seeded reads (820 windows, 3 batches) in both modes, twice each, every
      count set to 0 just before (conv_bn 3, the one-direction LSTM kernel 5
-     and each CRF kernel 1 a batch, in the mode's instances) and the frames
+     and each CRF kernel 1 a batch, in the mode's instances; the LSTM's 5 on
+     csrc/lstm_c16.cu in float32, on the streamed instance in bf16) and the frames
      the CRF kernels decoded equal to the windows' ceil(samples / 5); the
      fastq files; the first batch's step against the plain reference
      (reference/bonito_crf.py) on the card on its first CRF_REF_ROWS windows
@@ -193,8 +194,12 @@ Phases (any failure exits non-zero and prints no result line):
      plain version's log posteriors) and the
      stem's three convs (swish prologue, k // 2 padding, T = 4,000) against
      theirs in both modes, each timed beside its plain version, its bound and
-     (the stem) cuDNN, no kernel below its bound; their rows join the kernel
-     line, and the CRF kernels join the spill check of phase 1;
+     (the stem) cuDNN, no kernel below its bound; row 5h, one LSTM layer at
+     the batch's shape (T = 800, B = 400, H = 384, flip mode) on
+     csrc/lstm_c16.cu, held to its plain version (1e-4) and bit-identical
+     across two runs, timed beside the streamed instance, nn.LSTM and its
+     bound; their rows join the kernel line, and the CRF kernels join the
+     spill check of phase 1 (lstm_infer_kernel_c16 is in it by its name);
  13. print the per-kernel JSON line, then {"ok": true, "device": ...}.
 """
 
@@ -357,15 +362,18 @@ def recurrent_bound(kind, act, t, b, h, dirs=1, xw_bytes=4):
     """A recurrent inference kernel's bound from its inputs: per active (row,
     step) of a direction, LSTM h @ wh + ~12H gate ops, BNLSTM the LSTM's +
     ~40H for its three normalisations (CUDA cores); GRU h @ whg and (r * h) @
-    whc as three TF32 products on the tensor cores (3xTF32) beside ~10H gate
-    ops on the CUDA cores, whichever takes longer; bytes: the input
+    whc, and "lstm_c16" (csrc/lstm_c16.cu, the LSTM route "cluster16") h @ wh,
+    as three TF32 products on the tensor cores (3xTF32) beside ~10H / ~12H
+    gate ops on the CUDA cores, whichever takes longer; bytes: the input
     projections in, the weights and vectors, lengths (and starts), h out.
     ``act``: active (row, step) pairs of one direction. ``xw_bytes``: the
     LSTM's xw and h element size (2 for its bf16 instance)."""
     cells = t * b
-    if kind == "gru":
-        nbytes = dirs * 4.0 * (cells * 3 * h + h * 3 * h + 2 * b + cells * h)
-        t_ops = max(dirs * act * 3 * 2 * h * 3 * h / PEAK_TF32, dirs * act * 10 * h / PEAK_F32)
+    if kind in ("gru", "lstm_c16"):
+        gates, gate_ops = (3, 10) if kind == "gru" else (4, 12)
+        nbytes = dirs * 4.0 * (cells * gates * h + h * gates * h + 2 * b + cells * h)
+        t_ops = max(dirs * act * 3 * 2 * h * gates * h / PEAK_TF32,
+                    dirs * act * gate_ops * h / PEAK_F32)
         t_bytes = nbytes / PEAK_BYTES
         return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
     one = {"lstm": (act * (2 * h * 4 * h + 12 * h),
@@ -1592,7 +1600,7 @@ def crf_model(torch, work, reset, counts, check_counts, smi):
     from chiron_tpu_torch.eval import pipeline
     from chiron_tpu_torch.io.signal import read_signal_for_eval
     from chiron_tpu_torch.models import crf as mcrf, layers as L, model as M
-    from chiron_tpu_torch.ops import conv_bn, crf
+    from chiron_tpu_torch.ops import conv_bn, crf, lstm
     from chiron_tpu_torch.reference import bonito_crf as RB
     from chiron_tpu_torch.train.checkpoint import save_checkpoint
 
@@ -1649,6 +1657,12 @@ def crf_model(torch, work, reset, counts, check_counts, smi):
                          {f"conv_bn_{tag}": 3 * batches, f"lstm_layer_{tag}": 5 * batches,
                           "crf_beta": batches, "crf_viterbi": batches,
                           "crf_traceback": batches})
+            # float32 at H = 384 takes the cluster-of-16 kernel, bf16 the streamed instance
+            by_route = {k: n for k, n in lstm.launches_by_route.items() if n}
+            want_route = {"streamed" if b16 else "cluster16": 5 * batches}
+            log(f"  lstm_layer launches by route: {by_route}")
+            if by_route != want_route:
+                fail(f"bonito_hac call {tag}: lstm_layer routes {by_route}, expected {want_route}")
             if got_frames != frames:
                 fail(f"bonito_hac call {tag}: {got_frames} frames decoded, expected {frames}")
             if res["n_files"] != n_reads or res["total_windows"] != len(lens):
@@ -1801,6 +1815,48 @@ def crf_model(torch, work, reset, counts, check_counts, smi):
         stem[tag] = row
         log(f"  stem {tag} (three convs): {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
             f"cuDNN {row['library_ms']:.4f}, bound {row['bound_ms']:.4f})")
+    # row 5h: one of the five LSTM layers at the batch's shape (T = 800, B = 400,
+    # H = 384, float32, the first batch's frames a row, in flip mode as the
+    # reversed layers run) through the cluster-of-16 kernel, beside the streamed
+    # instance of csrc/bilstm.cu, nn.LSTM and the bound
+    hid = CRF_CONFIG["rnn"]["hidden_num"]
+    w_scale = (6 / (5 * hid)) ** 0.5 / 2
+    xw_h = torch.randn(t_max, BATCH, 4 * hid, generator=torch.Generator().manual_seed(SEED),
+                       ).to(dev)
+    wh_h = (torch.randn(hid, 4 * hid, generator=torch.Generator().manual_seed(SEED + 1))
+            * w_scale).to(dev)
+    ln_h = fr.to(torch.int32).contiguous()
+    st_h = (t_max - ln_h).to(torch.int32)
+    route_h = lstm.route(BATCH, hid, 1, torch.float32,
+                         torch.cuda.get_device_properties(dev).multi_processor_count)
+    got_h = lstm.lstm_layer(xw_h, wh_h, ln_h, st_h)
+    again_h = lstm.lstm_layer(xw_h, wh_h, ln_h, st_h)
+    want_h = lstm.lstm_layer_plain(xw_h, wh_h, ln_h, st_h)
+    torch.cuda.synchronize()
+    err_h = hold(f"lstm_layer T={t_max} B={BATCH} H={hid} flip mode ({route_h}, rows and "
+                 f"clusters {lstm.c16_geometry(BATCH, lstm.c16_clusters(dev))}) vs plain",
+                 float((got_h - want_h).abs().max()), 1e-4)
+    if route_h != "cluster16" or not torch.equal(got_h, again_h):
+        failures.append(f"lstm_layer at H = {hid}: route {route_h}, bit-identical "
+                        f"{torch.equal(got_h, again_h)}")
+    lib_h = torch.nn.LSTM(hid, hid).to(dev)
+    x_h = torch.randn(t_max, BATCH, hid, device=dev)
+    with torch.no_grad():
+        timing["lstm_layer_hac"] = (
+            time_ms(torch, lambda: lstm.lstm_layer(xw_h, wh_h, ln_h, st_h), 5),
+            time_ms(torch, lambda: lstm.lstm_layer_plain(xw_h, wh_h, ln_h, st_h), 1, 0),
+            time_ms(torch, lambda: lib_h(x_h), 5))
+        streamed_h = time_ms(torch, lambda: lstm._launch(xw_h, wh_h, ln_h, st_h, "streamed"), 3)
+    bounds["lstm_layer_hac"] = recurrent_bound(
+        "lstm_c16" if route_h == "cluster16" else "lstm", float(ln_h.sum()), t_max, BATCH, hid)
+    err["lstm_layer_hac"] = err_h
+    log(f"  row 5h, lstm_layer T={t_max} B={BATCH} H={hid}: {timing['lstm_layer_hac'][0]:.3f} ms "
+        f"({route_h}); streamed instance {streamed_h:.3f} ms; nn.LSTM "
+        f"{timing['lstm_layer_hac'][2]:.3f} ms; bound {bounds['lstm_layer_hac'][0]:.4f} ms")
+    numbers["row_5h_ms"] = {"cluster16": timing["lstm_layer_hac"][0], "streamed": streamed_h,
+                            "library_ms": timing["lstm_layer_hac"][2],
+                            "bound_ms": bounds["lstm_layer_hac"][0]}
+    del xw_h, x_h, lib_h, want_h
     if failures:
         fail(f"Bonito's HAC CRF model on the card: {failures}")
 
@@ -1808,6 +1864,14 @@ def crf_model(torch, work, reset, counts, check_counts, smi):
                       "no JAX kernel: Bonito's CTC_CRF.decode_batch (bonito/crf/model.py)"),
               "stem": ("chiron_tpu_torch/csrc/conv_bn.cu", "chiron_tpu/ops/pallas/convbn.py:188")}
     rows = []
+    ms, plain_ms, lib_ms = timing["lstm_layer_hac"]
+    rows.append({"name": "lstm_layer_hac", "route": "cuda", "source":
+                 "chiron_tpu_torch/csrc/lstm_c16.cu",
+                 "replaces": "chiron_tpu/ops/pallas/lstm.py:141",
+                 "launches": launches.get("lstm_layer_float32", 0),
+                 "max_abs_err": err["lstm_layer_hac"], "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bounds["lstm_layer_hac"][0], "bound_by": bounds["lstm_layer_hac"][1],
+                 "library_ms": lib_ms})
     for name in ("crf_beta", "crf_viterbi", "crf_traceback"):
         ms, plain_ms, lib_ms = timing[name]
         rows.append({"name": name, "route": "cuda", "source": source["crf"][0],
@@ -1907,6 +1971,14 @@ def main(out_dir=OUT_DIR):
         cl, rows, smem = lstm_grad.cluster_geometry(kind, b, hid, dirs, sms, xw_bytes)
         waves = -(-(-(-b // rows) * dirs) // (sms // cl))
         return f"cluster {cl}, rows {rows}, shared bytes {smem}, waves {waves}"
+
+    def lstm_route(b, hid):
+        """The route and geometry lstm_layer takes on float32 xw, as printed text."""
+        chosen = lstm.route(b, hid, 1, torch.float32, sms)
+        if chosen == "cluster16":
+            rows, clusters = lstm.c16_geometry(b, lstm.c16_clusters(dev))
+            return f"cluster16: {clusters} clusters of 16 blocks, rows {rows}"
+        return f"{chosen}: {geometry('infer', b, hid)}"
 
     def hold(name, err, tol, extra=""):
         ok = err <= tol
@@ -2048,7 +2120,7 @@ def main(out_dir=OUT_DIR):
         hold(f"bilstm T=400 B={b_x} H={h_x} ({geometry('infer', b_x, h_x, 2)})",
              max_err(got_x[:2], want_x[:2]), 1e-4)
         hold(f"lstm_layer T=400 B={b_x} H={h_x} without and with starts "
-             f"({geometry('infer', b_x, h_x)})", max_err(got_x[2:], want_x[2:]), 1e-4)
+             f"({lstm_route(b_x, h_x)})", max_err(got_x[2:], want_x[2:]), 1e-4)
         infer_same = infer_same and all(torch.equal(a, g) for a, g in zip(again_x, got_x))
     log(f"  bilstm and lstm_layer bit-identical across two runs at every shape: {infer_same}")
     if not infer_same:
@@ -2275,7 +2347,7 @@ def main(out_dir=OUT_DIR):
         want = [lstm.lstm_layer_plain(xw, wh, ln, s) for s in (None, st)]
         torch.cuda.synchronize()
         errs = {"lstm_layer": hold(f"lstm_layer {tag} (without and with starts; "
-                                   f"{geometry('infer', ln.shape[0], wh.shape[0])})",
+                                   f"{lstm_route(ln.shape[0], wh.shape[0])})",
                                    max_err(got, want), 1e-4)}
         if not all(torch.equal(a, g) for a, g in zip(again, got)):
             failures.append(f"lstm_layer {tag} differs between two runs")
@@ -2419,7 +2491,8 @@ def main(out_dir=OUT_DIR):
     def reset():
         conv_bn.launches = bilstm.launches = lstm.launches = 0
         for counter in (conv_bn.launches_by_dtype, bilstm.launches_by_dtype,
-                        lstm.launches_by_dtype, beam.launches, gru.launches,
+                        lstm.launches_by_dtype, lstm.launches_by_route, beam.launches,
+                        gru.launches,
                         gru.instance_launches, bnlstm.launches, bnlstm.instance_launches,
                         crf.launches):
             for k in counter:
@@ -3314,6 +3387,9 @@ def main(out_dir=OUT_DIR):
                 "bilstm": time_ms(torch, lambda: bilstm.bilstm_layer(
                     xw_x, c_x["bn"][0], wh_x, wh_x, ln_x, st_x), 2, 1),
                 "lstm_layer": time_ms(torch, lambda: lstm.lstm_layer(xw_x, wh_x, ln_x, st_x), 2, 1),
+                "lstm_layer_route": lstm_route(BATCH, h_x),
+                "lstm_layer_streamed": time_ms(torch, lambda: lstm._launch(
+                    xw_x, wh_x, ln_x, st_x, "streamed"), 2, 1),
                 "bigru_layer": time_ms(torch, lambda: gru.bigru_layer(*c_x["gru"], ln_x, st_x), 2, 1),
                 "gru_layer": time_ms(torch, lambda: gru.gru_layer(gx_x, cx_x, *whg_x, ln_x, st_x),
                                      2, 1),
@@ -3354,7 +3430,10 @@ def main(out_dir=OUT_DIR):
         fwd_x, bwd_x = train_lstm_bounds(act_t, t_len, tb, h_x)
         wide_bounds[f"H={h_x}"] = {
             "bilstm": recurrent_bound("lstm", act_x, t_len, BATCH, h_x, 2),
-            "lstm_layer": recurrent_bound("lstm", act_x, t_len, BATCH, h_x),
+            "lstm_layer": recurrent_bound(
+                "lstm_c16" if lstm.route(BATCH, h_x, 1, torch.float32, sms) == "cluster16"
+                else "lstm", act_x, t_len, BATCH, h_x),
+            "lstm_layer_streamed": recurrent_bound("lstm", act_x, t_len, BATCH, h_x),
             "lstm_fwd_residuals": fwd_x, "lstm_bwd": bwd_x,
             "bigru_layer": recurrent_bound("gru", act_x, t_len, BATCH, h_x, 2),
             "gru_layer": recurrent_bound("gru", act_x, t_len, BATCH, h_x),

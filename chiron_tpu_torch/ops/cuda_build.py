@@ -26,8 +26,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
-SOURCES = ("conv_bn", "bilstm", "bilstm_bf16", "beam", "lstm_grad", "gru", "bnlstm",
-           "ctc_loss", "crf")
+SOURCES = ("conv_bn", "bilstm", "bilstm_bf16", "lstm_c16", "beam", "lstm_grad", "gru",
+           "bnlstm", "ctc_loss", "crf")
 # library -> (its source in csrc/, extra nvcc flags); every other library is
 # csrc/<name>.cu with none
 VARIANTS = {"bilstm_bf16": ("bilstm", ("-DLSTM_XW_BF16",))}

@@ -28,7 +28,12 @@ prints, as JSON lines, for the parts named on the command line
   cluster barrier;
 - the same for the inference kernel (bilstm at B = 400, both directions, and
   lstm_layer at B = 400, H = 128): product, block barrier, gate stage and h
-  exchange, out stores, cluster barrier; and for lstm_bwd's recurrence at
+  exchange, out stores, cluster barrier; the one-direction layer at Bonito
+  HAC's shape (T = 800, B = 400, H = 384) through the streamed instance (wh
+  from L2) and through csrc/lstm_c16.cu (``-DLSTM_C16_PROBE``: the product
+  with the issue of the next step's xw loads, the gate stage and h stores,
+  the barrier's arrive and the out stores, its wait); and for lstm_bwd's
+  recurrence at
   T = 400, B = 300, H = 128 / 100 / 256: the gate gradients, the prefetch,
   the da exchange, the dxw stores, the cluster barrier, the product, the
   block barrier;
@@ -93,6 +98,8 @@ LSTM_PHASES = ("product", "prefetch_start_and_block_barrier", "gate_stage_and_h_
                "xw_wait_arrive_and_residual_stores", "cluster_wait")
 INFER_PHASES = ("product", "prefetch_start_and_block_barrier", "gate_stage_and_h_exchange",
                 "xw_wait_arrive_and_out_stores", "cluster_wait")
+C16_PHASES = ("product_and_xw_issue", "gate_stage_and_h_store", "arrive_and_out_stores",
+              "cluster_wait")
 # slots 8-14 of lstm_grad.cu's clocks
 BEAM_PHASES = ("lp_fetch", "stay_and_extend", "hash_match", "merge_and_keys", "top_w",
                "state_update_and_trace_store")
@@ -150,6 +157,7 @@ def main(argv=None):
     if "lstm" in parts:
         builds[("lstm_grad", "phases")] = _start_build("lstm_grad", "phases", ["-DLSTM_PROBE"])
         builds[("bilstm", "phases")] = _start_build("bilstm", "phases", ["-DLSTM_PROBE"])
+        builds[("lstm_c16", "phases")] = _start_build("lstm_c16", "phases", ["-DLSTM_C16_PROBE"])
     if "beam" in parts:
         builds[("beam", "phases")] = _start_build("beam", "phases", ["-DBEAM_PROBE"])
     if "bnlstm" in parts:
@@ -295,6 +303,7 @@ def main(argv=None):
                 "ms_with_probe": _time_ms(fn, 5),
                 "clocks_per_step": {n: round(clocks[i] / t_max)
                                     for i, n in enumerate(INFER_PHASES)}}), flush=True)
+        probe_hac_lstm(lib, libs[("lstm_c16", "phases")], rnd, dev)
 
     if "beam" in parts:
         lib = libs[("beam", "phases")]
@@ -328,6 +337,54 @@ def main(argv=None):
                             rnd, dev)
     if "gru" in parts:
         _probe_gru(libs[("gru", "phases")], rnd, dev)
+
+
+def probe_hac_lstm(streamed_lib, c16_lib, rnd, dev, t_max=800, bsz=400, h=384):
+    """The one-direction LSTM at Bonito HAC's shape (T = 800, B = 400, H = 384,
+    float32, full rows) through both routes that hold it: the streamed
+    instance of csrc/bilstm.cu (wh from L2; ``streamed_lib`` built with
+    -DLSTM_PROBE) and csrc/lstm_c16.cu (``c16_lib`` built with
+    -DLSTM_C16_PROBE). Prints each one's clocks a step by phase and its
+    time."""
+    streamed_lib.infer_probe_read.argtypes = [ctypes.c_void_p]
+    streamed_lib.infer_probe_read.restype = ctypes.c_int
+    xw = rnd(t_max, bsz, 4 * h)
+    wh = rnd(h, 4 * h, scale=(6 / (5 * h)) ** 0.5 / 2)
+    lens = torch.full((bsz,), t_max, dtype=torch.int32, device=dev)
+    clocks = (ctypes.c_longlong * 8)()
+    saved = dict(cuda_build._LIBS)
+    cases = [("streamed", "bilstm", streamed_lib, streamed_lib.infer_probe_read, INFER_PHASES),
+             ("cluster16", "lstm_c16", c16_lib, None, C16_PHASES)]
+    try:
+        for name, lib_name, lib, read, phases in cases:
+            if read is None:
+                lstm._declare(lib)
+                lib.c16_probe_read.argtypes = [ctypes.c_void_p]
+                lib.c16_probe_read.restype = ctypes.c_int
+                read = lib.c16_probe_read
+            else:
+                bilstm._declare(lib)
+            cuda_build._LIBS[lib_name] = lib
+
+            def fn():
+                return lstm._launch(xw, wh, lens, None, name)
+            fn()  # warm-up
+            torch.cuda.synchronize()
+            cuda_build.check(read(clocks), "probe_read")
+            fn()
+            torch.cuda.synchronize()
+            cuda_build.check(read(clocks), "probe_read")
+            geometry = (lstm.c16_geometry(bsz, lstm.c16_clusters(dev)) if name == "cluster16"
+                        else lstm_grad.cluster_geometry("infer", bsz, h, 1))
+            print(json.dumps({
+                "kernel": f"lstm_layer ({name})", "shape": f"T={t_max} B={bsz} H={h}",
+                "geometry": geometry, "c16_clusters": lstm.c16_clusters(dev),
+                "ms_with_probe": _time_ms(fn, 3, 1),
+                "clocks_per_step": {n: round(clocks[i] / t_max)
+                                    for i, n in enumerate(phases)}}), flush=True)
+    finally:
+        cuda_build._LIBS.clear()
+        cuda_build._LIBS.update(saved)
 
 
 def _device_ms(fn, names, reps=3):

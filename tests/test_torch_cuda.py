@@ -11,7 +11,10 @@ Tolerances: float32 sums in another order than the plain version's
 products with float32 sums, bit-identical from run to run; 1e-5 for the BiLSTM and the training
 LSTM forward (plus 1e-4 relative: its carried c grows without bound and
 carries the sum-order residue of every step), 1e-4 for its dxw and 1e-4 of max |dwh| for dwh, a sum over
-T*B rows); the beam search is exact (trace, decodes) with log masses within
+T*B rows; 1e-5 for the single direction's cluster-of-16 kernel,
+csrc/lstm_c16.cu, at H = 321-384 and at Bonito HAC's T = 800, B = 400, whose
+3xTF32 product sums in another order than csrc/bilstm.cu's, so there the fused
+layer is held bit for bit to csrc/bilstm.cu's single direction, forced); the beam search is exact (trace, decodes) with log masses within
 1e-4. The training LSTM's dwh must be bit-identical from run to run. The
 single LSTM direction and the GRU kernels 1e-5 (the GRU at every width
 and batch edge, each of its two instances forced, every geometry
@@ -234,12 +237,59 @@ def test_lstm_layer_kernel_matches_plain(cuda, h, b):
                       (got_b, tlstm.lstm_layer_plain(xw_b, wh_b, lens, starts))):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5, rtol=0)
     assert torch.equal(tlstm.lstm_layer(xw_b, wh_b, lens, starts), got_b), "differs between runs"
-    # the fused layer is these two directions, bit for bit (at another geometry:
-    # each column's k sum is one thread's, in order, whatever the tile)
+    # the fused layer is csrc/bilstm.cu's single direction, twice, bit for bit
+    # (at another geometry: each column's k sum is one thread's, in order,
+    # whatever the tile); where lstm_layer takes csrc/lstm_c16.cu (H = 384),
+    # against that single direction forced, which streams wh as the fused one
     fused_f, fused_b = tbl.bilstm_layer(xw_f, xw_b, wh_f, wh_b, lens, starts)
-    assert torch.equal(fused_f, got_f) and torch.equal(fused_b, got_b)
+    one_f, one_b = got_f, got_b
+    if tlstm.route(b, h) == "cluster16":
+        one_f = tlstm._launch(xw_f, wh_f, lens, None, "streamed")
+        one_b = tlstm._launch(xw_b, wh_b, lens, starts, "streamed")
+    assert torch.equal(fused_f, one_f) and torch.equal(fused_b, one_b)
     zero = tlstm.lstm_layer(xw_f, wh_f, torch.zeros_like(lens))
     assert not zero.any()
+
+
+# (h, t, b, flip): Bonito HAC's layer (T = 800, B = 400, H = 384) with ragged
+# lengths, forward and in flip mode (starts = T - len); short runs at B = 64
+# and B = 1; the route's edges at B = 400 (H = 321, where cluster_geometry first
+# streams wh) and H = 384 (its top: 16 blocks x 24 units); B = 600, past the
+# 64 rows a cluster of one wave holds
+C16_CASES = [(384, 800, 400, False), (384, 800, 400, True), (384, 20, 64, False),
+             (384, 12, 1, True), (321, 20, 400, True), (384, 20, 600, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,t,b,flip", C16_CASES)
+def test_lstm_layer_cluster16_matches_plain(cuda, h, t, b, flip):
+    rng = np.random.RandomState(500 + h + t + b)
+    to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    xw = to(rng.randn(t, b, 4 * h).astype(np.float32))
+    # row norm ~1, as in the LSTM tests above
+    wh = to((rng.randn(h, 4 * h) / np.sqrt(h)).astype(np.float32))
+    lengths = _lengths(rng, t, b)
+    lens = to(lengths)
+    starts = to((t - lengths).astype(np.int32)) if flip else None
+    assert tlstm.route(b, h) == "cluster16" and tlstm.c16_clusters(cuda) >= 1
+    assert cuda_build.load("lstm_c16").lstm_c16_smem_bytes() == tlstm.C16_SMEM_BYTES
+    before = dict(tlstm.launches_by_route)
+    got = tlstm.lstm_layer(xw, wh, lens, starts)
+    again = tlstm.lstm_layer(xw, wh, lens, starts)
+    assert tlstm.launches_by_route == {**before, "cluster16": before["cluster16"] + 2}
+    streamed = tlstm._launch(xw, wh, lens, starts, "streamed")
+    want = tlstm.lstm_layer_plain(xw, wh, lens, starts)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(streamed.cpu().numpy(), want.cpu().numpy(), atol=1e-5, rtol=0)
+    assert torch.equal(again, got), "differs between runs"
+    # bf16 xw stays on csrc/bilstm.cu (its instance streams wh here, or holds it at
+    # H = 321, where its xw tiles take half the shared memory)
+    bf16_route = tlstm.route(b, h, 1, BF16)
+    assert bf16_route != "cluster16"
+    before = dict(tlstm.launches_by_route)
+    tlstm.lstm_layer(xw[:2].to(BF16), wh, lens, None if starts is None else starts - (t - 2))
+    assert tlstm.launches_by_route == {**before, bf16_route: before[bf16_route] + 1}
 
 
 def _gru_inputs(rng, t, b, h, to):
