@@ -9,6 +9,8 @@ rebuilt when its source is newer than it. A source may be built into more
 than one library with other macros (``VARIANTS``): ``bilstm_bf16`` is
 ``csrc/bilstm.cu`` with ``-DLSTM_XW_BF16``, the LSTM inference kernel's
 bfloat16 instance, built beside the float32 one rather than after it.
+``build`` compiles any other source with the same nvcc command line (the
+probe's ``-D*_PROBE`` libraries, ``tools/kernel_probe.py``).
 """
 
 from __future__ import annotations
@@ -59,27 +61,34 @@ def nvcc_path() -> str:
     raise KernelError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _paths(name: str):
-    source = VARIANTS.get(name, (name,))[0]
-    return (os.path.join(CSRC, f"{source}.cu"),
-            os.path.join(BUILD, f"lib{name}.so"),
-            os.path.join(BUILD, f"{name}.log"))
+def _source(name: str):
+    """A package library's source file and extra nvcc flags."""
+    source, flags = VARIANTS.get(name, (name, ()))
+    return os.path.join(CSRC, f"{source}.cu"), flags
+
+
+def _lib(name: str) -> str:
+    return os.path.join(BUILD, f"lib{name}.so")
+
+
+def _log(name: str) -> str:
+    return os.path.join(BUILD, f"{name}.log")
 
 
 def _stale(name: str) -> bool:
-    src, lib, _ = _paths(name)
+    src, lib = _source(name)[0], _lib(name)
     return not os.path.exists(lib) or os.path.getmtime(src) > os.path.getmtime(lib)
 
 
-def _start_build(name: str):
-    """Start nvcc for one source; returns what _finish_build needs."""
-    src, lib, log = _paths(name)
+def _start_build(name: str, src: str, flags: Iterable[str]):
+    """Start nvcc on ``src`` with ``flags`` for ``lib<name>.so`` (written to
+    a temporary file, its output to ``<name>.log``); returns what
+    _finish_build needs. The one nvcc command line of every library."""
     os.makedirs(BUILD, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
+    tmp = f"{_lib(name)}.{os.getpid()}.tmp"
     cmd = [nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           *VARIANTS.get(name, (name, ()))[1], "-o", tmp, src]
-    with open(log, "w") as logf:
+           "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *flags, "-o", tmp, src]
+    with open(_log(name), "w") as logf:
         proc = subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT)
     return proc, tmp
 
@@ -88,9 +97,19 @@ def _finish_build(name: str, started) -> None:
     proc, tmp = started
     rc = proc.wait()
     if rc != 0:
-        with open(_paths(name)[2]) as f:
+        with open(_log(name)) as f:
             raise KernelError(f"nvcc failed for {name} (rc {rc}):\n{f.read()}")
-    os.replace(tmp, _paths(name)[1])
+    os.replace(tmp, _lib(name))
+
+
+def build(libs: Dict[str, Tuple[str, Iterable[str]]]) -> Dict[str, str]:
+    """Build each ``{name: (source file, extra nvcc flags)}`` into
+    ``lib<name>.so`` whether stale or not, every nvcc started at once (the
+    probe's libraries, tools/kernel_probe.py); returns {name: library path}."""
+    started = {n: _start_build(n, src, flags) for n, (src, flags) in libs.items()}
+    for n, s in started.items():
+        _finish_build(n, s)
+    return {n: _lib(n) for n in libs}
 
 
 def build_all(names: Iterable[str] = SOURCES) -> Tuple[Dict[str, str], Dict[str, float]]:
@@ -99,7 +118,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Tuple[Dict[str, str], Dict[str,
     build_seconds: Dict[str, float] = {}
     with _LOCK:
         t0 = time.time()
-        procs = {n: _start_build(n) for n in names if _stale(n)}
+        procs = {n: _start_build(n, *_source(n)) for n in names if _stale(n)}
         while len(build_seconds) < len(procs):
             for n, started in procs.items():
                 if n not in build_seconds and started[0].poll() is not None:
@@ -109,7 +128,7 @@ def build_all(names: Iterable[str] = SOURCES) -> Tuple[Dict[str, str], Dict[str,
             _finish_build(n, started)
     logs = {}
     for n in names:
-        log = _paths(n)[2]
+        log = _log(n)
         if os.path.exists(log):
             with open(log) as f:
                 logs[n] = f.read()
@@ -124,9 +143,9 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         if name not in _LIBS:
             if _stale(name):
-                _finish_build(name, _start_build(name))
+                _finish_build(name, _start_build(name, *_source(name)))
             try:
-                lib = ctypes.CDLL(_paths(name)[1])
+                lib = ctypes.CDLL(_lib(name))
             except OSError as e:
                 raise KernelError(f"cannot load the {name} kernels: {e}") from e
             _DECLARE[name](lib)

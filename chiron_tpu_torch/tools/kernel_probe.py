@@ -1,13 +1,13 @@
 """Where the kernels redesigned for Hopper spend their time, on one NVIDIA GPU.
 
     python -m chiron_tpu_torch.tools.kernel_probe [mma] [conv] [lstm] [beam] [bnlstm] [gru]
-        [gru_baseline]
 
 Builds ``csrc/conv_bn.cu``, ``csrc/lstm_grad.cu``, ``csrc/bilstm.cu``,
-``csrc/beam.cu``, ``csrc/bnlstm.cu``, ``csrc/gru.cu`` and ``tools/gru_baseline.cu``
-again with probe macros (the libraries the package uses are left alone) and
-prints, as JSON lines, for the parts named on the command line
-(all of them when none is named):
+``csrc/lstm_c16.cu``, ``csrc/beam.cu``, ``csrc/bnlstm.cu`` and ``csrc/gru.cu``
+again with probe macros, through ``ops/cuda_build.py:build`` (the package's
+nvcc command line; the libraries the package uses are left alone), and
+prints, as JSON lines, for the parts named on the command line (all of them
+when none is named):
 
 - the start rate of ``mma.sync.m16n8k8`` TF32 (``tools/mma_rate.cu``: 20
   independent accumulator tiles a warp, nothing else in the loop), with 1 to 3
@@ -60,17 +60,11 @@ prints, as JSON lines, for the parts named on the command line
   cluster geometry that fits the shape, fused, beside the cost model's
   clocks and the card's count of co-resident clusters;
 - the GRU recurrence (``-DGRU_PROBE``) at T = B = 400 on seeded inputs with
-  chip_smoke's lengths, fused (bigru_layer) and one direction (gru_layer):
-  for ``gru_baseline``, the first port of the GRU kernel
-  (``tools/gru_baseline.cu``, the yardstick the package no longer launches)
-  at H = 128, the clocks per step that thread 0 of block 0 spends loading gx,
-  in the gate product, storing r * h and u, in barrier 1, loading cx, in the
-  candidate product, in the update and stores, and in barrier 2; then, built
-  without the probe slots, its time beside the package's kernel (each
-  instance) in turns; for ``gru``, ``csrc/gru.cu`` at H = 128 / 100 / 16 /
-  200 / 256 / 384 / 512 with each instance that fits (the one
-  ``ops/gru.py:geometry`` chooses marked): the gate product, the gates and
-  r * h stores, barrier 1, the issue of the next step's loads, the candidate
+  chip_smoke's lengths, fused (bigru_layer) and one direction (gru_layer), at
+  H = 128 / 100 / 16 / 200 / 256 / 384 / 512 with each instance that fits
+  (the one ``ops/gru.py:geometry`` chooses marked): the clocks per step that
+  thread 0 of block 0 spends in the gate product, the gates and r * h
+  stores, barrier 1, the issue of the next step's loads, the candidate
   product, the update and stores, barrier 2.
 
 Times are CUDA events over 10 launches after 2 warm-ups. The numbers on the
@@ -103,7 +97,7 @@ C16_PHASES = ("product_and_xw_issue", "gate_stage_and_h_store", "arrive_and_out_
 # slots 8-14 of lstm_grad.cu's clocks
 BEAM_PHASES = ("lp_fetch", "stay_and_extend", "hash_match", "merge_and_keys", "top_w",
                "state_update_and_trace_store")
-PARTS = ("mma", "conv", "lstm", "beam", "bnlstm", "gru", "gru_baseline")
+PARTS = ("mma", "conv", "lstm", "beam", "bnlstm", "gru")
 COOP_PHASES = ("product", "bn_h_tile_moments", "barrier_1", "bn_h_combine_and_gates",
                "c_and_tile_moments", "barrier_2", "bn_c_combine_h_and_stores")
 # slots 8-15 of bnlstm.cu's clocks
@@ -116,15 +110,6 @@ SPLIT_PHASES = ("bn_h_cluster_combine", "bn_h_exchange_between_clusters",
                 "bn_c_cluster_combine", "bn_c_exchange_between_clusters")
 BWD_PHASES = ("gate_gradients", "prefetch_start", "da_exchange", "arrive_and_dxw_stores",
               "cluster_wait", "product", "residual_wait_and_block_barrier")
-
-
-def _start_build(name, tag, flags, src_dir=cuda_build.CSRC):
-    os.makedirs(cuda_build.BUILD, exist_ok=True)
-    out = os.path.join(cuda_build.BUILD, f"lib{name}_probe_{tag}.so")
-    cmd = [cuda_build.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", *flags, "-o", out,
-           os.path.join(src_dir, f"{name}.cu")]
-    return out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def _time_ms(fn, reps=10, warm=2):
@@ -150,36 +135,29 @@ def main(argv=None):
     dev = torch.device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout.strip())
-    builds = {}
+    # (csrc/ source, tag) -> probe macros, each built as lib<source>_probe_<tag>.so
+    probes = {}
     if "conv" in parts:
-        builds.update({("conv_bn", tag): _start_build("conv_bn", tag, flags)
-                       for tag, flags in CONV_VARIANTS.items()})
+        probes.update({("conv_bn", tag): flags for tag, flags in CONV_VARIANTS.items()})
     if "lstm" in parts:
-        builds[("lstm_grad", "phases")] = _start_build("lstm_grad", "phases", ["-DLSTM_PROBE"])
-        builds[("bilstm", "phases")] = _start_build("bilstm", "phases", ["-DLSTM_PROBE"])
-        builds[("lstm_c16", "phases")] = _start_build("lstm_c16", "phases", ["-DLSTM_C16_PROBE"])
+        probes.update({("lstm_grad", "phases"): ["-DLSTM_PROBE"],
+                       ("bilstm", "phases"): ["-DLSTM_PROBE"],
+                       ("lstm_c16", "phases"): ["-DLSTM_C16_PROBE"]})
     if "beam" in parts:
-        builds[("beam", "phases")] = _start_build("beam", "phases", ["-DBEAM_PROBE"])
+        probes[("beam", "phases")] = ["-DBEAM_PROBE"]
     if "bnlstm" in parts:
-        builds[("bnlstm", "phases")] = _start_build("bnlstm", "phases", ["-DBNLSTM_PROBE"])
+        probes[("bnlstm", "phases")] = ["-DBNLSTM_PROBE"]
     if "gru" in parts:
-        builds[("gru", "phases")] = _start_build("gru", "phases", ["-DGRU_PROBE"])
-
-    if "gru_baseline" in parts:
-        builds[("gru_baseline", "phases")] = _start_build("gru_baseline", "phases",
-                                                          ["-DGRU_PROBE"], TOOLS)
-        builds[("gru_baseline", "timing")] = _start_build("gru_baseline", "timing", [], TOOLS)
+        probes[("gru", "phases")] = ["-DGRU_PROBE"]
+    builds = {f"{src}_probe_{tag}": (os.path.join(cuda_build.CSRC, f"{src}.cu"), flags)
+              for (src, tag), flags in probes.items()}
     if "mma" in parts:
-        builds[("mma_rate", "")] = _start_build("mma_rate", "", [], TOOLS)
-    libs = {}
-    for key, (out, proc) in builds.items():
-        text = proc.communicate()[0]
-        if proc.returncode:
-            sys.exit(f"nvcc failed for {key}:\n{text}")
-        libs[key] = ctypes.CDLL(out)
+        builds["mma_rate"] = (os.path.join(TOOLS, "mma_rate.cu"), [])
+    built = {n: ctypes.CDLL(path) for n, path in cuda_build.build(builds).items()}
+    libs = {key: built[f"{key[0]}_probe_{key[1]}"] for key in probes}
 
     if "mma" in parts:
-        rate = libs[("mma_rate", "")]
+        rate = built["mma_rate"]
         rate.mma_rate_launch.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         rate.mma_rate_launch.restype = ctypes.c_int
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -332,9 +310,6 @@ def main(argv=None):
 
     if "bnlstm" in parts:
         _probe_bnlstm(libs[("bnlstm", "phases")], rnd, dev)
-    if "gru_baseline" in parts:
-        _probe_gru_baseline(libs[("gru_baseline", "phases")], libs[("gru_baseline", "timing")],
-                            rnd, dev)
     if "gru" in parts:
         _probe_gru(libs[("gru", "phases")], rnd, dev)
 
@@ -471,45 +446,9 @@ def _probe_bnlstm(lib, rnd, dev):
                                       3)}), flush=True)
 
 
-GRU_BASELINE_PHASES = ("gx_load", "gate_product", "rh_and_u_stores", "barrier_1", "cx_load",
-                  "candidate_product", "update_and_stores", "barrier_2")
 # slots 8-14 of csrc/gru.cu's clocks
 GRU_PHASES = ("gate_product", "gates_and_rh_stores", "barrier_1", "next_loads_issue",
               "candidate_product", "update_and_stores", "barrier_2")
-
-
-class GruBaseline:
-    """The first port of the GRU kernel (``tools/gru_baseline.cu``), the
-    yardstick of ``csrc/gru.cu``: ``bigru`` and ``gru`` take the arguments of
-    ``ops/gru.py:bigru_layer`` and ``gru_layer``; ``lib`` is its built
-    library."""
-
-    def __init__(self, lib):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.baseline_bigru_launch.argtypes = [vp] * 12 + [ci] * 3 + [vp]
-        lib.baseline_bigru_launch.restype = ci
-        lib.baseline_gru_launch.argtypes = [vp] * 7 + [ci] * 3 + [vp]
-        lib.baseline_gru_launch.restype = ci
-        self.lib = lib
-
-    def bigru(self, gx_f, cx_f, gx_b, cx_b, wh_f, wh_b, lengths, starts_bw):
-        t_max, bsz, h = cx_f.shape
-        outs = [torch.empty_like(cx_f) for _ in range(2)]
-        args = [gx_f, cx_f, gx_b, cx_b, *wh_f, *wh_b, lengths, starts_bw, *outs]
-        cuda_build.check(self.lib.baseline_bigru_launch(
-            *[a.contiguous().data_ptr() for a in args], t_max, bsz, h,
-            torch.cuda.current_stream().cuda_stream), "baseline_bigru_launch")
-        return outs
-
-    def gru(self, gx, cx, whg, whc, lengths, starts=None):
-        t_max, bsz, h = cx.shape
-        out = torch.empty_like(cx)
-        args = [gx, cx, whg, whc, lengths]
-        cuda_build.check(self.lib.baseline_gru_launch(
-            *[a.contiguous().data_ptr() for a in args],
-            None if starts is None else starts.data_ptr(), out.data_ptr(), t_max, bsz, h,
-            torch.cuda.current_stream().cuda_stream), "baseline_gru_launch")
-        return out
 
 
 def _gru_case(rnd, dev, bsz, h, t_max=400):
@@ -538,43 +477,6 @@ def _clock_row(lib, fn, clocks, t_max, slots, phases):
                                text=True).stdout.split()[0])
     return {"ms_with_probe": _time_ms(fn, 5), "sm_clock_mhz_after": mhz, "clocks_per_step": per,
             "clocks_per_step_total": sum(per.values())}
-
-
-def _probe_gru_baseline(lib, timing_lib, rnd, dev):
-    """The baseline kernel at T = B = 400, H = 128: clocks per phase of a
-    step; then its time (built without the probe slots) beside the package's
-    kernel, each instance, in turns (baseline, resident, streamed, streamed,
-    resident, baseline), with the largest difference of each from the plain
-    version."""
-    lib.gru_probe_read.argtypes = [ctypes.c_void_p]
-    lib.gru_probe_read.restype = ctypes.c_int
-    base = GruBaseline(lib)
-    args, lens, starts = _gru_case(rnd, dev, 400, 128)
-    clocks = (ctypes.c_longlong * 16)()
-    cases = {"bigru_layer": lambda: base.bigru(*args, lens, starts),
-             "gru_layer": lambda: base.gru(args[2], args[3], *args[5], lens, starts)}
-    for name, fn in cases.items():
-        print(json.dumps({"kernel": f"{name} (the baseline kernel)", "shape": "T=400 B=400 H=128",
-                          **_clock_row(lib, fn, clocks, 400, 0, GRU_BASELINE_PHASES)}), flush=True)
-    timed = GruBaseline(timing_lib)
-    layers = {"bigru_layer": ("bigru", args[0:4:2], args[1:4:2], args[4:]),
-              "gru_layer": ("gru", (args[2],), (args[3],), (args[5],))}
-    for name, (entry, gxs, cxs, whs) in layers.items():
-        runs = {i: (lambda g: lambda: gru._launch(entry, gxs, cxs, whs, lens, starts, g))(
-            gru.geometry(400, 128, len(cxs), i)) for i in gru.INSTANCES}
-        if entry == "bigru":
-            runs["baseline"] = lambda: timed.bigru(*args, lens, starts)
-            want = gru.bigru_layer_plain(*args, lens, starts)
-        else:
-            runs["baseline"] = lambda: [timed.gru(args[2], args[3], *args[5], lens, starts)]
-            want = [gru.gru_layer_plain(args[2], args[3], *args[5], lens, starts)]
-        err = {k: max(float((a - b).abs().max()) for a, b in zip(fn(), want))
-               for k, fn in runs.items()}
-        ms = {}
-        for which in ("baseline", "resident", "streamed", "streamed", "resident", "baseline"):
-            ms.setdefault(which, []).append(_time_ms(runs[which], 5))
-        print(json.dumps({"kernel": name, "shape": "T=400 B=400 H=128",
-                          "ms_in_turns": ms, "max_abs_err_vs_plain": err}), flush=True)
 
 
 def _probe_gru(lib, rnd, dev):

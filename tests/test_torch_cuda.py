@@ -7,15 +7,17 @@ This file imports no JAX, so it also runs where JAX is not installed:
 
 (``--noconftest``: tests/conftest.py configures JAX for the other tests.)
 Tolerances: float32 sums in another order than the plain version's
-(1e-4 for conv outputs and moments, whose product is three TF32 tensor-core
-products with float32 sums, bit-identical from run to run; 1e-5 for the BiLSTM and the training
-LSTM forward (plus 1e-4 relative: its carried c grows without bound and
-carries the sum-order residue of every step), 1e-4 for its dxw and 1e-4 of max |dwh| for dwh, a sum over
-T*B rows; 1e-5 for the single direction's cluster-of-16 kernel,
-csrc/lstm_c16.cu, at H = 321-384 and at Bonito HAC's T = 800, B = 400, whose
-3xTF32 product sums in another order than csrc/bilstm.cu's, so there the fused
-layer is held bit for bit to csrc/bilstm.cu's single direction, forced); the beam search is exact (trace, decodes) with log masses within
-1e-4. The training LSTM's dwh must be bit-identical from run to run. The
+(1e-4 for conv outputs and 1e-4 of max(|moment|, 1) for moments, whose
+product is three TF32 tensor-core products with float32 sums, bit-identical
+from run to run; 1e-5 for the BiLSTM and the training LSTM forward (plus 1e-4
+relative over short windows at weights that make the recurrence chaotic: its
+carried c grows without bound and carries the sum-order residue of every
+step), 1e-4 for its dxw and 1e-4 of max |dwh| for dwh, a sum over T*B rows;
+1e-5 for the single direction's cluster-of-16 kernel, csrc/lstm_c16.cu, at
+H = 321-384 and at Bonito HAC's T = 800, B = 400, whose 3xTF32 product sums in
+another order than csrc/bilstm.cu's, so there the fused layer is held bit for
+bit to csrc/bilstm.cu's single direction, forced); the beam search is exact
+(trace, traceback, decodes) with log masses within 1e-4 where live. The training LSTM's dwh must be bit-identical from run to run. The
 single LSTM direction and the GRU kernels 1e-5 (the GRU at every width
 and batch edge, each of its two instances forced, every geometry
 bit-identical to the others, fused == single); the BNLSTM kernels 1e-4 (each
@@ -35,7 +37,13 @@ the float32 instance on the upcast input (see the section at the end). The
 CTC loss's two kernels are held at tests/test_torch_ctc_loss.py's
 tolerances (values 1e-5 relative, gradients 1e-5): their lp, alpha, beta and
 nll are the plain version's bit for bit, only the class sums' order differs;
-bit-identical from run to run.
+bit-identical from run to run. Each kernel's cases include the main path's full
+shapes: conv_bn at dna-pre's batch and window and at the other bundled fronts'
+batches, the recurrences over a full window (T = 400; T = 100 at H = 384 / 512)
+at dna-pre's batch and its edges and at the training step's batch, with the
+main path's scale of the recurrent weights, and the beam search at W = 30 over
+a dna-pre batch and window. This file is the one place the kernels are held
+against their plain versions on the card: chip_smoke.py's phase 2 runs it.
 """
 
 import numpy as np
@@ -59,6 +67,57 @@ def cuda():
     return torch.device("cuda")
 
 
+def _seeded(seed, dev):
+    """randn(*shape, scale) from a seeded generator, moved to ``dev``."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+    return rnd
+
+
+def _randn(rng, dev, *shape):
+    """rng.randn(*shape) as float32 on ``dev``; past 2^25 elements (the
+    full-window cases) drawn on ``dev`` by a generator seeded from rng, as
+    numpy's float64 draws take seconds there."""
+    if np.prod(shape) <= 1 << 25:
+        return torch.tensor(rng.randn(*shape).astype(np.float32), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(int(rng.randint(1 << 31)))
+    return torch.randn(*shape, generator=gen, device=dev)
+
+
+def _assert_close(got, want, atol, rtol=0.0):
+    """|got - want| <= atol + rtol * |want| everywhere, on the device."""
+    err = (got - want).abs()
+    assert bool((err <= atol + rtol * want.abs()).all()), f"max |diff| {float(err.max()):.3e}"
+
+
+def _conv_inputs(cuda, k, stride, c_in, c_out, n_terms, t, bsz, dtype):
+    """conv_bn's terms and weights; at a full batch (B >= 300) the weights at
+    their initial scale, as the main path's."""
+    rnd = _seeded(100 * k + stride + c_in + n_terms, cuda)
+    terms = [(rnd(bsz, t, c_in).to(dtype), rnd(c_in).abs() + 0.5, rnd(c_in, scale=0.2))
+             for _ in range(n_terms)]
+    w_std = (2 / (k * c_in + c_out)) ** 0.5 if bsz >= 300 else 0.3
+    return terms, rnd(k, c_in, c_out, scale=w_std)
+
+
+def _assert_moments_close(got, want):
+    """conv_bn's sums and sums of squares within 1e-4 of max(|moment|, 1)."""
+    for g, r in zip(got, want):
+        assert float(((g.double() - r.double()).abs() / r.double().abs().clamp(min=1.0)).max()) \
+            <= 1e-4
+
+
+# k, stride, t, c_in, c_out, n_terms, relu_in, bsz: a full dna-pre batch (B = T = 400)
+# at dna_model1's shapes, and rna_model2's and slow_model1's first convs at their
+# presets' batches (B = 300, T = 2,000)
+FULL_CONV_CASES = [
+    (3, 1, 400, 256, 256, 2, True, 400), (3, 1, 400, 256, 256, 1, True, 400),
+    (1, 1, 400, 256, 256, 2, True, 400), (1, 1, 400, 256, 256, 1, True, 400),
+    (1, 1, 400, 1, 256, 1, False, 400), (9, 5, 2000, 1, 256, 1, False, 300),
+    (8, 4, 2000, 1, 256, 1, False, 300)]
+
 CONV_CASES = [
     # k, stride, t, c_in, c_out, n_terms, relu_in, bsz
     (1, 1, 24, 1, 16, 1, False, 4),
@@ -73,25 +132,21 @@ CONV_CASES = [
     (3, 1, 40, 3, 10, 1, True, 3),      # narrow input, C_out no multiple of 4
     (3, 2, 77, 16, 24, 2, True, 3),     # strided slab on the tensor cores
     (5, 3, 90, 12, 132, 1, False, 2),   # two channel tiles, the second ragged
-]
+] + FULL_CONV_CASES
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,stride,t,c_in,c_out,n_terms,relu_in,bsz", CONV_CASES)
 def test_conv_bn_kernel_matches_plain(cuda, k, stride, t, c_in, c_out, n_terms,
                                       relu_in, bsz):
-    rng = np.random.RandomState(k + stride + c_in)
-    terms = [tuple(torch.tensor(v, device=cuda) for v in (
-        rng.randn(bsz, t, c_in).astype(np.float32), (0.5 + rng.rand(c_in)).astype(np.float32),
-        (rng.randn(c_in) * 0.2).astype(np.float32))) for _ in range(n_terms)]
-    w = torch.tensor((rng.randn(k, c_in, c_out) * 0.3).astype(np.float32), device=cuda)
+    terms, w = _conv_inputs(cuda, k, stride, c_in, c_out, n_terms, t, bsz, torch.float32)
     before = tconv.launches
     got = tconv.conv_bn(terms, w, relu_in, stride)
     assert tconv.launches == before + 1
     want = tconv.conv_bn_plain(terms, w, relu_in, stride)
     torch.cuda.synchronize()
-    for g, r in zip(got, want):
-        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    assert float((got[0] - want[0]).abs().max()) <= 1e-4
+    _assert_moments_close(got[1:], want[1:])
     again = tconv.conv_bn(terms, w, relu_in, stride)
     torch.cuda.synchronize()
     assert all(torch.equal(a, g) for a, g in zip(again, got)), "differs between runs"
@@ -139,13 +194,12 @@ ZOO_CONV_SHAPES = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_bn_zoo_shapes_match_plain(cuda, k, stride, t, c_in, c_out, n_terms, relu_in,
                                         dtype):
-    """Each instance at each zoo shape, B = 400: float32 1e-4, bf16 in the
-    working type (as the bf16 cases below), bit-identical across runs, and,
-    where both instances take one route, the bf16 instance the float32
-    instance's function rounded. The moments within 1e-4 (relative and
-    absolute) of the same sums in float64: over 160,000 rows with
-    cancellation, the float32 plain version's own sums sit up to ~1.7e-4
-    from them."""
+    """Each instance at each zoo shape, B = 400: float32 y within 1e-4, bf16 in
+    the working type (as the bf16 cases below), bit-identical across runs,
+    and, where both instances take one route, the bf16 instance the float32
+    instance's function rounded. The moments within 1e-4 of max(|sum|, 1) of
+    the same sums in float64: over 160,000 rows with cancellation, the float32
+    plain version's own sums sit up to ~1.7e-4 from them."""
     gen = torch.Generator().manual_seed(k * 1000 + t + c_in + c_out)
     terms = [((torch.randn(400, t, c_in, generator=gen)).to(cuda).to(dtype),
               (0.5 + torch.rand(c_in, generator=gen)).to(cuda),
@@ -160,8 +214,7 @@ def test_conv_bn_zoo_shapes_match_plain(cuda, k, stride, t, c_in, c_out, n_terms
     torch.cuda.synchronize()
     assert all(torch.equal(a, g) for a, g in zip(again, got)), "differs between runs"
     if dtype == torch.float32:
-        np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(), rtol=1e-4,
-                                   atol=1e-4)
+        assert float((got[0] - want[0]).abs().max()) <= 1e-4
     else:
         _assert_bf16_close(got[0], want[0], 1e-4)
         routes = {cuda_build.load("conv_bn").conv_bn_route(c_in, c_out, k, stride,
@@ -174,9 +227,20 @@ def test_conv_bn_zoo_shapes_match_plain(cuda, k, stride, t, c_in, c_out, n_terms
             assert torch.equal(got[1], s32) and torch.equal(got[2], q32)
     x64 = sum(r.double() * a.double() + b.double() for r, a, b in terms)
     y64 = tconv.conv1d(torch.relu(x64) if relu_in else x64, w.double(), stride)
-    for g, r in zip(got[1:], (y64.sum(dim=(0, 1)), (y64 * y64).sum(dim=(0, 1)))):
-        np.testing.assert_allclose(g.double().cpu().numpy(), r.cpu().numpy(), rtol=1e-4,
-                                   atol=1e-4)
+    _assert_moments_close(got[1:], (y64.sum(dim=(0, 1)), (y64 * y64).sum(dim=(0, 1))))
+
+
+def _wh_std(h, t, short):
+    """The recurrent weights' scale: over a full window (T >= 100) the main
+    path's, (6 / 5H)^0.5 / 2; over a short one ``short``."""
+    return (6 / (5 * h)) ** 0.5 / 2 if t >= 100 else short
+
+
+# (h, t, b) over a full window: DNA_default's layer (H = 128) at dna-pre's batch and
+# its edges, RNA_default's width (100), a cluster of 8 (256); H = 384 / 512 (wh from
+# device memory) over T = 100
+FULL_LSTM_CASES = ([(128, 400, 400), (100, 400, 400), (256, 400, 400), (128, 400, 1),
+                    (128, 400, 301)] + [(h, 100, b) for h in (384, 512) for b in (1, 64, 301)])
 
 
 # (h, t, b): widths with a ragged slice (100) and a cluster of 8 (256), a single
@@ -184,13 +248,13 @@ def test_conv_bn_zoo_shapes_match_plain(cuda, k, stride, t, c_in, c_out, n_terms
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,t,b", [(16, 30, 11), (100, 30, 11), (128, 30, 11), (256, 30, 11),
                                    (128, 30, 1), (128, 40, 400), (100, 40, 301), (384, 30, 64),
-                                   (512, 30, 301), (512, 30, 1)])
+                                   (512, 30, 301), (512, 30, 1)] + FULL_LSTM_CASES)
 def test_bilstm_kernel_matches_plain(cuda, h, t, b):
     rng = np.random.RandomState(h + b)
     to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
-    xw_f, xw_b = (to(rng.randn(t, b, 4 * h).astype(np.float32)) for _ in range(2))
+    xw_f, xw_b = (_randn(rng, cuda, t, b, 4 * h) for _ in range(2))
     # at H = 256 and B >= 300 weights of row norm ~1 (see the LSTM tests below)
-    scale = 0.3 if h <= 128 and b < 300 else 1.0 / np.sqrt(h)
+    scale = _wh_std(h, t, 0.3 if h <= 128 and b < 300 else 1.0 / np.sqrt(h))
     wh_f, wh_b = (to((rng.randn(h, 4 * h) * scale).astype(np.float32)) for _ in range(2))
     lengths = rng.randint(1, t, size=b).astype(np.int32)
     lengths[0], lengths[-1] = 0, t
@@ -202,7 +266,7 @@ def test_bilstm_kernel_matches_plain(cuda, h, t, b):
     again = tbl.bilstm_layer(*args)
     torch.cuda.synchronize()
     for g, r in zip(got, want):
-        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=1e-5, rtol=0)
+        _assert_close(g, r, 1e-5)
     assert all(torch.equal(a, g) for a, g in zip(again, got)), "differs between runs"
 
 
@@ -215,17 +279,17 @@ def _lengths(rng, t, b, full=1):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,b", [(16, 11), (100, 11), (128, 11), (256, 11), (128, 1),
-                                 (128, 301), (128, 400), (100, 400), (256, 301), (384, 64),
-                                 (512, 301), (512, 1)])
-def test_lstm_layer_kernel_matches_plain(cuda, h, b):
+@pytest.mark.parametrize("h,t,b", [(h, 30, b) for h, b in [
+    (16, 11), (100, 11), (128, 11), (256, 11), (128, 1), (128, 301), (128, 400), (100, 400),
+    (256, 301), (384, 64), (512, 301), (512, 1)]] + FULL_LSTM_CASES)
+def test_lstm_layer_kernel_matches_plain(cuda, h, t, b):
     rng = np.random.RandomState(200 + h + b)
-    t = 30
     to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
-    xw_f, xw_b = (to(rng.randn(t, b, 4 * h).astype(np.float32)) for _ in range(2))
+    xw_f, xw_b = (_randn(rng, cuda, t, b, 4 * h) for _ in range(2))
     # recurrent weights of row norm ~1: larger ones make the recurrence
     # chaotic at H >= 128, and it then amplifies the sum-order residue
-    wh_f, wh_b = (to((rng.randn(h, 4 * h) / np.sqrt(h)).astype(np.float32)) for _ in range(2))
+    scale = _wh_std(h, t, 1.0 / np.sqrt(h))
+    wh_f, wh_b = (to((rng.randn(h, 4 * h) * scale).astype(np.float32)) for _ in range(2))
     lengths = _lengths(rng, t, b)
     lens, starts = to(lengths), to((t - lengths).astype(np.int32))
     before = tlstm.launches
@@ -235,7 +299,7 @@ def test_lstm_layer_kernel_matches_plain(cuda, h, b):
     torch.cuda.synchronize()
     for got, want in ((got_f, tlstm.lstm_layer_plain(xw_f, wh_f, lens)),
                       (got_b, tlstm.lstm_layer_plain(xw_b, wh_b, lens, starts))):
-        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5, rtol=0)
+        _assert_close(got, want, 1e-5)
     assert torch.equal(tlstm.lstm_layer(xw_b, wh_b, lens, starts), got_b), "differs between runs"
     # the fused layer is csrc/bilstm.cu's single direction, twice, bit for bit
     # (at another geometry: each column's k sum is one thread's, in order,
@@ -265,7 +329,7 @@ C16_CASES = [(384, 800, 400, False), (384, 800, 400, True), (384, 20, 64, False)
 def test_lstm_layer_cluster16_matches_plain(cuda, h, t, b, flip):
     rng = np.random.RandomState(500 + h + t + b)
     to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
-    xw = to(rng.randn(t, b, 4 * h).astype(np.float32))
+    xw = _randn(rng, cuda, t, b, 4 * h)
     # row norm ~1, as in the LSTM tests above
     wh = to((rng.randn(h, 4 * h) / np.sqrt(h)).astype(np.float32))
     lengths = _lengths(rng, t, b)
@@ -280,8 +344,8 @@ def test_lstm_layer_cluster16_matches_plain(cuda, h, t, b, flip):
     streamed = tlstm._launch(xw, wh, lens, starts, "streamed")
     want = tlstm.lstm_layer_plain(xw, wh, lens, starts)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=1e-5, rtol=0)
-    np.testing.assert_allclose(streamed.cpu().numpy(), want.cpu().numpy(), atol=1e-5, rtol=0)
+    _assert_close(got, want, 1e-5)
+    _assert_close(streamed, want, 1e-5)
     assert torch.equal(again, got), "differs between runs"
     # bf16 xw stays on csrc/bilstm.cu (its instance streams wh here, or holds it at
     # H = 321, where its xw tiles take half the shared memory)
@@ -292,24 +356,28 @@ def test_lstm_layer_cluster16_matches_plain(cuda, h, t, b, flip):
     assert tlstm.launches_by_route == {**before, bf16_route: before[bf16_route] + 1}
 
 
-def _gru_inputs(rng, t, b, h, to):
-    gx_f, gx_b = (to(rng.randn(t, b, 2 * h).astype(np.float32)) for _ in range(2))
-    cx_f, cx_b = (to(rng.randn(t, b, h).astype(np.float32)) for _ in range(2))
+def _gru_inputs(rng, t, b, h, cuda):
+    to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
+    gx_f, gx_b = (_randn(rng, cuda, t, b, 2 * h) for _ in range(2))
+    cx_f, cx_b = (_randn(rng, cuda, t, b, h) for _ in range(2))
     # row norm ~1 (see the LSTM test above)
-    wh_f, wh_b = ((to((rng.randn(h, 2 * h) / np.sqrt(h)).astype(np.float32)),
-                   to((rng.randn(h, h) / np.sqrt(h)).astype(np.float32))) for _ in range(2))
+    scale = _wh_std(h, t, 1.0 / np.sqrt(h))
+    wh_f, wh_b = ((to((rng.randn(h, 2 * h) * scale).astype(np.float32)),
+                   to((rng.randn(h, h) * scale).astype(np.float32))) for _ in range(2))
     return gx_f, cx_f, gx_b, cx_b, wh_f, wh_b
 
 
+# (h, t, b): every width at dna-pre's batch edges, DNA_default's layer over a full
+# window, H = 384 / 512 over T = 100
 @pytest.mark.cuda
-@pytest.mark.parametrize("h", [16, 100, 128, 256, 384, 512])
-@pytest.mark.parametrize("b", [1, 11, 64, 301, 400])
-def test_gru_kernels_match_plain(cuda, h, b):
-    # the geometry ops/gru.py chooses, at every width and dna-pre's batch edges
+@pytest.mark.parametrize("h,t,b", [(h, 30, b) for b in (1, 11, 64, 301, 400)
+                                   for h in (16, 100, 128, 256, 384, 512)]
+                         + [(128, 400, 400)] + [c for c in FULL_LSTM_CASES if c[0] > 256])
+def test_gru_kernels_match_plain(cuda, h, t, b):
+    # the geometry ops/gru.py chooses, and each instance forced
     rng = np.random.RandomState(300 + h + b)
-    t = 30 if b <= 64 else 12
     to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
-    gx_f, cx_f, gx_b, cx_b, wh_f, wh_b = _gru_inputs(rng, t, b, h, to)
+    gx_f, cx_f, gx_b, cx_b, wh_f, wh_b = _gru_inputs(rng, t, b, h, cuda)
     lengths = _lengths(rng, t, b, full=min(4, b))
     lens, starts = to(lengths), to((t - lengths).astype(np.int32))
     before, inst = dict(tgru.launches), dict(tgru.instance_launches)
@@ -319,8 +387,8 @@ def test_gru_kernels_match_plain(cuda, h, b):
     assert tgru.instance_launches[route] == inst[route] + 1
     want_f, want_b = tgru.bigru_layer_plain(gx_f, cx_f, gx_b, cx_b, wh_f, wh_b, lens, starts)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(got_f.cpu().numpy(), want_f.cpu().numpy(), atol=1e-5, rtol=0)
-    np.testing.assert_allclose(got_b.cpu().numpy(), want_b.cpu().numpy(), atol=1e-5, rtol=0)
+    _assert_close(got_f, want_f, 1e-5)
+    _assert_close(got_b, want_b, 1e-5)
     # the fused layer is two single-direction launches, bit for bit (each
     # output's k sum is one thread's, in order, whatever the geometry)
     one_f = tgru.gru_layer(gx_f, cx_f, *wh_f, lens)
@@ -329,6 +397,10 @@ def test_gru_kernels_match_plain(cuda, h, b):
     assert torch.equal(one_f, got_f) and torch.equal(one_b, got_b)
     again = tgru.bigru_layer(gx_f, cx_f, gx_b, cx_b, wh_f, wh_b, lens, starts)
     assert torch.equal(again[0], got_f) and torch.equal(again[1], got_b), "differs between runs"
+    for i in tgru.instances(h):
+        forced = tgru._launch("bigru", (gx_f, gx_b), (cx_f, cx_b), (wh_f, wh_b), lens, starts,
+                              tgru.geometry(b, h, 2, i))
+        assert torch.equal(forced[0], got_f) and torch.equal(forced[1], got_b), i
     zero = tgru.gru_layer(gx_f, cx_f, *wh_f, torch.zeros_like(lens))
     assert not zero.any()
 
@@ -347,7 +419,7 @@ def test_gru_each_instance_matches_plain(cuda, instance, h, t, b):
     geom = tgru.geometry(b, h, 2, instance)
     rng = np.random.RandomState(600 + h + b)
     to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
-    gx_f, cx_f, gx_b, cx_b, wh_f, wh_b = _gru_inputs(rng, t, b, h, to)
+    gx_f, cx_f, gx_b, cx_b, wh_f, wh_b = _gru_inputs(rng, t, b, h, cuda)
     lengths = _lengths(rng, t, b, full=min(4, b))
     lens, starts = to(lengths), to((t - lengths).astype(np.int32))
 
@@ -365,7 +437,7 @@ def test_gru_each_instance_matches_plain(cuda, instance, h, t, b):
     zero = fused(geom, torch.zeros_like(lens))
     torch.cuda.synchronize()
     for g, r in zip(got, want):
-        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=1e-5, rtol=0)
+        _assert_close(g, r, 1e-5)
     assert all(torch.equal(a, g) for a, g in zip(again, got)), "differs between runs"
     assert all(torch.equal(a, g) for a, g in zip(other, got)), "resident != streamed"
     assert all(torch.equal(a, g) for a, g in zip(one, got)), "fused != single"
@@ -384,15 +456,17 @@ def _bn_weights(rng, h, to):
 # (h, t, b): the cluster instance (H <= 384 at these batches; B = 400 and 301
 # at dna-pre's width are two clusters of 16 a direction, each 4 row groups x 4
 # unit slices) and the cooperative kernel where no cluster holds the shape
-# (H = 512; 2500 rows)
+# (H = 512; 2500 rows; H = 384 at B = 64 and 301); DNA_default's layer over a
+# full window, and H = 384 / 512 over T = 100
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,t,b", [(16, 30, 19), (100, 30, 19), (128, 30, 19), (256, 12, 19),
                                    (384, 12, 19), (512, 12, 19), (128, 40, 400), (100, 30, 301),
-                                   (64, 8, 2500)])
+                                   (64, 8, 2500), (100, 30, 11), (128, 400, 400)]
+                         + [c for c in FULL_LSTM_CASES if c[0] > 256])
 def test_bnlstm_kernels_match_plain(cuda, h, t, b):
     rng = np.random.RandomState(400 + h)
     to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
-    xw_f, xw_b = (to(rng.randn(t, b, 4 * h).astype(np.float32)) for _ in range(2))
+    xw_f, xw_b = (_randn(rng, cuda, t, b, 4 * h) for _ in range(2))
     w_f, w_b = _bn_weights(rng, h, to), _bn_weights(rng, h, to)
     # eight full rows keep each step's variances well above eps
     lens = to(_lengths(rng, t, b, full=8))
@@ -403,8 +477,8 @@ def test_bnlstm_kernels_match_plain(cuda, h, t, b):
     assert tbn.instance_launches[geom.instance] == inst[geom.instance] + 1
     want_f, want_b = tbn.bibnlstm_layer_plain(xw_f, xw_b, w_f, w_b, lens)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(got_f.cpu().numpy(), want_f.cpu().numpy(), atol=1e-4, rtol=0)
-    np.testing.assert_allclose(got_b.cpu().numpy(), want_b.cpu().numpy(), atol=1e-4, rtol=0)
+    _assert_close(got_f, want_f, 1e-4)
+    _assert_close(got_b, want_b, 1e-4)
     # bit-stable from run to run
     again_f, again_b = tbn.bibnlstm_layer(xw_f, xw_b, w_f, w_b, lens)
     assert torch.equal(again_f, got_f) and torch.equal(again_b, got_b), "differs between runs"
@@ -415,11 +489,13 @@ def test_bnlstm_kernels_match_plain(cuda, h, t, b):
     one_f = tbn.bnlstm_layer(xw_f, *w_f, lens)
     one_b = tbn.bnlstm_layer(xw_b, *w_b, lens)
     assert tbn.launches["bnlstm"] == before["bnlstm"] + 2
+    _assert_close(one_f, want_f, 1e-4)
+    _assert_close(one_b, want_b, 1e-4)
     if tbn.geometry(b, h, 1) == geom:
         assert torch.equal(one_f, got_f) and torch.equal(one_b, got_b), "fused != single"
     else:
-        np.testing.assert_allclose(one_f.cpu().numpy(), got_f.cpu().numpy(), atol=1e-5, rtol=0)
-        np.testing.assert_allclose(one_b.cpu().numpy(), got_b.cpu().numpy(), atol=1e-5, rtol=0)
+        _assert_close(one_f, got_f, 1e-5)
+        _assert_close(one_b, got_b, 1e-5)
     zero = tbn.bnlstm_layer(xw_f, *w_f, torch.zeros_like(lens))
     assert not zero.any()
 
@@ -433,7 +509,7 @@ def test_bnlstm_kernels_match_plain(cuda, h, t, b):
 def test_bnlstm_each_instance_matches_plain(cuda, instance, h, t, b):
     rng = np.random.RandomState(500 + h + b)
     to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
-    xw_f, xw_b = (to(rng.randn(t, b, 4 * h).astype(np.float32)) for _ in range(2))
+    xw_f, xw_b = (_randn(rng, cuda, t, b, 4 * h) for _ in range(2))
     w_f, w_b = _bn_weights(rng, h, to), _bn_weights(rng, h, to)
     lens = to(_lengths(rng, t, b, full=min(8, b)))
     geom = tbn.geometry(b, h, 2)
@@ -455,27 +531,29 @@ def test_bnlstm_each_instance_matches_plain(cuda, instance, h, t, b):
     zero = fused(torch.zeros_like(lens))
     torch.cuda.synchronize()
     for g, r in zip(got, want):
-        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=1e-4, rtol=0)
+        _assert_close(g, r, 1e-4)
     assert all(torch.equal(a, g) for a, g in zip(again, got)), "differs between runs"
     assert all(torch.equal(a, g) for a, g in zip(one, got)), "fused != single"
     assert not any(z.any() for z in zero)
 
 
+# (h, t, b): short windows at every width and the training step's batch edges; the
+# full-window cases at the training step's batch (B = 300) in place of dna-pre's
 @pytest.mark.cuda
-@pytest.mark.parametrize("h,b", [(16, 19), (100, 19), (128, 19), (256, 19), (128, 1), (128, 24),
-                                 (7, 5), (128, 300), (128, 301), (100, 300), (256, 300),
-                                 (384, 64), (512, 301), (512, 1)])
-def test_lstm_grad_kernels_match_plain(cuda, h, b):
+@pytest.mark.parametrize("h,t,b", [(h, 37, b) for h, b in [
+    (16, 19), (100, 19), (128, 19), (256, 19), (128, 1), (128, 24), (7, 5), (128, 300),
+    (128, 301), (100, 300), (256, 300), (384, 64), (512, 301), (512, 1)]]
+                         + [(h, t, 300 if b == 400 else b) for h, t, b in FULL_LSTM_CASES])
+def test_lstm_grad_kernels_match_plain(cuda, h, t, b):
     rng = np.random.RandomState(100 + h)
-    t = 37
     to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
-    xw = to(rng.randn(t, b, 4 * h).astype(np.float32))
+    xw = _randn(rng, cuda, t, b, 4 * h)
     # at H = 256 weights of row norm ~1: 0.3 * randn makes the recurrence chaotic
     # there, and it then amplifies the sum-order residue past any tolerance; so
     # at B >= 300 too, where a few of the many rows reach that regime
-    scale = 0.3 if h <= 128 and b < 300 else 1.0 / np.sqrt(h)
+    scale = _wh_std(h, t, 0.3 if h <= 128 and b < 300 else 1.0 / np.sqrt(h))
     wh = to((rng.randn(h, 4 * h) * scale).astype(np.float32))
-    dhs = to(rng.randn(t, b, h).astype(np.float32))
+    dhs = _randn(rng, cuda, t, b, h)
     lengths = rng.randint(1, t, size=b).astype(np.int32)
     lengths[0], lengths[-1] = 0, t  # a single row is a full one
     lens = to(lengths)
@@ -486,13 +564,14 @@ def test_lstm_grad_kernels_match_plain(cuda, h, b):
     again = tlg.lstm_fwd_residuals(xw, wh, lens)
     torch.cuda.synchronize()
     assert all(torch.equal(a, g) for a, g in zip(again, got)), "differs between runs"
-    for g, r in zip(got, want):  # rtol: the carried c is unbounded and sums
-        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=1e-5, rtol=1e-4)
+    for g, r in zip(got, want):  # rtol: the carried c is unbounded and sums (at the
+        # main path's scale, over a full window, it stays bounded: 1e-5 absolute)
+        _assert_close(g, r, 1e-5, 0 if t >= 100 else 1e-4)
     dxw, dwh = tlg.lstm_bwd(*want[1:], dhs, wh, lens)
     assert tlg.launches["lstm_bwd"] == before["lstm_bwd"] + 1
     dxw_p, dwh_p = tlg.lstm_bwd_plain(*want[1:], dhs, wh, lens)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(dxw.cpu().numpy(), dxw_p.cpu().numpy(), atol=1e-4, rtol=0)
+    _assert_close(dxw, dxw_p, 1e-4)
     scale = float(dwh_p.abs().max())
     assert float((dwh - dwh_p).abs().max()) <= 1e-4 * scale
     dxw2, dwh2 = tlg.lstm_bwd(*want[1:], dhs, wh, lens)
@@ -501,25 +580,14 @@ def test_lstm_grad_kernels_match_plain(cuda, h, b):
     dxw_k, dwh_k = tlg.lstm_bwd(*got[1:], dhs, wh, lens)
     dxw_kp, dwh_kp = tlg.lstm_bwd_plain(*got[1:], dhs, wh, lens)
     torch.cuda.synchronize()
-    np.testing.assert_allclose(dxw_k.cpu().numpy(), dxw_kp.cpu().numpy(), atol=1e-4, rtol=0)
+    _assert_close(dxw_k, dxw_kp, 1e-4)
     assert float((dwh_k - dwh_kp).abs().max()) <= 1e-4 * float(dwh_kp.abs().max())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("seed,w,nclass,bonus", [(0, 8, 5, 0.0), (1, 30, 5, 0.6),
-                                                 (2, 50, 5, 0.0), (3, 8, 6, 0.7),
-                                                 (4, 64, 8, 1.5), (5, 65, 5, 0.6),
-                                                 (6, 100, 5, 0.0), (7, 256, 5, 0.6),
-                                                 (8, 30, 10, 0.6), (9, 32, 8, 0.0),
-                                                 (10, 1, 2, 0.0), (11, 17, 3, 0.6)])
-def test_beam_kernels_match_plain(cuda, seed, w, nclass, bonus):
-    rng = np.random.RandomState(seed)
-    b, t = 9, 40
-    logits = (rng.randn(b, t, nclass) * 2).astype(np.float32)
-    lens = rng.randint(1, t, size=b).astype(np.int32)
-    lens[0], lens[1] = 0, t
-    lp = torch.log_softmax(torch.tensor(logits, device=cuda), dim=-1)
-    sl = torch.tensor(lens, device=cuda)
+def _check_beam(lp, sl, w, bonus):
+    """The beam kernels against beam_search_plain on one lp tensor: bit-identical
+    across runs, the traces and the traceback exact, the log masses within 1e-4
+    where live and -1e30 where the plain version's are."""
     got = tbeam.beam_search(lp, sl, w, bonus)
     want = tbeam.beam_search_plain(lp, sl, w, bonus)
     again = tbeam.beam_search(lp, sl, w, bonus)
@@ -527,36 +595,63 @@ def test_beam_kernels_match_plain(cuda, seed, w, nclass, bonus):
     chars = tbeam.beam_traceback(got[0], best)
     torch.cuda.synchronize()
     assert all(torch.equal(a, g) for a, g in zip(again, got)), "differs between runs"
-    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
+    assert torch.equal(got[0], want[0]), "a trace differs"
     for g, r in zip(got[1:], want[1:]):
-        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=1e-4, atol=1e-4)
-    np.testing.assert_array_equal(chars.cpu().numpy(),
-                                  tbeam.beam_traceback_plain(got[0], best).cpu().numpy())
-    dg = tbeam.beam_search_decode(torch.tensor(logits, device=cuda), sl, w, bonus)
-    dc = tbeam.beam_search_decode(torch.tensor(logits), torch.tensor(lens), w, bonus)
+        live = r > -1e29
+        assert torch.equal(g > -1e29, live)
+        assert float((g - r)[live].abs().max()) <= 1e-4
+    assert torch.equal(chars, tbeam.beam_traceback_plain(got[0], best))
+
+
+# (seed, w, nclass, bonus, b, t): short windows, a warp's width and past it, 2-10
+# classes; W = 30 over a full dna-pre batch and window (the warp kernel), and the
+# block kernel's widths and ten classes over a full window
+BEAM_CASES = ([(s, w, c, bonus, 9, 40) for s, w, c, bonus in [
+    (0, 8, 5, 0.0), (1, 30, 5, 0.6), (2, 50, 5, 0.0), (3, 8, 6, 0.7), (4, 64, 8, 1.5),
+    (5, 65, 5, 0.6), (6, 100, 5, 0.0), (7, 256, 5, 0.6), (8, 30, 10, 0.6), (9, 32, 8, 0.0),
+    (10, 1, 2, 0.0), (11, 17, 3, 0.6)]]
+              + [(12, 30, 5, 0.6, 400, 400), (13, 65, 5, 0.6, 128, 400),
+                 (14, 100, 5, 0.6, 128, 400), (15, 256, 5, 0.6, 128, 400),
+                 (16, 30, 10, 0.6, 128, 400)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("peaky", [False, True])
+@pytest.mark.parametrize("seed,w,nclass,bonus,b,t", BEAM_CASES)
+def test_beam_kernels_match_plain(cuda, seed, w, nclass, bonus, b, t, peaky):
+    """Random scores, and peaky ones (a class 40 above the rest each step); the
+    decode on the card as on the CPU over the first 9 rows and 40 steps (the
+    CPU's search takes seconds a row over a full window at the widest beams)."""
+    rng = np.random.RandomState(seed)
+    logits = (rng.randn(b, t, nclass) * 2).astype(np.float32)
+    lens = rng.randint(1, t, size=b).astype(np.int32)
+    lens[0], lens[1] = 0, t
+    if peaky:
+        peak = rng.randint(0, nclass, (b, t, 1)) == np.arange(nclass)
+        logits = (logits / 4 + 40 * peak).astype(np.float32)
+    lp = torch.log_softmax(torch.tensor(logits, device=cuda), dim=-1)
+    _check_beam(lp, torch.tensor(lens, device=cuda), w, bonus)
+    crop = torch.tensor(logits[:9, :40]), torch.tensor(np.minimum(lens[:9], 40))
+    dg = tbeam.beam_search_decode(crop[0].to(cuda), crop[1].to(cuda), w, bonus)
+    dc = tbeam.beam_search_decode(*crop, w, bonus)
     np.testing.assert_array_equal(dg[0].cpu().numpy(), dc[0].numpy())
     np.testing.assert_array_equal(dg[1].cpu().numpy(), dc[1].numpy())
 
 
 # logits from {0, 1}: many candidates score exactly alike, besides the -1e30
 # sentinels of the first steps, so the warp kernel's rounds meet tied heads and
-# rerun with the pool-index tie break; the block kernel sorts the ties by index
+# rerun with the pool-index tie break; the block kernel sorts the ties by index.
+# Short windows, and W = 30 over a full dna-pre batch and window
 @pytest.mark.cuda
-@pytest.mark.parametrize("w", [8, 30, 100])
-def test_beam_kernels_exact_on_tied_scores(cuda, w):
+@pytest.mark.parametrize("w,b,t,bonus", [(8, 16, 60, 0.3), (30, 16, 60, 0.3), (100, 16, 60, 0.3),
+                                         (30, 400, 400, 0.6)])
+def test_beam_kernels_exact_on_tied_scores(cuda, w, b, t, bonus):
     rng = np.random.RandomState(w)
-    b, t = 16, 60
     logits = rng.randint(0, 2, size=(b, t, 5)).astype(np.float32)
     lens = rng.randint(1, t, size=b).astype(np.int32)
-    lens[0] = t
+    lens[0], lens[-1] = t, 0
     lp = torch.log_softmax(torch.tensor(logits, device=cuda), dim=-1)
-    sl = torch.tensor(lens, device=cuda)
-    got = tbeam.beam_search(lp, sl, w, 0.3)
-    want = tbeam.beam_search_plain(lp, sl, w, 0.3)
-    torch.cuda.synchronize()
-    np.testing.assert_array_equal(got[0].cpu().numpy(), want[0].cpu().numpy())
-    for g, r in zip(got[1:], want[1:]):
-        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    _check_beam(lp, torch.tensor(lens, device=cuda), w, bonus)
 
 
 def _ctc_case(seed, b, t, u, n_class, label_max=None):
@@ -610,8 +705,8 @@ def _ctc_kernels_vs_plain(cuda, case, fl_gamma=0.0):
     assert tctc.launches == {k: n + 2 for k, n in before.items()}
     torch.cuda.synchronize()
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]), "differs between runs"
-    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(), rtol=1e-5, atol=1e-4)
-    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(), atol=1e-5, rtol=0)
+    _assert_close(got[0], want[0], 1e-4, 1e-5)
+    _assert_close(got[1], want[1], 1e-5)
     ignored = label_len > logit_len
     assert not got[0].cpu().numpy()[ignored].any() and not got[1].cpu().numpy()[ignored].any()
     past = np.arange(logits.shape[1])[None, :] >= logit_len[:, None]
@@ -782,7 +877,7 @@ BF16_CONV_CASES = [
     (3, 1, 400, 256, 256, 1, True, 4),
     (3, 1, 130, 20, 72, 2, True, 3),    # ragged row and channel tiles
     (3, 1, 40, 3, 10, 1, True, 3),      # narrow input, C_out no multiple of 4
-]
+] + FULL_CONV_CASES
 
 
 @pytest.mark.cuda
@@ -790,14 +885,9 @@ BF16_CONV_CASES = [
 @pytest.mark.parametrize("aligned", [True, False])
 def test_conv_bn_bf16_kernel_matches_plain(cuda, k, stride, t, c_in, c_out, n_terms, relu_in,
                                            bsz, aligned):
-    rng = np.random.RandomState(k + stride + c_in + 7)
-    terms = []
-    for _ in range(n_terms):
-        raw = torch.tensor(rng.randn(bsz, t, c_in).astype(np.float32), device=cuda).to(BF16)
-        terms.append((raw if aligned else _unaligned(raw),
-                      torch.tensor((0.5 + rng.rand(c_in)).astype(np.float32), device=cuda),
-                      torch.tensor((rng.randn(c_in) * 0.2).astype(np.float32), device=cuda)))
-    w = torch.tensor((rng.randn(k, c_in, c_out) * 0.3).astype(np.float32), device=cuda)
+    terms, w = _conv_inputs(cuda, k, stride, c_in, c_out, n_terms, t, bsz, BF16)
+    if not aligned:
+        terms = [(_unaligned(r), a, b) for r, a, b in terms]
     before = dict(tconv.launches_by_dtype)
     got = tconv.conv_bn(terms, w, relu_in, stride, out_dtype=BF16)
     assert tconv.launches_by_dtype == {**before, "bfloat16": before["bfloat16"] + 1}
@@ -806,8 +896,7 @@ def test_conv_bn_bf16_kernel_matches_plain(cuda, k, stride, t, c_in, c_out, n_te
     torch.cuda.synchronize()
     assert got[0].dtype == BF16 and got[1].dtype == torch.float32
     _assert_bf16_close(got[0], want[0], 1e-4)
-    for g, r in zip(got[1:], want[1:]):
-        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    _assert_moments_close(got[1:], want[1:])
     assert all(torch.equal(a, g) for a, g in zip(again, got)), "differs between runs"
     if aligned:  # the same route as the float32 instance: its function, y rounded
         y32, s32, q32 = tconv.conv_bn([(r.float(), a, b) for r, a, b in terms], w, relu_in,
@@ -819,9 +908,10 @@ def test_conv_bn_bf16_kernel_matches_plain(cuda, k, stride, t, c_in, c_out, n_te
 # (h, t, b): gate widths no multiple of 8 (20, 12: 4-byte copies of two bf16),
 # odd (21: element copies), RNA_default's 100 (a ragged slice of 50 a block),
 # DNA_default's 128 (16-byte copies) at dna-pre's batch, batch edges, and 384
-# (wh from device memory)
+# (wh from device memory); DNA_default's and RNA_default's layers over a full window
 BF16_LSTM_CASES = [(20, 30, 11), (12, 30, 11), (21, 30, 11), (100, 40, 400), (100, 30, 1),
-                   (128, 40, 400), (128, 30, 301), (128, 30, 1), (384, 20, 64)]
+                   (128, 40, 400), (128, 30, 301), (128, 30, 1), (384, 20, 64),
+                   (128, 400, 400), (100, 400, 400), (128, 400, 1), (128, 400, 301)]
 
 
 @pytest.mark.cuda
@@ -829,8 +919,9 @@ BF16_LSTM_CASES = [(20, 30, 11), (12, 30, 11), (21, 30, 11), (100, 40, 400), (10
 def test_lstm_inference_bf16_kernels_match_plain(cuda, h, t, b):
     rng = np.random.RandomState(300 + h + b)
     to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
-    xw_f, xw_b = (to(rng.randn(t, b, 4 * h).astype(np.float32)).to(BF16) for _ in range(2))
-    wh_f, wh_b = (to((rng.randn(h, 4 * h) / np.sqrt(h)).astype(np.float32)) for _ in range(2))
+    xw_f, xw_b = (_randn(rng, cuda, t, b, 4 * h).to(BF16) for _ in range(2))
+    scale = _wh_std(h, t, 1.0 / np.sqrt(h))
+    wh_f, wh_b = (to((rng.randn(h, 4 * h) * scale).astype(np.float32)) for _ in range(2))
     lengths = _lengths(rng, t, b)
     lens, starts = to(lengths), to((t - lengths).astype(np.int32))
     before = (dict(tbl.launches_by_dtype), dict(tlstm.launches_by_dtype))
@@ -858,7 +949,7 @@ def test_lstm_inference_bf16_kernels_take_2_byte_aligned_xw(cuda, h):
     rng = np.random.RandomState(400 + h)
     t, b = 20, 9
     to = lambda a: torch.tensor(a, device=cuda)  # noqa: E731
-    xw_f, xw_b = (to(rng.randn(t, b, 4 * h).astype(np.float32)).to(BF16) for _ in range(2))
+    xw_f, xw_b = (_randn(rng, cuda, t, b, 4 * h).to(BF16) for _ in range(2))
     wh_f, wh_b = (to((rng.randn(h, 4 * h) / np.sqrt(h)).astype(np.float32)) for _ in range(2))
     lengths = _lengths(rng, t, b)
     lens, starts = to(lengths), to((t - lengths).astype(np.int32))
